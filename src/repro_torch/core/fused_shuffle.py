@@ -1,0 +1,329 @@
+"""Coded Shuffle of K virtual servers on one card (the fused sparse path).
+
+Port of the reference package's flat fused Shuffle (`FusedSparseShuffle`
+and `partition_plan` in its `core/fused_shuffle.py`), which runs one
+server per TPU device under shard_map with one all_gather of packed coded
+buffers. On one H100 the K servers are virtual and every buffer lives in
+the same device memory, so the all_gather becomes one [K, W + 1(, B)]
+tensor whose column W is zero:
+
+  * `partition_plan` (host NumPy, bitwise the reference's tables) splits a
+    compiled CSR `ShufflePlan` per server: each server's Map slice
+    (`loc_e`, the CSR entries whose source vertex it Mapped) plus its
+    encode/decode/strip tables. The tables go to the device once.
+  * encode - kernel K1 (`kernels/xor_code`, `xor_encode_gather`): per server
+    and buffer column, gather the slot values from the Map output through
+    `loc_e`, byteswap the float bits into codec order, shift, mask and XOR
+    over the r slots, straight into the shared buffer tensor.
+  * exchange - nothing moves: every receiver reads the senders' columns in
+    place. The span carries the schedule's bits-on-the-wire.
+  * decode - kernel K2 (`xor_decode_gather`): per receiver and delivery,
+    read the coded words, strip the slots it recomputes from its own Map
+    slice, mask, shift back and OR, writing codec-order words straight
+    into the flat (k, i, j) delivery order of the plan.
+
+Nothing returns to the host between Map and Reduce. Delivered words are
+bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
+axis B rides the same tables (column b is bitwise the unbatched exchange
+of column b). While the tracer is enabled each phase synchronises the card
+at the end of its span, so spans time device work; disabled, nothing
+synchronises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.xor_code.xor_code import xor_decode_gather, xor_encode_gather
+from ..obs import get_tracer
+from .allocation import Allocation
+from .bitcodec import (floats_to_words, np_words_to_t, t_words_to_np,
+                       words_to_floats)
+from .graph_models import CSR
+from .shuffle_plan import PlanShuffleResult, ShufflePlan, _run_ranks
+
+FULL_MASK = np.uint32(0xFFFFFFFF)
+
+
+def _sender_layout(plan: ShufflePlan) -> tuple[np.ndarray, np.ndarray]:
+    """Per-sender packing of the plan's coded columns.
+
+    Deterministic order within each sender: (group, in-group column rank).
+    Returns (colpos [C] - position of column c in its sender's buffer,
+    ncols [K] - coded-column count per sender).
+    """
+    order = np.lexsort((plan.col_rank, plan.col_gm, plan.col_sender))
+    _, rank = _run_ranks(plan.col_sender[order])
+    colpos = np.empty(plan.col_sender.size, dtype=np.int64)
+    colpos[order] = rank
+    ncols = np.bincount(plan.col_sender, minlength=plan.K)
+    return colpos, ncols
+
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedSparseSchedule:
+    """Per-server partition of a compiled CSR plan (all arrays plan-sized).
+
+    Row k of every array is everything virtual server k needs for one
+    coded Shuffle: `loc_e` selects the [nnz] edge values it Mapped (column
+    vertex in M_k - O(r nnz / K) entries), the `enc_*` tables lay its coded
+    columns (+ its unicast leftovers, as single-slot full-width columns)
+    into a [W]-word buffer, and the `dec_*`/`strip_*` tables recover its
+    delivery slice from the [K, W] buffer matrix.
+
+    Sentinels: local index `Lmax` is a guaranteed-zero word; buffer column
+    `W` is a guaranteed-zero column (written by the encode); masks of
+    sentinel slots are 0, so they OR/XOR away - encode and decode are plain
+    gather-shift-mask pipelines with no control flow.
+    """
+
+    K: int
+    r: int
+    W: int                        # per-sender buffer width (words)
+    Lmax: int                     # max local-value count over servers
+    Dmax: int                     # max delivery count over receivers
+    loc_e: np.ndarray             # [K, Lmax] int64 CSR entry (nnz = zero pad)
+    enc_l: np.ndarray             # [K, W, r] int32 local index (Lmax = zero)
+    enc_shift: np.ndarray         # [K, W, r] uint32 segment left-shift
+    enc_mask: np.ndarray          # [K, W, r] uint32 segment keep-mask
+    dec_s: np.ndarray             # [K, Dmax, r] int32 sender of segment t
+    dec_w: np.ndarray             # [K, Dmax, r] int32 buffer column (W = zero)
+    dec_mask: np.ndarray          # [K, Dmax, r] uint32 own-slot keep-mask
+    dec_shift: np.ndarray         # [K, Dmax, r] uint32 shift back into place
+    strip_l: np.ndarray           # [K, Dmax, r, r-1] int32 local index
+    strip_shift: np.ndarray       # [K, Dmax, r, r-1] uint32
+    strip_mask: np.ndarray        # [K, Dmax, r, r-1] uint32
+
+
+
+def partition_plan(plan: ShufflePlan, csr: CSR,
+                   alloc: Allocation) -> FusedSparseSchedule:
+    """Partition a compiled plan per server for the fused sparse path.
+
+    Pure compile-time layout (no data), bitwise equal to the reference's
+    flat `partition_plan`: every output array is [nnz]- or [plan]-sized.
+    Unicast leftovers are assigned to the smallest server that Mapped their
+    column vertex and appended to that sender's buffer as single-slot
+    full-width columns, so they ride the same exchange.
+    """
+    plan._require_schedule()
+    tables = plan.edge_tables(csr, alloc)     # locates edges + validates
+    K, r = plan.K, plan.r
+    C = plan.col_sender.size
+    Pn = plan.pair_k.size
+    L = plan.left_k.size
+    nstrip = max(r - 1, 0)
+
+    colpos, ncols = _sender_layout(plan)
+
+    # Leftover layout: sender = smallest mapper of the column vertex,
+    # appended after that sender's coded columns (stable (k, i, j) order).
+    if L:
+        lsender = np.argmax(alloc.map_sets[:, plan.left_j], axis=0)
+        if not alloc.map_sets[lsender, plan.left_j].all():
+            raise RuntimeError("leftover value has no Mapping server")
+        lorder = np.argsort(lsender, kind="stable")
+        _, lrank = _run_ranks(lsender[lorder])
+        leftw = np.empty(L, dtype=np.int64)
+        leftw[lorder] = ncols[lsender[lorder]] + lrank
+        nleft = np.bincount(lsender, minlength=K)
+    else:
+        lsender = np.zeros(0, dtype=np.int64)
+        leftw = np.zeros(0, dtype=np.int64)
+        nleft = np.zeros(K, dtype=np.int64)
+    W = max(int((ncols + nleft).max()), 1)
+
+    # Per-server local Map slices: CSR entries whose column vertex the
+    # server Mapped (it can recompute exactly these values locally).
+    member = alloc.map_sets[:, csr.indices]             # [K, nnz] bool
+    counts = member.sum(axis=1)
+    Lmax = max(int(counts.max()), 1)
+    loc_e = np.full((K, Lmax), csr.nnz, dtype=np.int64)  # nnz = zero pad
+
+    # --- encode tables: valid plan slots + leftover slots, per sender ---
+    enc_l = np.full((K, W, r), Lmax, dtype=np.int32)     # Lmax = zero word
+    enc_shift = np.zeros((K, W, r), dtype=np.uint32)
+    enc_mask = np.zeros((K, W, r), dtype=np.uint32)
+    cs, sl = np.nonzero(plan.slot_pair < Pn) if C else (
+        np.zeros(0, np.int64), np.zeros(0, np.int64))
+    e_of_slot = tables.pair_e[plan.slot_pair[cs, sl]] if cs.size else cs
+    s_of_slot = plan.col_sender[cs] if cs.size else cs
+
+    # --- decode tables, first in flat (k, i, j) delivery order ---
+    M = plan.all_k.size
+    f_s = np.zeros((M, r), dtype=np.int32)
+    f_w = np.full((M, r), W, dtype=np.int32)             # W = zero column
+    f_mask = np.zeros((M, r), dtype=np.uint32)
+    f_shift = np.zeros((M, r), dtype=np.uint32)
+    f_sl = np.full((M, r, nstrip), Lmax, dtype=np.int32)
+    f_ssh = np.zeros((M, r, nstrip), dtype=np.uint32)
+    f_smk = np.zeros((M, r, nstrip), dtype=np.uint32)
+    if Pn:
+        mpos = plan.pos_covered
+        c, slot = plan.pair_col, plan.pair_slot          # [P, r]
+        f_s[mpos] = plan.col_sender[c]
+        f_w[mpos] = colpos[c]
+        f_mask[mpos] = plan.slot_mask[c, slot]
+        f_shift[mpos] = np.broadcast_to(plan.seg_shift[None, :], (Pn, r))
+        if nstrip:
+            ar = np.broadcast_to(np.arange(r)[None, None, :], (Pn, r, r))
+            others = ar[~(ar == slot[..., None])].reshape(Pn, r, nstrip)
+            c3 = np.broadcast_to(c[:, :, None], (Pn, r, nstrip))
+            sp = plan.slot_pair[c3, others]              # [P, r, r-1]
+            svalid = sp < Pn
+            f_ssh[mpos] = plan.slot_shift[c3, others]
+            f_smk[mpos] = plan.slot_mask[c3, others]
+            e_strip = tables.pair_e[np.minimum(sp, max(Pn - 1, 0))]
+    if L:
+        f_s[plan.pos_left, 0] = lsender
+        f_w[plan.pos_left, 0] = leftw
+        f_mask[plan.pos_left, 0] = FULL_MASK             # full word, shift 0
+
+    # --- per-server local index conversions (one vectorized pass each) ---
+    for k in range(K):
+        lset = np.flatnonzero(member[k])
+        loc_e[k, :lset.size] = lset
+        lpos = np.cumsum(member[k]) - 1                  # entry -> local idx
+        if cs.size:
+            m = s_of_slot == k                           # encode slots k sends
+            if not member[k][e_of_slot[m]].all():
+                raise RuntimeError(f"sender {k} schedules a value it "
+                                   "did not Map")
+            enc_l[k, colpos[cs[m]], sl[m]] = lpos[e_of_slot[m]]
+            enc_shift[k, colpos[cs[m]], sl[m]] = plan.slot_shift[cs[m], sl[m]]
+            enc_mask[k, colpos[cs[m]], sl[m]] = plan.slot_mask[cs[m], sl[m]]
+        if L:
+            m = lsender == k                             # leftovers k unicasts
+            if not member[k][tables.left_e[m]].all():
+                raise RuntimeError(f"sender {k} unicasts a value it "
+                                   "did not Map")
+            enc_l[k, leftw[m], 0] = lpos[tables.left_e[m]]
+            enc_mask[k, leftw[m], 0] = FULL_MASK         # full word, shift 0
+        if Pn and nstrip:
+            m = plan.pair_k == k                         # strips k recomputes
+            li = np.where(svalid[m], lpos[e_strip[m]], Lmax)
+            if not (member[k][e_strip[m]] | ~svalid[m]).all():
+                raise RuntimeError(f"receiver {k} must strip a value it "
+                                   "did not Map")
+            f_sl[plan.pos_covered[m]] = li.astype(np.int32)
+
+    # --- scatter the flat decode tables into per-receiver padded rows ---
+    dcount = np.diff(plan.ptr)
+    Dmax = max(int(dcount.max()) if K else 0, 1)
+    kk = plan.all_k
+    dd = np.arange(M, dtype=np.int64) - plan.ptr[kk]
+    dec_s = np.zeros((K, Dmax, r), dtype=np.int32)
+    dec_w = np.full((K, Dmax, r), W, dtype=np.int32)
+    dec_mask = np.zeros((K, Dmax, r), dtype=np.uint32)
+    dec_shift = np.zeros((K, Dmax, r), dtype=np.uint32)
+    strip_l = np.full((K, Dmax, r, nstrip), Lmax, dtype=np.int32)
+    strip_shift = np.zeros((K, Dmax, r, nstrip), dtype=np.uint32)
+    strip_mask = np.zeros((K, Dmax, r, nstrip), dtype=np.uint32)
+    dec_s[kk, dd] = f_s
+    dec_w[kk, dd] = f_w
+    dec_mask[kk, dd] = f_mask
+    dec_shift[kk, dd] = f_shift
+    strip_l[kk, dd] = f_sl
+    strip_shift[kk, dd] = f_ssh
+    strip_mask[kk, dd] = f_smk
+
+    return FusedSparseSchedule(
+        K=K, r=r, W=W, Lmax=Lmax, Dmax=Dmax, loc_e=loc_e,
+        enc_l=enc_l, enc_shift=enc_shift, enc_mask=enc_mask,
+        dec_s=dec_s, dec_w=dec_w, dec_mask=dec_mask, dec_shift=dec_shift,
+        strip_l=strip_l, strip_shift=strip_shift, strip_mask=strip_mask)
+
+
+def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload an index/word table as int32 (uint32 bits kept as-is)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.size and (a.min() < -2 ** 31 or a.max() >= 2 ** 31):
+        raise ValueError("table does not fit int32 indexing")
+    return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+
+
+class FusedSparseShuffle:
+    """Upload-once / replay-every-iteration coded Shuffle on one card.
+
+    `execute` is a drop-in peer of `ShufflePlan.execute_coded_sparse` (same
+    [nnz] edge values in, same `PlanShuffleResult` out); `exchange` is the
+    device form the engine uses (float32 tensor in, int32 codec-word tensor
+    out, no host round trip).
+    """
+
+    def __init__(self, plan: ShufflePlan, csr: CSR, alloc: Allocation, *,
+                 device: str | torch.device | None = "cuda"):
+        self.device = resolve_device(device)
+        self.plan = plan
+        self.nnz = csr.nnz
+        self.sched = partition_plan(plan, csr, alloc)
+        self.schedule_bits = plan.coded_bits + plan.leftover_bits
+        s, dev = self.sched, self.device
+        self.M = int(plan.all_k.size)
+        self.tables = {name: _i32(getattr(s, name), dev) for name in (
+            "loc_e", "enc_l", "enc_shift", "enc_mask", "dec_s", "dec_w",
+            "dec_mask", "dec_shift", "strip_l", "strip_shift", "strip_mask")}
+        self.tables["ptr"] = _i32(plan.ptr, dev)
+
+    def _sync(self, tr) -> None:
+        if tr.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def exchange(self, edge_vals: torch.Tensor) -> torch.Tensor:
+        """One coded Shuffle on the device.
+
+        edge_vals [nnz] (or [nnz, B]) float32 Map output on this device ->
+        delivered codec-order words [M] (or [M, B]) int32, in the plan's
+        flat (k, i, j) order, bitwise what `execute_coded_sparse` delivers.
+        """
+        if edge_vals.dtype != torch.float32 or edge_vals.shape[0] != self.nnz:
+            raise ValueError(
+                f"edge_vals must be float32 [nnz={self.nnz}(, B)], got "
+                f"{edge_vals.dtype} {tuple(edge_vals.shape)}")
+        return self._exchange_bits(edge_vals.contiguous().view(torch.int32),
+                                   swap=True)
+
+    def _exchange_bits(self, src: torch.Tensor, swap: bool) -> torch.Tensor:
+        t, tr = self.tables, get_tracer()
+        B = 1 if src.dim() == 1 else int(src.shape[1])
+        with tr.span("phase.encode", backend="fused", B=B, nnz=self.nnz):
+            buf = xor_encode_gather(src, t["loc_e"], t["enc_l"],
+                                    t["enc_shift"], t["enc_mask"], swap=swap)
+            self._sync(tr)
+        with tr.span("phase.exchange", backend="fused",
+                     bits=self.schedule_bits * B, B=B, K=self.sched.K):
+            self._sync(tr)
+        with tr.span("phase.decode", backend="fused", B=B, deliveries=self.M):
+            words = xor_decode_gather(
+                src, t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
+                t["dec_shift"], t["strip_l"], t["strip_shift"],
+                t["strip_mask"], t["ptr"], swap=swap, total=self.M)
+            self._sync(tr)
+        return words
+
+    def exchange_words(self, edge_words: np.ndarray) -> np.ndarray:
+        """One coded Shuffle on codec-order uint32 words (host arrays).
+
+        edge_words [nnz] (or [nnz, B]) -> recovered delivery words [M] (or
+        [M, B]) in the plan's (k, i, j) order, bitwise equal to what
+        `execute_coded_sparse` delivers.
+        """
+        w = np_words_to_t(edge_words).to(self.device)
+        return t_words_to_np(self._exchange_bits(w, swap=False))
+
+    def execute(self, edge_vals) -> PlanShuffleResult:
+        """Drop-in peer of `ShufflePlan.execute_coded_sparse` (host arrays
+        in and out; batched [nnz, B] edge values supported the same way)."""
+        plan = self.plan
+        edge_vals = np.asarray(edge_vals, np.float32)
+        words = self.exchange_words(floats_to_words(edge_vals))
+        B = edge_vals.shape[1] if edge_vals.ndim == 2 else 1
+        return PlanShuffleResult(plan.all_k, plan.all_i, plan.all_j,
+                                 words_to_floats(words), plan.ptr,
+                                 self.schedule_bits * B, plan.n)

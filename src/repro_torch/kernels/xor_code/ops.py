@@ -1,0 +1,63 @@
+"""Public XOR encode/decode ops under the reference package's names.
+
+Same contracts as `repro.kernels.xor_code.ops` (words are int32 tensors
+holding the uint32 bits). On CUDA tensors they launch the hand-written
+kernels of `xor_code.py`; on CPU tensors those wrappers run the plain
+versions in `ref.py`. The reference's 128-lane TPU tile fold has no
+counterpart: the CUDA kernels take the columns as they are.
+"""
+from __future__ import annotations
+
+import torch
+
+from .xor_code import xor_encode_dense, xor_encode_gather
+
+
+def xor_encode(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """rows [r, C, W] int32, valid [r, C] bool -> coded [C, W] int32."""
+    return xor_encode_dense(rows, valid)
+
+
+def xor_decode(coded: torch.Tensor, known_rows: torch.Tensor,
+               known_valid: torch.Tensor) -> torch.Tensor:
+    """coded [C, W]; known_rows [r-1, C, W]; -> missing segments [C, W]."""
+    return coded ^ xor_encode(known_rows, known_valid)
+
+
+def xor_encode_columns(slot_words: torch.Tensor) -> torch.Tensor:
+    """[C, r] slot words -> [C] coded columns; [C, r, B] -> [C, B].
+
+    Invalid slots are zero words, so every slot is valid to the kernel.
+    """
+    if slot_words.dim() == 3:                      # [C, r, B] payloads
+        rows = slot_words.permute(1, 0, 2).contiguous()       # [r, C, B]
+    else:
+        rows = slot_words.t().contiguous()[..., None]         # [r, C, 1]
+    valid = torch.ones(rows.shape[:2], dtype=torch.bool, device=rows.device)
+    out = xor_encode(rows, valid)
+    return out if slot_words.dim() == 3 else out[:, 0]
+
+
+def xor_strip_columns(slot_words: torch.Tensor) -> torch.Tensor:
+    """Per-slot strip words: strip[:, t] = XOR of the OTHER slots ([C, r]
+    or [C, r, B] in, same shape out)."""
+    cols = []
+    for t in range(slot_words.shape[1]):
+        others = slot_words.clone()
+        others[:, t] = 0
+        cols.append(xor_encode_columns(others))
+    return torch.stack(cols, dim=1)
+
+
+def xor_encode_slots(loc: torch.Tensor, idx: torch.Tensor, shift: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """One server's packed coded buffer through K1's gather form.
+
+    loc [L+1] (or [L+1, B]) int32 codec words, last entry 0 = sentinel;
+    idx [W, r] int into loc; shift/mask [W, r] int32 -> [W] (or [W, B]).
+    """
+    buf = xor_encode_gather(loc.contiguous(), None,
+                            idx.to(torch.int32).contiguous()[None],
+                            shift.contiguous()[None], mask.contiguous()[None],
+                            swap=False)
+    return buf[0, :-1]

@@ -1,0 +1,249 @@
+"""Port fused coded Shuffle + engine vs the reference package (on the CPU).
+
+* Delivered words of the port's `FusedSparseShuffle` (virtual servers, the
+  K1/K2 plain versions on the CPU) are bitwise equal to the reference's
+  `ShufflePlan.execute_coded_sparse` over er/pl/sbm/rb x pagerank/sssp x
+  spill x B in {1, 3}, with exact bits.
+* `engine.compile(...).run(10)` of the port against the reference's
+  `engine.run(..., mode="coded", path="sparse")`: bitwise for min/integer
+  programs, within rtol 1e-5 for float sums (sequential sums against
+  `np.add.reduceat`), `shuffle_bits` and `loads()` exactly equal.
+* One subprocess with 4 forced host devices holds the port's words against
+  the reference's `FusedSparseShuffle(..., encode="xor-kernel")`, the JAX
+  route that reaches the Pallas kernel.
+* No fallback: without CUDA, `device=None` (the card) raises.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro import graphs as r_graphs
+from repro.core import algorithms as r_algo
+from repro.core import engine as r_engine
+from repro.core.allocation import (bipartite_allocation, divisible_n,
+                                   er_allocation)
+from repro.core.bitcodec import floats_to_words
+from repro.core.shuffle_plan import compile_plan_csr as r_compile
+from repro_torch.core import algorithms as t_algo
+from repro_torch.core import convert
+from repro_torch.core import engine as t_engine
+from repro_torch.core.fused_shuffle import FusedSparseShuffle
+
+SUM_RTOL = 1e-5
+
+
+def _case(model):
+    if model == "er":
+        n = divisible_n(48, 4, 2)
+        return r_graphs.erdos_renyi(n, 0.2, seed=11), er_allocation(n, 4, 2)
+    if model == "pl":
+        n = divisible_n(60, 4, 2)
+        return r_graphs.power_law(n, 2.5, seed=9), er_allocation(n, 4, 2)
+    if model == "rb":
+        return (r_graphs.random_bipartite(48, 24, 0.3, seed=5),
+                bipartite_allocation(48, 24, 6, 2))
+    if model == "sbm":
+        return (r_graphs.stochastic_block(48, 24, 0.25, 0.1, seed=5),
+                bipartite_allocation(48, 24, 6, 2))
+    if model == "spill":
+        return (r_graphs.random_bipartite(48, 24, 0.3, seed=5),
+                bipartite_allocation(48, 24, 6, 3))
+    if model == "er-20k":
+        n = divisible_n(20_000, 4, 2)
+        return r_graphs.erdos_renyi(n, 8.0 / n, seed=21), er_allocation(n, 4, 2)
+    raise ValueError(model)
+
+
+def _port(g, alloc):
+    csr = g.csr
+    fields = {f.name: getattr(alloc, f.name)
+              for f in dataclasses.fields(alloc)}
+    return (convert.graph(csr.indptr, csr.indices, csr.rows,
+                          g.edge_weights()),
+            convert.allocation(fields))
+
+
+def _programs(name, n, B):
+    """(reference program, port program) of one name at batch width B."""
+    rng = np.random.default_rng(n + B)
+    if name == "pagerank" and B == 1:
+        return r_algo.pagerank(), t_algo.pagerank()
+    if name == "pagerank":
+        prefs = rng.random((n, B)).astype(np.float32)
+        prefs /= prefs.sum(axis=0)
+        return (r_algo.personalized_pagerank(prefs),
+                t_algo.personalized_pagerank(prefs))
+    roots = [0, n // 3, n - 1][:B]
+    if name == "sssp" and B == 1:
+        return r_algo.sssp(0), t_algo.sssp(0)
+    if name == "sssp":
+        return r_algo.multi_sssp(roots), t_algo.multi_sssp(roots)
+    if name == "cc":
+        return r_algo.connected_components(), t_algo.connected_components()
+    if name == "degree":
+        return r_algo.degree_count(), t_algo.degree_count()
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("prog", ["pagerank", "sssp"])
+@pytest.mark.parametrize("model", ["er", "pl", "sbm", "rb", "spill"])
+def test_delivered_words_bitwise(model, prog, B):
+    g, alloc = _case(model)
+    tg, ta = _port(g, alloc)
+    rprog, _ = _programs(prog, g.n, B)
+    ev = rprog.map_edge_values(g, rprog.init(g)).astype(np.float32)
+    plan = r_compile(g.csr, alloc)
+    want = plan.execute_coded_sparse(ev, plan.edge_tables(g.csr, alloc))
+    fx = FusedSparseShuffle(convert.shuffle_plan(
+        {f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)}),
+        tg.csr, ta, device="cpu")
+    got = fx.execute(ev)
+    np.testing.assert_array_equal(floats_to_words(got.values),
+                                  floats_to_words(want.values))
+    assert got.bits_sent == want.bits_sent
+    for f in ("k", "i", "j", "ptr"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    # the device-tensor entry point delivers the same words
+    words = fx.exchange(torch.from_numpy(ev))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                  floats_to_words(want.values))
+    if model == "spill":
+        assert plan.left_k.size > 0
+
+
+def _check_run(model, prog, B, iters=10):
+    g, alloc = _case(model)
+    tg, ta = _port(g, alloc)
+    rprog, tprog = _programs(prog, g.n, B)
+    want = r_engine.run(rprog, g, alloc, iters, mode="coded", path="sparse")
+    eng = t_engine.compile(tprog, tg, ta, device="cpu")
+    got = eng.run(iters)
+    st = got.state.numpy()
+    assert st.shape == want.state.shape and st.dtype == np.float32
+    if tprog.reduce_op == "sum":
+        np.testing.assert_allclose(st, want.state, rtol=SUM_RTOL, atol=0)
+    else:
+        np.testing.assert_array_equal(st.view(np.uint32),
+                                      want.state.view(np.uint32))
+    assert got.shuffle_bits == want.shuffle_bits
+    assert got.normalized_load == want.normalized_load
+    return g, alloc, eng
+
+
+@pytest.mark.parametrize("prog,B", [("pagerank", 1), ("sssp", 1), ("cc", 1),
+                                    ("degree", 1), ("pagerank", 3),
+                                    ("sssp", 3)])
+@pytest.mark.parametrize("model", ["er", "pl", "sbm", "spill"])
+def test_engine_matches_reference(model, prog, B):
+    _check_run(model, prog, B)
+
+
+def test_engine_20k_pagerank_and_sssp():
+    g, alloc, eng = _check_run("er-20k", "pagerank", 1)
+    ref = r_engine.run(r_algo.sssp(0), g, alloc, 10, mode="coded",
+                       path="sparse")
+    got = eng.with_program(t_algo.sssp(0)).run(10)
+    np.testing.assert_array_equal(got.state.numpy().view(np.uint32),
+                                  ref.state.view(np.uint32))
+    assert got.shuffle_bits == ref.shuffle_bits
+
+
+def test_loads_with_program_and_run_batch():
+    g, alloc = _case("er")
+    tg, ta = _port(g, alloc)
+    eng = t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu")
+    ref = r_engine.compile(r_algo.pagerank(), g, alloc, "coded")
+    assert eng.loads() == ref.loads()
+    roots = [0, 5, 17]
+    multi = eng.with_program(t_algo.multi_sssp(roots))
+    assert multi.plan is eng.plan and multi.fused is eng.fused
+    cols = [t_algo.sssp(s).init(tg) for s in roots]
+    res = multi.run_batch(cols, 10)
+    want = r_engine.run(r_algo.multi_sssp(roots), g, alloc, 10, mode="coded",
+                        path="sparse")
+    np.testing.assert_array_equal(res.state.numpy().view(np.uint32),
+                                  want.state.view(np.uint32))
+    assert res.batch == 3
+    assert res.shuffle_bits == 3 * 10 * (eng.plan.coded_bits
+                                         + eng.plan.leftover_bits)
+    with pytest.raises(ValueError, match="states must be"):
+        multi.run_batch(np.zeros((g.n + 1, 2), np.float32), 1)
+
+
+def test_no_fallback_without_cuda(monkeypatch):
+    g, alloc = _case("er")
+    tg, ta = _port(g, alloc)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            t_engine.compile(t_algo.pagerank(), tg, ta, device=device)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            t_engine.run(t_algo.pagerank(), tg, ta, 1, device=device)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(mode="uncoded"), "Queue 1 #13"),
+    (dict(path="dense"), "Queue 1 #13"),
+    (dict(backend="spmv"), "Queue 1 #5"),
+    (dict(topology=object()), "Queue 1 #8"),
+])
+def test_unported_options_name_their_roadmap_item(kw, match):
+    g, alloc = _case("er")
+    tg, ta = _port(g, alloc)
+    with pytest.raises(NotImplementedError, match=match):
+        t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu", **kw)
+
+
+SCRIPT_PALLAS = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import dataclasses, json
+import numpy as np
+from repro import graphs
+from repro.core import algorithms as algo
+from repro.core.allocation import divisible_n, er_allocation
+from repro.core.bitcodec import floats_to_words
+from repro.core.fused_shuffle import FusedSparseShuffle as RefShuffle
+from repro.core.shuffle_plan import compile_plan_csr
+from repro_torch.core import convert
+from repro_torch.core.fused_shuffle import FusedSparseShuffle
+
+out = {}
+for model, g in (("er", graphs.erdos_renyi(divisible_n(48, 4, 2), 0.2, seed=11)),
+                 ("pl", graphs.power_law(divisible_n(60, 4, 2), 2.5, seed=9))):
+    alloc = er_allocation(g.n, 4, 2)
+    plan = compile_plan_csr(g.csr, alloc)
+    ref = RefShuffle(plan, g.csr, alloc, encode="xor-kernel")
+    f = lambda o: {x.name: getattr(o, x.name) for x in dataclasses.fields(o)}
+    port = FusedSparseShuffle(
+        convert.shuffle_plan(f(plan)),
+        convert.graph(g.csr.indptr, g.csr.indices, g.csr.rows).csr,
+        convert.allocation(f(alloc)), device="cpu")
+    for prog in (algo.pagerank(), algo.sssp(0)):
+        ew = floats_to_words(prog.map_edge_values(g, prog.init(g))
+                             .astype(np.float32))
+        out[f"{model}_{prog.name}"] = bool(np.array_equal(
+            ref.exchange_words(ew), port.exchange_words(ew)))
+    ew3 = np.random.default_rng(1).integers(0, 2**32, (g.csr.nnz, 3),
+                                            dtype=np.uint32)
+    out[f"{model}_B3"] = bool(np.array_equal(ref.exchange_words(ew3),
+                                             port.exchange_words(ew3)))
+print(json.dumps(out))
+"""
+
+
+def test_words_bitwise_vs_reference_pallas_route_4_devices():
+    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin",
+           "HOME": os.environ.get("HOME", "/tmp"), "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT_PALLAS],
+                          capture_output=True, text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res and all(res.values()), res

@@ -1,0 +1,79 @@
+"""Port gather + segmented reduce (K3, plain version on the CPU) vs the
+reference's `algorithms.segment_reduce`.
+
+The port reduces concat(edge_vals, floats(delivered codec words))[gather]
+per CSR row. `min` must be bitwise equal to `np.minimum.reduceat`; `sum`
+within rtol 1e-5, because `np.add.reduceat` does not add sequentially
+while the port's kernel (and `index_add_` on the CPU) does. Empty rows get
+the identity; B > 1 payload columns reduce independently.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.algorithms import segment_reduce as r_segment_reduce
+from repro_torch.core import algorithms as t_algo
+from repro_torch.core.bitcodec import floats_to_words
+from repro_torch.kernels.segment_reduce import ops as t_ops
+
+SUM_RTOL = 1e-5
+
+
+def _case(seed, n, avg_deg, M, B, empty_frac=0.2):
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 2 * avg_deg + 1, size=n)
+    deg[rng.random(n) < empty_frac] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    nnz = int(indptr[-1])
+    gather = rng.permutation(nnz + M)[:nnz]
+    shape = lambda m: (m, B) if B > 1 else (m,)  # noqa: E731
+    ev = rng.standard_normal(shape(nnz)).astype(np.float32)
+    dv = rng.standard_normal(shape(M)).astype(np.float32)
+    if B > 1:
+        ev[rng.random(ev.shape) < 0.05] = np.inf    # sssp-style infinities
+    gathered = np.concatenate([ev, dv])[gather]
+    args = (torch.from_numpy(ev),
+            torch.from_numpy(floats_to_words(dv).view(np.int32)),
+            torch.from_numpy(gather.astype(np.int32)),
+            torch.from_numpy(indptr.astype(np.int32)))
+    return gathered, indptr, args
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("seed,n,avg_deg,M", [(0, 50, 4, 30), (1, 400, 9, 700),
+                                              (2, 7, 0, 5)])
+def test_min_bitwise(seed, n, avg_deg, M, B):
+    gathered, indptr, args = _case(seed, n, avg_deg, M, B)
+    want = r_segment_reduce(np.minimum, gathered, indptr, np.inf)
+    got = t_ops.segment_reduce(*args, "min", np.inf).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("seed,n,avg_deg,M", [(3, 50, 4, 30), (4, 400, 40, 700),
+                                              (5, 7, 0, 5)])
+def test_sum_within_tolerance(seed, n, avg_deg, M, B):
+    gathered, indptr, args = _case(seed, n, avg_deg, M, B)
+    gathered = np.where(np.isfinite(gathered), gathered, 0).astype(np.float32)
+    ev = torch.where(torch.isfinite(args[0]), args[0], 0)
+    want = r_segment_reduce(np.add, gathered, indptr, 0.0)
+    got = t_ops.segment_reduce(ev, *args[1:], "sum", 0.0).numpy()
+    np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=1e-6)
+    assert (got[np.diff(indptr) == 0] == 0).all()
+
+
+def test_unknown_op_and_device_mix_raise():
+    _, _, args = _case(0, 10, 2, 4, 1)
+    with pytest.raises(ValueError, match="unknown reduce op"):
+        t_ops.segment_reduce(*args, "max", 0.0)
+    with pytest.raises(ValueError, match="share one device"):
+        t_ops.segment_reduce(args[0].to("meta"), *args[1:], "sum", 0.0)
+
+
+def test_program_reduce_ops_match_reference_identities():
+    for prog in (t_algo.pagerank(), t_algo.degree_count(),
+                 t_algo.personalized_pagerank(t_algo.uniform_prefs(4, 2))):
+        assert prog.reduce_op == "sum" and prog.identity == 0.0
+    for prog in (t_algo.sssp(0), t_algo.connected_components(),
+                 t_algo.multi_sssp([0, 1])):
+        assert prog.reduce_op == "min" and prog.identity == np.inf
