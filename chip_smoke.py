@@ -11,8 +11,9 @@ non-zero before its last line:
      `src/repro_torch/csrc` (one nvcc per source, all in parallel);
   2. kernels: each CUDA kernel held against its plain PyTorch version on
      the card, at random shapes (r in 1..4, B in 1 and 4, empty rows and
-     slots) and at the slice's shapes. K1/K2/K3-min must be bitwise equal,
-     K3-sum within rtol 1e-5 (the plain version sums with atomics);
+     slots) and at each session's shapes (B = 1 and B = 4). K1/K2/K3-min
+     must be bitwise equal, K3-sum within rtol 1e-5 (the plain version sums
+     with atomics; atol 0 at the session shapes, whose sums do not cancel);
   3. slice: the er-76k session (ER, n = 80,000 padded for K = 4, r = 2,
      average degree 8, seed 76) through `engine.compile(...).run(...)`:
      delivered words of one exchange bitwise equal to the NumPy executor,
@@ -20,7 +21,8 @@ non-zero before its last line:
      and multi_sssp (B = 4) bitwise, exact shuffle bits, and every kernel
      launched on this main path (launch counts reset just before it);
   4. scale: the same at n ~ 1e6 (about 8M CSR entries), pagerank only,
-     with host compile/partition times and per-phase device times.
+     with host compile/partition times, per-phase device times, and the
+     launch counts of its own run (reset just before it).
 
 Prints the `kernels` JSON line (times at the slice's shapes, launches from
 the slice phase), the card's name and power limit, and as its last line
@@ -45,9 +47,10 @@ sys.path.insert(0, str(ROOT / "src"))
 SUM_RTOL = 1e-5
 SLICE_N = 80_000          # er-76k: the registry's soc-Epinions1 stand-in
 SCALE_N = 1_000_000       # about 8M CSR entries at average degree 8
-# Device-memory rate of the card by name (NVIDIA data sheets), bytes/s.
-MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-            ("H100", 3.35e12))
+# The card the kernels are built for (sm_90a) and its HBM3 rate (NVIDIA
+# H100 SXM data sheet), bytes/s.
+CARD = "H100 80GB HBM3"
+MEM_RATE = 3.35e12
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
@@ -74,10 +77,10 @@ def nvidia_smi() -> str:
 
 
 def mem_rate(name: str) -> float:
-    for key, rate in MEM_RATE:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate known for {name!r}")
+    if CARD not in name:
+        raise RuntimeError(f"no memory rate known for {name!r} "
+                           f"(bounds are computed for the {CARD})")
+    return MEM_RATE
 
 
 def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
@@ -179,12 +182,14 @@ def random_reduce(rng, n, nnz, M, B):
     return ev, words, gather.astype(np.int32), indptr.astype(np.int32)
 
 
-def check_reduce(torch, got, want, op: str, what: str) -> float:
+def check_reduce(torch, got, want, op: str, what: str, atol: float) -> float:
+    """Min bitwise; sum within rtol 1e-5 plus `atol` (0 where every sum is
+    of values of one sign, so the relative bound alone holds)."""
     if op == "min":
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"{what}: segment_reduce min not bitwise")
         return 0.0
-    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=atol)
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
@@ -220,9 +225,10 @@ def kernel_phase(torch, dev) -> None:
             args = [torch.from_numpy(a).to(dev)
                     for a in (ev, words, gather, indptr)]
             ident = 0.0 if op == "sum" else float("inf")
+            # Standard-normal values: a row's sum can cancel to near 0.
             check_reduce(torch, sr.segment_reduce(*args, op, ident),
                          sr_ref.segment_reduce(*args, op, ident), op,
-                         f"random {op} B={B}")
+                         f"random {op} B={B}", atol=1e-6)
     log(f"kernel phase: {cases} random exchange cases and the K3 sum/min "
         "cases agree with the plain versions")
 
@@ -244,9 +250,49 @@ def er_session(n_base: int, seed: int, K: int = 4, r: int = 2):
     return g, alloc, time.perf_counter() - t0
 
 
+def hold_session(torch, eng, ev, what: str) -> dict:
+    """Run K1, K2 and K3 (sum and min) on Map output `ev` [nnz(, B)] at a
+    session's shapes and hold each against its plain version: K1, K2 and
+    K3-min bitwise, K3-sum within rtol 1e-5 with atol 0 (every Map value
+    here is positive, so no row sum cancels). Returns each kernel's
+    arguments and its max abs error."""
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.kernels.segment_reduce import ref as sr_ref
+    from repro_torch.kernels.xor_code import ref as xref
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    fx, t = eng.fused, eng.fused.tables
+    src = ev.view(torch.int32)
+    enc = (src, t["loc_e"], t["enc_l"], t["enc_shift"], t["enc_mask"])
+    buf = xc.xor_encode_gather(*enc)
+    buf0 = xref.xor_encode_gather(*enc)
+    dec = (src, t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
+           t["dec_shift"], t["strip_l"], t["strip_shift"], t["strip_mask"],
+           t["ptr"])
+    words = xc.xor_decode_gather(*dec, total=fx.M)
+    words0 = xref.xor_decode_gather(*dec)
+    red = {op: (ev, words, eng._gather, eng._indptr, op, ident)
+           for op, ident in (("sum", 0.0), ("min", np.inf))}
+    acc = {op: sr.segment_reduce(*a) for op, a in red.items()}
+    acc0 = {op: sr_ref.segment_reduce(*a) for op, a in red.items()}
+    torch.cuda.synchronize()
+    if not torch.equal(buf, buf0):
+        raise AssertionError(f"K1 xor_encode not bitwise at {what}")
+    if not torch.equal(words, words0):
+        raise AssertionError(f"K2 xor_decode not bitwise at {what}")
+    err3 = check_reduce(torch, acc["sum"], acc0["sum"], "sum", what, atol=0.0)
+    check_reduce(torch, acc["min"], acc0["min"], "min", what, atol=0.0)
+    return {"enc": enc, "dec": dec, "red": red["sum"], "words": words,
+            "err": {"xor_encode": word_err(torch, buf, buf0),
+                    "xor_decode": word_err(torch, words, words0),
+                    "segment_reduce": err3}}
+
+
 def kernel_records(torch, eng) -> list[dict]:
-    """Time K1/K2/K3 against their plain versions at this session's shapes
-    (pagerank's Map output, B = 1) and compute each kernel's bytes bound."""
+    """Hold K1/K2/K3 against their plain versions at this session's shapes,
+    on pagerank's Map output (B = 1) and on multi_sssp's over a seeded
+    random [n, 4] state (B = 4); time them at B = 1 and compute each
+    kernel's bytes bound."""
     from repro_torch.core import algorithms as algo
     from repro_torch.core.bitcodec import words_to_floats_t
     from repro_torch.kernels.segment_reduce import ops as sr
@@ -256,31 +302,16 @@ def kernel_records(torch, eng) -> list[dict]:
 
     fx, s, dev = eng.fused, eng.fused.sched, eng.device
     rate = mem_rate(torch.cuda.get_device_name(0))
+    state4 = torch.from_numpy(np.random.default_rng(4).random(
+        (eng.g.n, 4), dtype=np.float32)).to(dev)
+    ev4 = algo.multi_sssp([0, 1, 2, 3]).map_edge_values_t(eng._dg, state4)
+    hold_session(torch, eng, ev4.contiguous(), "the session shapes, B = 4")
     prog = algo.pagerank()
     state = torch.as_tensor(prog.init(eng.g), device=dev)
     ev = prog.map_edge_values_t(eng._dg, state).contiguous()
-    src = ev.view(torch.int32)
-    t = fx.tables
-    enc_args = (src, t["loc_e"], t["enc_l"], t["enc_shift"], t["enc_mask"])
-    buf = xc.xor_encode_gather(*enc_args)
-    buf0 = xref.xor_encode_gather(*enc_args)
-    dec_args = (src, t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
-                t["dec_shift"], t["strip_l"], t["strip_shift"],
-                t["strip_mask"], t["ptr"])
-    words = xc.xor_decode_gather(*dec_args, total=fx.M)
-    words0 = xref.xor_decode_gather(*dec_args)
-    red_args = (ev, words, eng._gather, eng._indptr, "sum", 0.0)
-    acc = sr.segment_reduce(*red_args)
-    acc0 = sr_ref.segment_reduce(*red_args)
-    torch.cuda.synchronize()
-    if not torch.equal(buf, buf0):
-        raise AssertionError("K1 xor_encode not bitwise at the session shapes")
-    if not torch.equal(words, words0):
-        raise AssertionError("K2 xor_decode not bitwise at the session shapes")
-    err3 = check_reduce(torch, acc, acc0, "sum", "session shapes")
-    mn = sr.segment_reduce(ev, words, eng._gather, eng._indptr, "min", np.inf)
-    mn0 = sr_ref.segment_reduce(ev, words, eng._gather, eng._indptr, "min", np.inf)
-    check_reduce(torch, mn, mn0, "min", "session shapes")
+    held = hold_session(torch, eng, ev, "the session shapes, B = 1")
+    enc_args, dec_args, red_args = held["enc"], held["dec"], held["red"]
+    words = held["words"]
 
     # Bytes each kernel must move on this run's data: every table read
     # once, each distinct referenced word read once, each output written
@@ -310,28 +341,40 @@ def kernel_records(torch, eng) -> list[dict]:
     gathered = torch.cat([ev, words_to_floats_t(words)])[eng._gather.long()]
     offsets = eng._indptr.long()
     runs = (
-        ("xor_encode", k1_bytes, word_err(torch, buf, buf0),
+        ("xor_encode", k1_bytes,
          lambda: xc.xor_encode_gather(*enc_args),
          lambda: xref.xor_encode_gather(*enc_args), None),
-        ("xor_decode", k2_bytes, word_err(torch, words, words0),
+        ("xor_decode", k2_bytes,
          lambda: xc.xor_decode_gather(*dec_args, total=M),
          lambda: xref.xor_decode_gather(*dec_args), None),
-        ("segment_reduce", k3_bytes, err3,
+        ("segment_reduce", k3_bytes,
          lambda: sr.segment_reduce(*red_args),
          lambda: sr_ref.segment_reduce(*red_args),
          lambda: torch.segment_reduce(gathered, "sum", offsets=offsets,
                                       axis=0)))
     rec = []
-    for name, nbytes, err, kernel, plain, library in runs:
+    for name, nbytes, kernel, plain, library in runs:
         rec.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": held["err"][name],
             "ms": time_ms_graph(torch, kernel),
             "plain_ms": time_ms(torch, plain, reps=5),
             "bound_ms": nbytes / rate * 1e3, "bound_by": "bytes",
             "library_ms": None if library is None else time_ms(torch, library),
             "ms_per_call": time_ms(torch, kernel), "bytes": int(nbytes)})
     return rec
+
+
+def record_launches(records: list[dict], launches: dict, path: str) -> dict:
+    """Write the launch counts of a path's run (cleared just before it, read
+    just after) into `records`; fail if a kernel never ran."""
+    for rec in records:
+        rec["launches"] = launches.get(rec["name"], 0)
+        if rec["launches"] <= 0:
+            raise AssertionError(f"kernel {rec['name']} never launched on "
+                                 f"{path}")
+    return launches
 
 
 def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
@@ -377,12 +420,8 @@ def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
     roots = [0, g.n // 7, g.n // 2, g.n - 1]
     runs["multi_sssp"] = eng.with_program(algo.multi_sssp(roots)).run(10)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    for rec in records:
-        rec["launches"] = launches.get(rec["name"], 0)
-        if rec["launches"] <= 0:
-            raise AssertionError(f"kernel {rec['name']} never launched on "
-                                 "the main path")
+    launches = record_launches(records, dict(_build.LAUNCHES),
+                               "the er-76k path")
 
     oracle = {
         "pagerank": algo.reference_run(algo.pagerank(), g, 10),
@@ -463,6 +502,7 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.shuffle_plan import compile_plan_csr
+    from repro_torch.kernels import _build
 
     g, alloc, t_graph = er_session(n_base, seed=7)
     t0 = time.perf_counter()
@@ -477,10 +517,12 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
                 graph_s=t_graph, compile_s=t_compile, session_s=t_session)
     eng.run(1)
     torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
     t0 = time.perf_counter()
     res = eng.run(10)
     torch.cuda.synchronize()
     info["pagerank_s_per_iter"] = (time.perf_counter() - t0) / 10
+    launches = dict(_build.LAUNCHES)
     want = algo.reference_run(algo.pagerank(), g, 10)
     got = res.state.cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=0)
@@ -488,6 +530,7 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
     info.update(iteration_profile(torch, eng))
     info["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
     records = kernel_records(torch, eng)
+    info["launches"] = record_launches(records, launches, "the scale path")
     log(f"scale phase ok: {json.dumps(info)}")
     return records, info
 

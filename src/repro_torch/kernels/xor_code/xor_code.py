@@ -105,7 +105,8 @@ def xor_decode_gather(src: torch.Tensor, loc_e: torch.Tensor, buf: torch.Tensor,
     [K, Dmax, r, r - 1] int32; ptr [K + 1] int32 delivery offsets. `total`
     is M = ptr[K] (pass it to keep the host from reading ptr back).
     """
-    if not _build.on_cuda(src, loc_e, buf, dec_s, ptr):
+    if not _build.on_cuda(src, loc_e, buf, dec_s, dec_w, dec_mask, dec_shift,
+                          strip_l, strip_shift, strip_mask, ptr):
         return ref.xor_decode_gather(src, loc_e, buf, dec_s, dec_w, dec_mask,
                                      dec_shift, strip_l, strip_shift,
                                      strip_mask, ptr, swap=swap)

@@ -126,13 +126,9 @@ def _loop_exchange(src, loc_e, t, swap):
     return buf, out
 
 
-@pytest.mark.parametrize("r,B,swap", [(1, 1, True), (2, 1, True),
-                                      (3, 2, False), (4, 3, True)])
-def test_gather_encode_decode_plain_versions(r, B, swap):
-    """The plain versions of K1/K2 (what the card kernels are held to) agree
-    with a scalar loop over random tables, sentinels included."""
-    import torch
-
+def _random_tables(r, B):
+    """Random K1/K2 tables in the ranges the kernels accept (sentinels
+    included): (src words, loc_e, {table name: array})."""
     K, W, Lmax, nnz, Dmax = 3, 9, 7, 20, 6
     src = _words((nnz, B) if B > 1 else (nnz,))
     loc_e = RNG.integers(0, nnz + 1, size=(K, Lmax)).astype(np.int32)
@@ -148,6 +144,17 @@ def test_gather_encode_decode_plain_versions(r, B, swap):
         strip_shift=RNG.integers(0, 32, size=(K, Dmax, r, r - 1)).astype(np.uint32),
         strip_mask=_words((K, Dmax, r, r - 1)),
         ptr=np.concatenate([[0], np.cumsum(RNG.integers(0, Dmax + 1, K))]))
+    return src, loc_e, t
+
+
+@pytest.mark.parametrize("r,B,swap", [(1, 1, True), (2, 1, True),
+                                      (3, 2, False), (4, 3, True)])
+def test_gather_encode_decode_plain_versions(r, B, swap):
+    """The plain versions of K1/K2 (what the card kernels are held to) agree
+    with a scalar loop over random tables, sentinels included."""
+    import torch
+
+    src, loc_e, t = _random_tables(r, B)
     want_buf, want = _loop_exchange(src, loc_e, t, swap)
     tt = {k: np_words_to_t(v.astype(np.uint32)) for k, v in t.items()}
     s, le = np_words_to_t(src), torch.from_numpy(loc_e)
@@ -160,3 +167,31 @@ def test_gather_encode_decode_plain_versions(r, B, swap):
     np.testing.assert_array_equal(t_words_to_np(buf).reshape(want_buf.shape),
                                   want_buf)
     np.testing.assert_array_equal(t_words_to_np(out).reshape(want.shape), want)
+
+
+_ENC_TABLES = ("enc_l", "enc_shift", "enc_mask")
+_DEC_TABLES = ("dec_s", "dec_w", "dec_mask", "dec_shift", "strip_l",
+               "strip_shift", "strip_mask", "ptr")
+
+
+@pytest.mark.parametrize("moved", ("src", "loc_e") + _ENC_TABLES + _DEC_TABLES)
+def test_gather_wrappers_reject_a_device_mix(moved):
+    """Every tensor argument of K1/K2's wrappers takes part in the device
+    check: one argument on another device raises before any launch (on the
+    card a stray host pointer would fault inside the kernel instead)."""
+    import torch
+
+    src, loc_e, t = _random_tables(3, 2)
+    args = {k: np_words_to_t(v.astype(np.uint32)) for k, v in t.items()}
+    args["src"], args["loc_e"] = np_words_to_t(src), torch.from_numpy(loc_e)
+    buf = t_xc.xor_encode_gather(*(args[k] for k in ("src", "loc_e")
+                                   + _ENC_TABLES))
+    args[moved] = args[moved].to("meta")
+    if moved in ("src", "loc_e") + _ENC_TABLES:
+        with pytest.raises(ValueError, match="share one device"):
+            t_xc.xor_encode_gather(*(args[k] for k in ("src", "loc_e")
+                                     + _ENC_TABLES))
+    if moved not in _ENC_TABLES:
+        with pytest.raises(ValueError, match="share one device"):
+            t_xc.xor_decode_gather(args["src"], args["loc_e"], buf,
+                                   *(args[k] for k in _DEC_TABLES))
