@@ -22,10 +22,23 @@ non-zero before its last line:
      launched on this main path (launch counts reset just before it);
   4. scale: the same at n ~ 1e6 (about 8M CSR entries), pagerank only,
      with host compile/partition times, per-phase device times, and the
-     launch counts of its own run (reset just before it).
+     launch counts of its own run (reset just before it);
+  5. spmv: the engine's backend="spmv" route (K5) on the er-76k graph and
+     plan (pagerank in modes single / uncoded / coded / coded-fast within
+     rtol 1e-5 with exact bits, degree_count bitwise, personalized
+     pagerank at B = 4 through run_batch) and on the scale graph and plan
+     (pagerank coded, steady time and device idle share); then the dense
+     API, `ops.pagerank_step` (K4) for 10 steps on the dense adjacency of
+     an ER graph with n = 16,384, p = 0.01, seed 5, in float32 and in
+     float16, within rtol 1e-5 of the oracle. Each path's launch counts
+     are reset just before it and read just after.
 
-Prints the `kernels` JSON line (times at the slice's shapes, launches from
-the slice phase), the card's name and power limit, and as its last line
+The kernel phase also holds K4 (float32 rtol 1e-4 / atol 1e-5, float16
+2e-3) and K5 (rtol 1e-5, atol 1e-6 for standard-normal values, bitwise
+repeatable) against their plain versions. Prints the `kernels` JSON line
+(K1-K3 and K5 timed at the er-76k shapes with launches from their er-76k
+paths, K4 at 16,384^2 float32 with launches from the dense path), the
+card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -47,19 +60,26 @@ sys.path.insert(0, str(ROOT / "src"))
 SUM_RTOL = 1e-5
 SLICE_N = 80_000          # er-76k: the registry's soc-Epinions1 stand-in
 SCALE_N = 1_000_000       # about 8M CSR entries at average degree 8
-# The card the kernels are built for (sm_90a) and its HBM3 rate (NVIDIA
-# H100 SXM data sheet), bytes/s.
+DENSE_N = 16_384          # dense pagerank_step: a 1.07 GB float32 adjacency
+SPMV_MODES = ("single", "uncoded", "coded", "coded-fast")
+# The card the kernels are built for (sm_90a), its HBM3 rate and its
+# float32 rate outside the tensor cores (NVIDIA H100 SXM data sheet).
 CARD = "H100 80GB HBM3"
-MEM_RATE = 3.35e12
+MEM_RATE = 3.35e12        # bytes/s
+F32_RATE = 67e12          # flop/s
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
     "segment_reduce": "src/repro/core/engine.py:166",
+    "spmv_dense": "src/repro/kernels/spmv/spmv.py:29",
+    "spmv_csr": "src/repro/kernels/spmv/spmv.py:29",
 }
 SOURCES = {
     "xor_encode": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode": "src/repro_torch/csrc/xor_code.cu",
     "segment_reduce": "src/repro_torch/csrc/segment_reduce.cu",
+    "spmv_dense": "src/repro_torch/csrc/spmv.cu",
+    "spmv_csr": "src/repro_torch/csrc/spmv.cu",
 }
 
 
@@ -76,11 +96,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def mem_rate(name: str) -> float:
+def bound(torch, nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time on the card (ms) for `nbytes` moved and `flops` float32
+    operations, and which of the two bounds it; raises for another card."""
+    name = torch.cuda.get_device_name(0)
     if CARD not in name:
-        raise RuntimeError(f"no memory rate known for {name!r} "
+        raise RuntimeError(f"no peak rates known for {name!r} "
                            f"(bounds are computed for the {CARD})")
-    return MEM_RATE
+    t_bytes, t_ops = nbytes / MEM_RATE, flops / F32_RATE
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
@@ -229,8 +253,57 @@ def kernel_phase(torch, dev) -> None:
             check_reduce(torch, sr.segment_reduce(*args, op, ident),
                          sr_ref.segment_reduce(*args, op, ident), op,
                          f"random {op} B={B}", atol=1e-6)
-    log(f"kernel phase: {cases} random exchange cases and the K3 sum/min "
-        "cases agree with the plain versions")
+    cases_spmv = spmv_kernel_checks(torch, dev, rng)
+    log(f"kernel phase: {cases} random exchange cases, the K3 sum/min cases "
+        f"and {cases_spmv} K4/K5 cases agree with the plain versions")
+
+
+def random_csr(rng, n, B):
+    """CSR with empty rows and one long row, standard-normal values on a
+    2^-10 grid: every partial sum is exact in float32, so the long row's
+    sum cannot differ by summation order (on real values the 20,000-entry
+    row's order alone moves it by ~1e-4, past rtol 1e-5)."""
+    deg = rng.integers(0, 17, size=n)
+    deg[rng.random(n) < 0.2] = 0                     # empty rows
+    deg[n // 2] = 20_000                             # one long row
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    indices = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    c = np.round(rng.standard_normal((n, B) if B > 1 else n) * 1024) / 1024
+    return indptr, indices, c.astype(np.float32)
+
+
+def spmv_kernel_checks(torch, dev, rng) -> int:
+    """K4 at the reference's test shapes, its block sweep's 512 x 512 and
+    ragged shapes, in float32 and float16; K5 on random CSR at B = 1 and
+    4 over the row tiles, bitwise repeatable."""
+    from repro_torch.kernels.spmv import ref as spmv_ref
+    from repro_torch.kernels.spmv import spmv as spmv_k
+
+    f32, f16 = torch.float32, torch.float16
+    cases = 0
+    for m, n in ((128, 128), (256, 384), (300, 300), (100, 250), (1, 128),
+                 (128, 1), (512, 512), (255, 1001), (3, 7)):
+        adj_np, x_np = rng.random((m, n)) < 0.2, rng.standard_normal(n)
+        for a_dt, x_dt in ((f32, f32), (f16, f16), (f16, f32)):
+            adj = torch.from_numpy(adj_np).to(dev, a_dt)
+            x = torch.from_numpy(x_np).to(dev, x_dt)
+            tol = (dict(rtol=1e-4, atol=1e-5) if a_dt == x_dt == f32
+                   else dict(rtol=2e-3, atol=2e-3))
+            torch.testing.assert_close(spmv_k.spmv_dense(adj, x),
+                                       spmv_ref.spmv(adj, x), **tol)
+            cases += 1
+    for B in (1, 4):
+        for bm in (1, 32, 128, 256):
+            args = [torch.from_numpy(a).to(dev)
+                    for a in random_csr(rng, 5000, B)]
+            got = spmv_k.spmv_csr(*args, bm=bm)
+            again = spmv_k.spmv_csr(*args, bm=bm)
+            torch.testing.assert_close(got, spmv_ref.spmv_csr(*args),
+                                       rtol=SUM_RTOL, atol=1e-6)
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"K5 not repeatable at B={B} bm={bm}")
+            cases += 1
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +374,6 @@ def kernel_records(torch, eng) -> list[dict]:
     from repro_torch.kernels.xor_code import xor_code as xc
 
     fx, s, dev = eng.fused, eng.fused.sched, eng.device
-    rate = mem_rate(torch.cuda.get_device_name(0))
     state4 = torch.from_numpy(np.random.default_rng(4).random(
         (eng.g.n, 4), dtype=np.float32)).to(dev)
     ev4 = algo.multi_sssp([0, 1, 2, 3]).map_edge_values_t(eng._dg, state4)
@@ -352,18 +424,25 @@ def kernel_records(torch, eng) -> list[dict]:
          lambda: sr_ref.segment_reduce(*red_args),
          lambda: torch.segment_reduce(gathered, "sum", offsets=offsets,
                                       axis=0)))
-    rec = []
-    for name, nbytes, kernel, plain, library in runs:
-        rec.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": None,
-            "max_abs_err": held["err"][name],
-            "ms": time_ms_graph(torch, kernel),
-            "plain_ms": time_ms(torch, plain, reps=5),
-            "bound_ms": nbytes / rate * 1e3, "bound_by": "bytes",
-            "library_ms": None if library is None else time_ms(torch, library),
-            "ms_per_call": time_ms(torch, kernel), "bytes": int(nbytes)})
-    return rec
+    return [kernel_record(torch, name, kernel, plain, library,
+                          held["err"][name], nbytes, 0)
+            for name, nbytes, kernel, plain, library in runs]
+
+
+def kernel_record(torch, name: str, kernel, plain, library, err: float,
+                  nbytes: float, flops: float) -> dict:
+    """One kernel's line: device time (CUDA graph), plain and library call
+    times (None where no single PyTorch call computes the same function),
+    and its bound from this run's bytes and operations."""
+    bound_ms, bound_by = bound(torch, nbytes, flops)
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
+        "ms": time_ms_graph(torch, kernel),
+        "plain_ms": time_ms(torch, plain, reps=5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if library is None else time_ms(torch, library),
+        "ms_per_call": time_ms(torch, kernel), "bytes": int(nbytes)}
 
 
 def record_launches(records: list[dict], launches: dict, path: str) -> dict:
@@ -377,7 +456,7 @@ def record_launches(records: list[dict], launches: dict, path: str) -> dict:
     return launches
 
 
-def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
+def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
@@ -446,14 +525,16 @@ def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
     info["launches"] = launches
     info.update(iteration_profile(torch, eng))
     log(f"slice phase ok: {json.dumps(info)}")
-    return records, info
+    return records, info, (g, alloc, plan, oracle["pagerank"])
 
 
 def iteration_profile(torch, eng, iters: int = 10) -> dict:
     """Where an iteration's time goes, from a state already on the card.
 
     steady_s_per_iter: host clock around `run(iters, state=<device
-    tensor>)` ended by a synchronize (no host init or upload inside).
+    tensor>)` ended by a synchronize (no host init or upload inside),
+    median of 5 such runs; host_enqueue_s_per_iter: the same clock read
+    before the synchronize, the host's own time to issue the work.
     device_busy_s_per_iter / device_idle_share: from torch.profiler's
     kernel records over the same call, idle = 1 - busy / (last kernel end
     - first kernel start); None when the profiler records no kernels.
@@ -468,10 +549,15 @@ def iteration_profile(torch, eng, iters: int = 10) -> dict:
     state = torch.as_tensor(eng.program.init(eng.g), device=eng.device)
     eng.run(2, state=state)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(iters, state=state)
-    torch.cuda.synchronize()
-    out = {"steady_s_per_iter": (time.perf_counter() - t0) / iters}
+    steady, enqueue = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.run(iters, state=state)
+        enqueue.append((time.perf_counter() - t0) / iters)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) / iters)
+    out = {"steady_s_per_iter": statistics.median(steady),
+           "host_enqueue_s_per_iter": statistics.median(enqueue)}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.run(iters, state=state)
@@ -498,7 +584,7 @@ def iteration_profile(torch, eng, iters: int = 10) -> dict:
     return out
 
 
-def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
+def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.shuffle_plan import compile_plan_csr
@@ -532,7 +618,206 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict]:
     records = kernel_records(torch, eng)
     info["launches"] = record_launches(records, launches, "the scale path")
     log(f"scale phase ok: {json.dumps(info)}")
-    return records, info
+    return records, info, (g, alloc, plan, want)
+
+
+# ---------------------------------------------------------------------------
+# spmv phase: the engine's backend="spmv" route (K5) and the dense API (K4)
+# ---------------------------------------------------------------------------
+
+
+def spmv_csr_record(torch, eng, state) -> dict:
+    """Hold K5 against its plain version on the session's CSR and the Map
+    of `state` (rtol 1e-5, atol 0: every value is positive), check that two
+    runs are bitwise equal, and time it beside a CSR sparse tensor times
+    the vector (`torch.sparse_csr_tensor(...) @ c`, timed only)."""
+    from repro_torch.kernels.spmv import ref as spmv_ref
+    from repro_torch.kernels.spmv import spmv as spmv_k
+
+    c = eng.program.map_source_t(eng._dg, state).contiguous()
+    args = (eng._indptr, eng._indices, c)
+    got = spmv_k.spmv_csr(*args, bm=eng.bm)
+    again = spmv_k.spmv_csr(*args, bm=eng.bm)
+    want = spmv_ref.spmv_csr(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("K5 spmv_csr is not bitwise repeatable")
+    n, nnz = eng.g.n, eng.g.csr.nnz
+    B = 1 if c.dim() == 1 else c.shape[1]
+    sp = torch.sparse_csr_tensor(
+        eng._indptr, eng._indices,
+        torch.ones(nnz, dtype=torch.float32, device=c.device), size=(n, n))
+    rec = kernel_record(
+        torch, "spmv_csr", lambda: spmv_k.spmv_csr(*args, bm=eng.bm),
+        lambda: spmv_ref.spmv_csr(*args), lambda: sp @ c,
+        float((got - want).abs().max()),
+        4 * nnz + 4 * (n + 1) + 4 * B * n + 4 * B * n, nnz * B)
+    # Lanes per row = 256 / bm; bm = 256 is K3's layout, a row per thread.
+    rec["bm_sweep_ms"] = {bm: time_ms_graph(
+        torch, lambda bm=bm: spmv_k.spmv_csr(*args, bm=bm))
+        for bm in (8, 32, 128, 256)}
+    return rec
+
+
+def spmv_dense_record(torch, adj, x) -> dict:
+    """Hold K4 against its plain version on the dense path's inputs and
+    time it beside `torch.mv` (timed only; float16 inputs go to it as
+    float16, a float16 output)."""
+    from repro_torch.kernels.spmv import ref as spmv_ref
+    from repro_torch.kernels.spmv import spmv as spmv_k
+
+    got, want = spmv_k.spmv_dense(adj, x), spmv_ref.spmv(adj, x)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-4, atol=1e-5) if adj.dtype == torch.float32
+           else dict(rtol=2e-3, atol=2e-3))
+    torch.testing.assert_close(got, want, **tol)
+    m, n = adj.shape
+    xl = x.to(adj.dtype)
+    return kernel_record(
+        torch, "spmv_dense", lambda: spmv_k.spmv_dense(adj, x),
+        lambda: spmv_ref.spmv(adj, x), lambda: torch.mv(adj, xl),
+        float((got - want).abs().max()),
+        m * n * adj.element_size() + n * x.element_size() + 4 * m, 2 * m * n)
+
+
+def check_pagerank(got, want, what: str) -> float:
+    """Finite, the oracle's shape, within rtol 1e-5 (atol 0); returns the
+    max relative error."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: bad state shape or values")
+    np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=0,
+                               err_msg=what)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def spmv_phase(torch, dev, er: tuple, scale: tuple) -> tuple[dict, dict, dict]:
+    """The backend="spmv" route on the er-76k and scale graphs and plans
+    that the slice and scale phases built (passing `plan=` reuses their
+    cached edge tables). Returns K5's records at both shapes and the info."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+
+    g, alloc, plan, want = er
+    t0 = time.perf_counter()
+    sessions = {mode: engine.compile(
+        algo.pagerank(), g, alloc, mode, backend="spmv", device=dev,
+        plan=None if mode == "uncoded" else plan) for mode in SPMV_MODES}
+    info = {"er76k": {"session_s": time.perf_counter() - t0}}
+    bits = {"single": 0, "uncoded": plan.uncoded_bits,
+            "coded": plan.coded_bits + plan.leftover_bits,
+            "coded-fast": plan.coded_bits}
+    prefs = algo.uniform_prefs(g.n, 4)
+    ppr = algo.personalized_pagerank(prefs)
+    eng = sessions["coded"]
+
+    # The er-76k spmv path: reset the counts, run, read the counts.
+    _build.LAUNCHES.clear()
+    runs = {mode: s.run(10) for mode, s in sessions.items()}
+    deg = eng.with_program(algo.degree_count()).run(1)
+    ppr_res = eng.with_program(ppr).run_batch(prefs, 10)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if launches.get("spmv_csr", 0) <= 0:
+        raise AssertionError("K5 spmv_csr never launched on the er-76k "
+                             "spmv path")
+    er_info = info["er76k"]
+    for mode, res in runs.items():
+        er_info[f"{mode}_max_rel_err"] = check_pagerank(
+            res.state.cpu().numpy(), want, f"spmv pagerank {mode}")
+        if res.shuffle_bits != bits[mode] * 10:
+            raise AssertionError(f"spmv {mode}: shuffle bits are not exact")
+    deg_want = algo.reference_run(algo.degree_count(), g, 1)
+    if not np.array_equal(deg.state.cpu().numpy().view(np.uint32),
+                          deg_want.view(np.uint32)):
+        raise AssertionError("spmv degree_count not bitwise")
+    er_info["ppr_max_rel_err"] = check_pagerank(
+        ppr_res.state.cpu().numpy(), algo.reference_run(ppr, g, 10),
+        "spmv personalized pagerank B=4")
+    if ppr_res.shuffle_bits != bits["coded"] * 4 * 10:
+        raise AssertionError("spmv ppr: shuffle bits are not exact")
+    er_info["launches"] = launches
+    er_info.update(iteration_profile(torch, eng))
+    state = torch.as_tensor(algo.pagerank().init(g), device=dev)
+    rec_er = spmv_csr_record(torch, eng, state)
+    rec_er["launches"] = launches["spmv_csr"]
+    log(f"spmv phase, er-76k ok: {json.dumps(er_info)}")
+
+    g, alloc, plan, want = scale
+    t0 = time.perf_counter()
+    eng = engine.compile(algo.pagerank(), g, alloc, "coded", backend="spmv",
+                         plan=plan, device=dev)
+    sc_info = info["scale"] = {"session_s": time.perf_counter() - t0}
+    eng.run(1)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = eng.run(10)
+    torch.cuda.synchronize()
+    sc_info["pagerank_s_per_iter"] = (time.perf_counter() - t0) / 10
+    launches = dict(_build.LAUNCHES)
+    if launches.get("spmv_csr", 0) <= 0:
+        raise AssertionError("K5 spmv_csr never launched on the scale "
+                             "spmv path")
+    sc_info["launches"] = launches
+    sc_info["pagerank_max_rel_err"] = check_pagerank(
+        res.state.cpu().numpy(), want, "spmv pagerank at scale")
+    if res.shuffle_bits != (plan.coded_bits + plan.leftover_bits) * 10:
+        raise AssertionError("spmv at scale: shuffle bits are not exact")
+    sc_info.update(iteration_profile(torch, eng))
+    state = torch.as_tensor(algo.pagerank().init(g), device=dev)
+    rec_scale = spmv_csr_record(torch, eng, state)
+    rec_scale["launches"] = launches["spmv_csr"]
+    log(f"spmv phase, scale ok: {json.dumps(sc_info)}")
+    return rec_er, rec_scale, info
+
+
+def dense_phase(torch, dev) -> tuple[dict, dict]:
+    """`ops.pagerank_step` (K4) for 10 steps on the dense adjacency of an
+    ER graph (n = 16,384, p = 0.01, seed 5), float32 and float16 (0/1
+    entries are exact in float16; rank / deg stays float32), each within
+    rtol 1e-5 of the NumPy oracle. Returns K4's record at float32 (with
+    the float16 record in the info)."""
+    from repro_torch import graphs
+    from repro_torch.core import algorithms as algo
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spmv import ops as spmv_ops
+
+    g = graphs.erdos_renyi(DENSE_N, 0.01, seed=5)
+    want = algo.reference_run(algo.pagerank(), g, 10)
+    rows = torch.from_numpy(g.csr.rows.astype(np.int64)).to(dev)
+    cols = torch.from_numpy(g.csr.indices.astype(np.int64)).to(dev)
+    init = torch.as_tensor(algo.pagerank().init(g), device=dev)
+    info, records = {"n": g.n, "nnz": g.csr.nnz}, {}
+    for name, dt in (("float32", torch.float32), ("float16", torch.float16)):
+        adj = torch.zeros((g.n, g.n), dtype=dt, device=dev)
+        adj[rows, cols] = 1
+        spmv_ops.pagerank_step(adj, init)            # warm up
+        torch.cuda.synchronize()
+        # The dense path: reset the counts, run, read the counts.
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rank = init
+        for _ in range(10):
+            rank = spmv_ops.pagerank_step(adj, rank)
+        torch.cuda.synchronize()
+        info[f"{name}_s_per_step"] = (time.perf_counter() - t0) / 10
+        launches = dict(_build.LAUNCHES)
+        if launches.get("spmv_dense", 0) <= 0:
+            raise AssertionError(f"K4 spmv_dense never launched on the "
+                                 f"dense {name} path")
+        info[f"{name}_launches"] = launches
+        info[f"{name}_max_rel_err"] = check_pagerank(
+            rank.cpu().numpy(), want, f"dense pagerank_step {name}")
+        deg = torch.clamp(adj.sum(0, dtype=torch.float32), min=1.0)
+        records[name] = spmv_dense_record(torch, adj, init / deg)
+        records[name]["launches"] = launches["spmv_dense"]
+        del adj
+        torch.cuda.empty_cache()
+    info["float16_kernel"] = records["float16"]
+    log(f"dense phase ok: {json.dumps(info)}")
+    return records["float32"], info
 
 
 def main() -> int:
@@ -561,10 +846,16 @@ def main() -> int:
     for lib in sorted(_build.BUILD_DIR.glob("*.log")):
         log(f"--- {lib.name}\n{lib.read_text().strip()}")
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain spmv
     result = {"card": smi, "build_s": built}
     kernel_phase(torch, dev)
-    records, result["slice"] = slice_phase(torch, dev, SLICE_N)
-    scale_records, result["scale"] = scale_phase(torch, dev, SCALE_N)
+    records, result["slice"], er = slice_phase(torch, dev, SLICE_N)
+    scale_records, result["scale"], scale = scale_phase(torch, dev, SCALE_N)
+    k5_er, k5_scale, result["spmv"] = spmv_phase(torch, dev, er, scale)
+    del er, scale
+    k4, result["dense"] = dense_phase(torch, dev)
+    records += [k4, k5_er]
+    scale_records.append(k5_scale)
     result["kernels_scale"] = scale_records
     log("kernels at the scale shapes: " + json.dumps(scale_records))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

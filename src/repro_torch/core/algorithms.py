@@ -16,7 +16,14 @@ Device form (this port; tensors stay on the device across iterations):
                                           reduction the engine runs through
                                           the segment_reduce kernel,
   finalize_t(acc, state, dg)           -> new state from the per-row
-                                          reduction (plain tensor code).
+                                          reduction (plain tensor code),
+  map_source_t(dg, state)              -> [n] (or [n, B]) per-source values
+                                          of the linear programs (pagerank,
+                                          personalized pagerank, degree),
+                                          bitwise the NumPy `map_source`;
+                                          the engine's backend="spmv" sums
+                                          them over CSR rows (K5). None for
+                                          the min programs.
 
 The Maps are bitwise the NumPy ones: pagerank's `state / deg` in float32
 equals NumPy's float64 quotient rounded to float32 (division of float32
@@ -57,6 +64,7 @@ class VertexProgram:
     # on source j): v_e = map_source(g, state)[j].
     map_source: Callable[[Graph, np.ndarray], np.ndarray] | None = None
     finalize: Callable[[np.ndarray, np.ndarray, Graph], np.ndarray] | None = None
+    map_source_t: Callable[[DeviceGraph, torch.Tensor], torch.Tensor] | None = None
 
 
 def segment_reduce(ufunc, vals: np.ndarray, indptr: np.ndarray,
@@ -81,8 +89,12 @@ def _per_edge(w, state):
     return w if state.ndim == 1 else w[:, None]
 
 
+def _over_deg_t(dg: DeviceGraph, state: torch.Tensor) -> torch.Tensor:
+    return state / _per_edge(dg.deg, state)
+
+
 def _src_over_deg_t(dg: DeviceGraph, state: torch.Tensor) -> torch.Tensor:
-    return (state / _per_edge(dg.deg, state))[dg.indices]
+    return _over_deg_t(dg, state)[dg.indices]
 
 
 def pagerank(damping: float = 0.15) -> VertexProgram:
@@ -109,7 +121,7 @@ def pagerank(damping: float = 0.15) -> VertexProgram:
 
     return VertexProgram("pagerank", 0.0, init, map_edge_values, reduce_edges,
                          _src_over_deg_t, "sum", finalize_t, map_source,
-                         finalize)
+                         finalize, _over_deg_t)
 
 
 def _sssp_map_t(dg: DeviceGraph, state: torch.Tensor) -> torch.Tensor:
@@ -188,8 +200,12 @@ def degree_count() -> VertexProgram:
     def finalize_t(acc, state, dg: DeviceGraph):
         return acc
 
+    def map_source_t(dg: DeviceGraph, state):
+        return torch.ones_like(state)
+
     return VertexProgram("degree", 0.0, init, map_edge_values, reduce_edges,
-                         map_t, "sum", finalize_t, map_source, finalize)
+                         map_t, "sum", finalize_t, map_source, finalize,
+                         map_source_t)
 
 
 def multi_sssp(sources) -> VertexProgram:

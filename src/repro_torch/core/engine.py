@@ -1,10 +1,12 @@
 """Coded MapReduce-on-graph engine on one card (paper §II-B execution model).
 
-Port of the reference package's `core/engine.py` for its main path: mode
-"coded", path "sparse", backend "fused". A session compiles the coded
-multicast schedule once on the host (`compile_plan_csr`), partitions it per
+Port of the reference package's `core/engine.py` for two of its sparse
+routes. A session compiles the coded multicast schedule once on the host
+(`compile_plan_csr`) and keeps the state on the device across iterations.
+
+backend="fused" (mode "coded"): the session partitions the plan per
 virtual server and uploads the tables (`FusedSparseShuffle`); every
-iteration then runs on the device with the state kept there:
+iteration then runs:
 
   1. Map: the program's device form turns the state into [nnz] edge values
      in CSR order (plain tensor code, bitwise the NumPy Map).
@@ -14,13 +16,22 @@ iteration then runs on the device with the state kept there:
      delivery slot (the plan's `edge_tables().gather`) and segment-reduces
      the rows in canonical CSR entry order; the finalize is tensor code.
 
+backend="spmv" (modes "single", "uncoded", "coded", "coded-fast"; linear
+programs only): the plan's edge tables are built once as the coverage
+check, and nothing of the Shuffle is uploaded. Each iteration maps the
+state to per-source values (`map_source_t`), sums them over the CSR rows
+with K5 (`kernels/spmv`, one launch for [n, B] payloads) and finalizes.
+The Shuffle's bits are schedule-only, summed once when the session is
+built: 0 for single, `uncoded_bits`, `coded_bits + leftover_bits` or
+`coded_bits` per payload column and iteration.
+
 Min programs are bitwise equal to the sparse NumPy oracle
 (`algorithms.reference_run`); float sums agree within a stated tolerance
-(sequential sums against `np.add.reduceat`). `shuffle_bits` is exact:
-(coded_bits + leftover_bits) x B per iteration.
+(the kernels' sums against `np.add.reduceat`). `shuffle_bits` is exact.
 
-What the reference offers beyond this path raises `NotImplementedError`
-naming the ROADMAP item that will bring it.
+What the reference offers beyond these routes raises `NotImplementedError`
+naming the ROADMAP item that will bring it; what the reference rejects
+raises its `ValueError`.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.segment_reduce.ops import segment_reduce
+from ..kernels.spmv.spmv import check_bm, spmv_csr
 from ..obs import get_tracer
 from .algorithms import VertexProgram
 from .allocation import Allocation
@@ -39,10 +51,13 @@ from .fused_shuffle import FusedSparseShuffle, _i32
 from .graph_models import Graph
 from .shuffle_plan import ShufflePlan, compile_plan_csr
 
+PLAN_MODES = ("uncoded", "coded", "coded-fast")
+MODES = ("single",) + PLAN_MODES + ("coded-ref",)
+# Per-backend accepted options (inline or `backend_opts=`), validated up
+# front as the reference does.
+_BACKEND_OPTS = {"fused": frozenset(), "spmv": frozenset({"bm"})}
 _NOT_PORTED = {
-    "mode": "ROADMAP Queue 1 #13 (modes single/uncoded/coded-fast/coded-ref)",
     "dense": "ROADMAP Queue 1 #13 (path='dense')",
-    "spmv": "ROADMAP Queue 1 #5 (backend='spmv')",
     "numpy": "ROADMAP Queue 1 #13 (backend='numpy'; the NumPy executor is "
              "ShufflePlan.execute_coded_sparse)",
     "topology": "ROADMAP Queue 1 #8 (two-level topology exchange)",
@@ -52,6 +67,52 @@ _NOT_PORTED = {
 
 def _not_ported(what: str, key: str):
     return NotImplementedError(f"{what} is not ported yet: {_NOT_PORTED[key]}")
+
+
+def _plan_bits(plan: ShufflePlan, mode: str) -> int:
+    """Bits-on-the-wire of one single-query Shuffle (schedule-only)."""
+    if mode == "coded":
+        return plan.coded_bits + plan.leftover_bits
+    if mode == "coded-fast":
+        return plan.coded_bits
+    return plan.uncoded_bits
+
+
+def _check_options(program: VertexProgram, mode: str, path: str,
+                   backend: str, topology, opts: dict) -> None:
+    """The reference's validation, in its order, for the ported routes."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if path not in ("auto", "sparse", "dense"):
+        raise ValueError(f"unknown path {path!r}")
+    if backend == "numpy":
+        raise _not_ported("backend='numpy'", "numpy")
+    if backend not in _BACKEND_OPTS:
+        raise ValueError(f"unknown backend {backend!r}")
+    unknown = sorted(set(opts) - _BACKEND_OPTS[backend])
+    if unknown:
+        accepted = sorted(_BACKEND_OPTS[backend])
+        raise ValueError(
+            f"backend {backend!r} got unknown option(s) {unknown}; "
+            f"accepted: {accepted if accepted else '(none)'}")
+    if topology is not None:
+        raise _not_ported("topology=", "topology")
+    if backend == "spmv":
+        if path == "dense" or mode == "coded-ref":
+            raise ValueError("backend='spmv' requires the sparse path "
+                             f"(got mode={mode!r}, path={path!r})")
+        if program.map_source_t is None:
+            raise ValueError(
+                f"{program.name} is not linear (no map_source/finalize); "
+                "backend='spmv' needs a per-source Map and a sum Reduce")
+        check_bm(opts.get("bm", 128))
+        return
+    if path == "dense":
+        raise _not_ported("path='dense'", "dense")
+    if mode != "coded":
+        raise ValueError(
+            "backend='fused' executes the coded multicast schedule; "
+            f"use mode='coded' (got {mode!r})")
 
 
 @dataclasses.dataclass
@@ -77,36 +138,22 @@ class EngineResult:
 class CompiledEngine:
     """Compile-once session bound to (graph, allocation) on one device.
 
-    Holds the `ShufflePlan`, its CSR edge tables, the fused exchange with
-    its uploaded tables, and the device gather/indptr tables - all
+    Holds the `ShufflePlan` and its CSR edge tables; for backend="fused"
+    also the exchange with its uploaded tables and the device gather
+    table, for backend="spmv" the device CSR arrays. All of it is
     program-independent, so `with_program` rebinds the vertex program for
     free.
     """
 
-    def __init__(self, program: VertexProgram, g: Graph, alloc: Allocation,
-                 mode: str = "coded", *, path: str = "sparse",
-                 backend: str = "fused", plan: ShufflePlan | None = None,
+    def __init__(self, program: VertexProgram, g: Graph,
+                 alloc: Allocation | None, mode: str = "coded", *,
+                 path: str = "sparse", backend: str = "fused",
+                 plan: ShufflePlan | None = None,
                  device: str | torch.device | None = "cuda",
-                 topology=None, **opts):
-        if mode != "coded":
-            if mode in ("single", "uncoded", "coded-fast", "coded-ref"):
-                raise _not_ported(f"mode={mode!r}", "mode")
-            raise ValueError(f"unknown mode {mode!r}")
-        if path == "dense":
-            raise _not_ported("path='dense'", "dense")
-        if path not in ("auto", "sparse"):
-            raise ValueError(f"unknown path {path!r}")
-        if backend in ("spmv", "numpy"):
-            raise _not_ported(f"backend={backend!r}", backend)
-        if backend != "fused":
-            raise ValueError(f"unknown backend {backend!r}")
-        if topology is not None:
-            raise _not_ported("topology=", "topology")
-        if opts:
-            raise ValueError(
-                f"backend 'fused' got unknown option(s) {sorted(opts)}; "
-                "accepted: (none)")
-        if alloc is None:
+                 topology=None, backend_opts: dict | None = None, **opts):
+        opts = {**(backend_opts or {}), **opts}
+        _check_options(program, mode, path, backend, topology, opts)
+        if backend == "fused" and alloc is None:
             raise ValueError("the coded engine needs an allocation")
         self.device = resolve_device(device)
         self.program = program
@@ -115,28 +162,41 @@ class CompiledEngine:
         self.mode = mode
         self.path = path
         self.backend = backend
-        if plan is None:
+        self.backend_opts = opts
+        self.distributed = mode != "single" and alloc is not None
+        if self.distributed and plan is None:
             with get_tracer().span("engine.compile", mode=mode,
                                    backend=backend, n=g.n, K=alloc.K):
-                plan = compile_plan_csr(g.csr, alloc)
-        else:
+                plan = compile_plan_csr(g.csr, alloc,
+                                        schedule=mode != "uncoded")
+        elif self.distributed:
             plan.check_alloc(alloc)
         self.plan = plan
-        self.tables = plan.edge_tables(g.csr, alloc)
-        self.fused = FusedSparseShuffle(plan, g.csr, alloc, device=self.device)
-        self._gather = _i32(self.tables.gather, self.device)
+        # Built for the coverage check even where nothing is uploaded.
+        self.tables = (plan.edge_tables(g.csr, alloc) if self.distributed
+                       else None)
+        self._bits = _plan_bits(plan, mode) if self.distributed else 0
         self._indptr = _i32(g.csr.indptr, self.device)
         self._dg = g.device_view(self.device)
+        if backend == "fused":
+            self.fused = FusedSparseShuffle(plan, g.csr, alloc,
+                                            device=self.device)
+            self._gather = _i32(self.tables.gather, self.device)
+        else:
+            self.bm = check_bm(opts.get("bm", 128))
+            self._indices = _i32(g.csr.indices, self.device)
 
     @property
     def schedule_bits(self) -> int:
         """Bits-on-the-wire of one single-query Shuffle (summed once, when
-        the exchange was built: `plan.coded_bits` sums a [C] array)."""
-        return self.fused.schedule_bits
+        the session was built: `plan.coded_bits` sums a [C] array)."""
+        return self._bits
 
     def with_program(self, program: VertexProgram) -> "CompiledEngine":
         """Rebind the vertex program on the same compiled artifacts (plan,
         edge tables, uploaded exchange and reduce tables carry over)."""
+        _check_options(program, self.mode, self.path, self.backend, None,
+                       self.backend_opts)
         eng = object.__new__(CompiledEngine)
         eng.__dict__.update(self.__dict__)
         eng.program = program
@@ -151,6 +211,17 @@ class CompiledEngine:
     def _step(self, state: torch.Tensor) -> torch.Tensor:
         """One Map -> Shuffle -> Reduce round on the device."""
         program, tr = self.program, get_tracer()
+        if self.backend == "spmv":
+            # Coverage was checked when `tables` was built, so each row
+            # sums its full CSR slice; the Shuffle only adds its bits.
+            with tr.span("phase.map", n=self.g.n):
+                c = program.map_source_t(self._dg, state).contiguous()
+            with tr.span("phase.reduce", nnz=self.g.csr.nnz):
+                acc = spmv_csr(self._indptr, self._indices, c, bm=self.bm)
+                state = program.finalize_t(acc, state, self._dg)
+                if tr.enabled and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            return state
         with tr.span("phase.map", nnz=self.g.csr.nnz):
             edge_vals = program.map_edge_values_t(self._dg, state).contiguous()
         words = self.fused.exchange(edge_vals)
@@ -202,29 +273,37 @@ class CompiledEngine:
 
     def loads(self) -> dict[str, float]:
         """Exact Definition-2 loads of this session's schedule (no data
-        moves; see `loads.empirical_loads`)."""
+        moves; see `loads.empirical_loads`). An uncoded session's plan has
+        no schedule and raises, as the reference's does."""
+        if self.plan is None:
+            raise ValueError(
+                "loads() needs a compiled plan (a distributed plan mode)")
         from .loads import empirical_loads
         return empirical_loads(self.plan, self.alloc)
 
 
-def compile(program: VertexProgram, g: Graph, alloc: Allocation,
+def compile(program: VertexProgram, g: Graph, alloc: Allocation | None,
             mode: str = "coded", *, path: str = "sparse",
             backend: str = "fused", plan: ShufflePlan | None = None,
             device: str | torch.device | None = "cuda", topology=None,
-            **opts) -> CompiledEngine:
+            backend_opts: dict | None = None, **opts) -> CompiledEngine:
     """Compile a reusable session (see `CompiledEngine`); `device`
-    defaults to the card and raises without one."""
+    defaults to the card and raises without one. Backend options go
+    inline (``backend="spmv", bm=32``) or in `backend_opts=`."""
     return CompiledEngine(program, g, alloc, mode, path=path, backend=backend,
-                          plan=plan, device=device, topology=topology, **opts)
+                          plan=plan, device=device, topology=topology,
+                          backend_opts=backend_opts, **opts)
 
 
-def run(program: VertexProgram, g: Graph, alloc: Allocation, iters: int,
-        mode: str = "coded", plan: ShufflePlan | None = None, *,
+def run(program: VertexProgram, g: Graph, alloc: Allocation | None,
+        iters: int, mode: str = "coded", plan: ShufflePlan | None = None, *,
         path: str = "sparse", backend: str = "fused",
+        backend_opts: dict | None = None,
         device: str | torch.device | None = "cuda") -> EngineResult:
     """One-shot wrapper: `compile(...)` + `.run(iters)`."""
     return compile(program, g, alloc, mode, path=path, backend=backend,
-                   plan=plan, device=device).run(iters)
+                   plan=plan, device=device,
+                   backend_opts=backend_opts).run(iters)
 
 
 def restore(*_args, **_kwargs):

@@ -189,9 +189,9 @@ def test_no_fallback_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="uncoded"), "Queue 1 #13"),
+    (dict(mode="uncoded", backend="numpy"), "Queue 1 #13"),
     (dict(path="dense"), "Queue 1 #13"),
-    (dict(backend="spmv"), "Queue 1 #5"),
+    (dict(backend="numpy"), "Queue 1 #13"),
     (dict(topology=object()), "Queue 1 #8"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, match):
@@ -199,6 +199,16 @@ def test_unported_options_name_their_roadmap_item(kw, match):
     tg, ta = _port(g, alloc)
     with pytest.raises(NotImplementedError, match=match):
         t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu", **kw)
+
+
+def test_fused_backend_outside_mode_coded_raises_as_the_reference():
+    g, alloc = _case("er")
+    tg, ta = _port(g, alloc)
+    with pytest.raises(ValueError, match="use mode='coded'"):
+        r_engine.compile(r_algo.pagerank(), g, alloc, "uncoded",
+                         backend="fused")
+    with pytest.raises(ValueError, match="use mode='coded'"):
+        t_engine.compile(t_algo.pagerank(), tg, ta, "uncoded", device="cpu")
 
 
 SCRIPT_PALLAS = r"""
