@@ -31,7 +31,22 @@ non-zero before its last line:
      API, `ops.pagerank_step` (K4) for 10 steps on the dense adjacency of
      an ER graph with n = 16,384, p = 0.01, seed 5, in float32 and in
      float16, within rtol 1e-5 of the oracle. Each path's launch counts
-     are reset just before it and read just after.
+     are reset just before it and read just after;
+  6. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
+     `ssd_state_scan` (bitwise) against their plain versions at the
+     `tests/test_kernels.py` ssd shapes, at the serve shape (G = 128
+     groups, 32 chunks of 64, P = 64, N = 128) and, for K7, 256 chunks;
+     `ops.ssd` against the sequential oracle at 5e-4. Then mamba2-370m at
+     full width and depth (48 layers, d_model 1,024, vocab 50,280), bf16
+     weights from a seeded generator: `decode.prefill` of B = 4 prompts of
+     2,048 tokens through K6 and K7 (48 launches each, counted on that
+     run); each layer's kernel block against its plain block on the same
+     input (2^-6 * max|y|, final state 1e-3 * max|h|); the last logits
+     finite and within twice bf16's own distance from float32 of the
+     plain chunked prefill's; `serve.generate` (B = 4, 32-token prompts,
+     32 new tokens, in the vocabulary). In float32, each layer's chunked
+     block against 128 decode steps of it, and a 4-layer prefill of 128
+     tokens against the decode loop, within 1e-3 of their max.
 
 The kernel phase also holds K4 (float32 rtol 1e-4 / atol 1e-5, float16
 2e-3) and K5 (rtol 1e-5, atol 1e-6 for standard-normal values, bitwise
@@ -44,6 +59,7 @@ card's name and power limit, and as its last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -61,6 +77,15 @@ SUM_RTOL = 1e-5
 SLICE_N = 80_000          # er-76k: the registry's soc-Epinions1 stand-in
 SCALE_N = 1_000_000       # about 8M CSR entries at average degree 8
 DENSE_N = 16_384          # dense pagerank_step: a 1.07 GB float32 adjacency
+SERVE_ARCH = "mamba2-370m"
+SERVE_B, SERVE_L = 4, 2_048              # the prefill: 8,192 tokens
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 32, 32   # the lockstep decode
+CONSIST_L = 128                          # float32 prefill vs decode loop
+CONSIST_DEPTH = 4                        # its end-to-end depth
+SSD_RTOL = 1e-4           # K6 vs plain: rtol, and atol as a share of max|plain|
+BF16_BLOCK_TOL = 2.0 ** -6  # a bf16 block, kernel vs plain: share of max|y|
+STATE_TOL = 1e-3          # its float32 final state: share of max|h|
+CONSIST_TOL = 1e-3        # float32 decode steps vs the chunked prefill
 SPMV_MODES = ("single", "uncoded", "coded", "coded-fast")
 # The card the kernels are built for (sm_90a), its HBM3 rate and its
 # float32 rate outside the tensor cores (NVIDIA H100 SXM data sheet).
@@ -73,6 +98,8 @@ REPLACES = {
     "segment_reduce": "src/repro/core/engine.py:166",
     "spmv_dense": "src/repro/kernels/spmv/spmv.py:29",
     "spmv_csr": "src/repro/kernels/spmv/spmv.py:29",
+    "ssd_chunk": "src/repro/kernels/ssd_scan/ssd_scan.py:54",
+    "ssd_state_scan": "src/repro/kernels/ssd_scan/ops.py:40",
 }
 SOURCES = {
     "xor_encode": "src/repro_torch/csrc/xor_code.cu",
@@ -80,6 +107,8 @@ SOURCES = {
     "segment_reduce": "src/repro_torch/csrc/segment_reduce.cu",
     "spmv_dense": "src/repro_torch/csrc/spmv.cu",
     "spmv_csr": "src/repro_torch/csrc/spmv.cu",
+    "ssd_chunk": "src/repro_torch/csrc/ssd_scan.cu",
+    "ssd_state_scan": "src/repro_torch/csrc/ssd_scan.cu",
 }
 
 
@@ -584,6 +613,33 @@ def iteration_profile(torch, eng, iters: int = 10) -> dict:
     return out
 
 
+def call_profile(torch, fn, top: int = 6) -> dict:
+    """Where one call's time goes: host wall time around it (ended by a
+    synchronize), the device's busy time and idle share over the span of
+    its kernels, the number of kernels, and the `top` kernels by device
+    time, from torch.profiler's kernel records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    span = ((max(e.time_range.end for e in kernels)
+             - min(e.time_range.start for e in kernels)) / 1e3 if kernels else 0.0)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / span if span > 0 else None,
+            "kernels": len(kernels),
+            "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
 def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
@@ -820,6 +876,329 @@ def dense_phase(torch, dev) -> tuple[dict, dict]:
     return records["float32"], info
 
 
+# ---------------------------------------------------------------------------
+# serve phase: K6 / K7 and mamba2-370m at full width
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunk_inputs(torch, dev, rng, G, Ch, Q, P, N):
+    dt = rng.uniform(0.01, 0.2, (G, Ch, Q))
+    arrays = (rng.standard_normal((G, Ch, Q, P)), dt,
+              dt * -rng.uniform(0.5, 2.0, (G, 1, 1)),
+              rng.standard_normal((G, Ch, Q, N)),
+              rng.standard_normal((G, Ch, Q, N)))
+    return [torch.from_numpy(a).to(dev, torch.float32) for a in arrays]
+
+
+def check_ssd_chunk(torch, args, what: str) -> float:
+    """K6 against its plain version: rtol 1e-4 and atol 1e-4 * max|plain|
+    per output (float32 in another summation order). Returns the max abs
+    error over the four outputs."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_k
+
+    got, want = ssd_k.ssd_chunk(*args), ssd_ref.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=SSD_RTOL,
+                                   atol=SSD_RTOL * float(w.abs().max()),
+                                   msg=lambda m: f"K6 at {what}: {m}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def check_state_scan(torch, G, S, h0, what: str) -> None:
+    """K7 against its plain version, bitwise: one rounded multiply and one
+    rounded add per chunk in both, in the same order."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_k
+
+    got, want = ssd_k.ssd_state_scan(G, S, h0), ssd_ref.ssd_state_scan(G, S, h0)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K7 ssd_state_scan not bitwise at {what}")
+
+
+def ssd_kernel_checks(torch, dev, rng) -> tuple[dict, dict]:
+    """K6 and K7 at the `tests/test_kernels.py` ssd shapes, at the serve
+    shape and (K7) 256 chunks; `ops.ssd` against the sequential oracle at
+    the reference's 5e-4. Returns K6's and K7's records at the serve
+    shape."""
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_k
+
+    cases = 0
+    for G, L, P, N, chunk in ((1, 64, 8, 4, 16), (2, 128, 16, 8, 32),
+                              (3, 128, 32, 16, 64), (2, 256, 8, 8, 128),
+                              (1, 32, 64, 32, 32)):
+        args = ssd_chunk_inputs(torch, dev, rng, G, L // chunk, chunk, P, N)
+        check_ssd_chunk(torch, args, f"G={G} L={L} P={P} N={N} chunk={chunk}")
+        _, S, Gd, _ = ssd_k.ssd_chunk(*args)
+        h0 = torch.from_numpy(rng.standard_normal(S[:, 0].shape)).to(
+            dev, torch.float32)
+        for h in (None, h0):
+            check_state_scan(torch, Gd, S, h, f"G={G} L={L} chunk={chunk}")
+        arrays = (rng.standard_normal((G, L, P)), rng.uniform(0.01, 0.2, (G, L)),
+                  -rng.uniform(0.5, 2.0, G), rng.standard_normal((G, L, N)),
+                  rng.standard_normal((G, L, N)), rng.standard_normal(G))
+        ssd_args = [torch.from_numpy(a).to(dev, torch.float32) for a in arrays]
+        y, h = ssd_ops.ssd(*ssd_args, chunk=chunk)
+        y0, h0 = ssd_ref.ssd_scan_batched(*ssd_args)
+        torch.testing.assert_close(y, y0, rtol=5e-4, atol=5e-4)
+        torch.testing.assert_close(h, h0, rtol=5e-4, atol=5e-4)
+        cases += 1
+
+    # The serve shape: B = 4 sequences x 32 heads, L = 2,048 in 32 chunks.
+    cfg = configs.get(SERVE_ARCH)
+    s = cfg.ssm
+    G, Ch, Q = SERVE_B * s.n_heads(cfg.d_model), SERVE_L // s.chunk, s.chunk
+    P, N = s.head_dim, s.d_state
+    args = ssd_chunk_inputs(torch, dev, rng, G, Ch, Q, P, N)
+    err6 = check_ssd_chunk(torch, args, "the serve shape")
+    _, S, Gd, _ = ssd_k.ssd_chunk(*args)
+    check_state_scan(torch, Gd, S, None, "the serve shape")
+    long_args = ssd_chunk_inputs(torch, dev, rng, 32, 256, Q, P, N)
+    _, S_long, G_long, _ = ssd_k.ssd_chunk(*long_args)
+    check_state_scan(torch, G_long, S_long, None, "256 chunks")
+    del long_args, S_long, G_long
+    log(f"serve phase: K6/K7 and ops.ssd agree with their plain versions at "
+        f"{cases} test shapes, the serve shape and (K7) 256 chunks")
+
+    # Bounds from this run's shapes: each input read once, each output
+    # written once; K6's float32 work over the causal triangle (the scores
+    # and y_intra for s <= t, plus S), K7's one multiply-add per state.
+    L = Ch * Q
+    tri = Q * (Q + 1) // 2
+    k6_bytes = 4 * (G * L * (2 * P + 3 * N) + 2 * G * L + G * Ch * (N * P + 1))
+    k6_flops = 2 * G * Ch * (tri * N + tri * P + Q * N * P)
+    k7_bytes = 4 * (2 * G * Ch * N * P + G * Ch + G * N * P)
+    k7_flops = 2 * G * Ch * N * P
+    rec6 = kernel_record(torch, "ssd_chunk", lambda: ssd_k.ssd_chunk(*args),
+                         lambda: ssd_ref.ssd_chunk(*args), None, err6,
+                         k6_bytes, k6_flops)
+    rec7 = kernel_record(torch, "ssd_state_scan",
+                         lambda: ssd_k.ssd_state_scan(Gd, S),
+                         lambda: ssd_ref.ssd_state_scan(Gd, S), None, 0.0,
+                         k7_bytes, k7_flops)
+    rec6["shape"] = rec7["shape"] = dict(G=G, Ch=Ch, Q=Q, P=P, N=N)
+    return rec6, rec7
+
+
+def cast_params(params, dtype, n_layers: int | None = None):
+    """A copy of a `Params` tree in another dtype (on the same device),
+    keeping the first `n_layers` of the stacked layers (all by default)."""
+    from repro_torch.models.layers import Params
+
+    def tree(p, stacked):
+        return {k: tree(p[k], stacked or k == "layers")
+                if isinstance(p[k], Params)
+                else (p[k][:n_layers] if stacked else p[k]).to(dtype)
+                for k in p.keys()}
+    return Params(tree(params, False))
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def lockstep(params, cfg, x, other) -> list[tuple[float, float]]:
+    """Each layer's block on the same input through the kernel path and
+    through `other(lp, hn)` (another path computing the same block), the
+    stack advanced by the kernel path's output: per layer, the max
+    difference of the block outputs and of the final SSM states, each
+    relative to the max of `other`'s. Free of the amplification across
+    layers that the end-to-end logits carry."""
+    from repro_torch.models import ssm, transformer as tfm
+    from repro_torch.models.layers import rms_norm
+
+    out = []
+    for i in range(cfg.n_layers):
+        lp = tfm.layer(params["layers"], i)
+        hn = rms_norm(x, lp["norm"], cfg.norm_eps)
+        y, (_, h) = ssm.mamba2_block(lp["mixer"], cfg, hn)
+        y0, h0 = other(lp["mixer"], hn)
+        out.append((rel_err(y, y0), rel_err(h, h0)))
+        x = x + y
+    return out
+
+
+def serve_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
+    """K6 / K7 checks, then mamba2-370m served at full width (module
+    docstring, phase 6). Returns K6's and K7's records (launches from the
+    bf16 prefill) and the phase's info.
+
+    With the reference's random init, 48 layers amplify rounding a few
+    thousand times (a 1e-6 change of the embeddings moves the float32
+    logits by ~4e-3 of their max), so end-to-end logits of two correct
+    paths differ by about as much as bf16 differs from float32. The
+    tolerances are therefore held per layer, in lockstep (`lockstep`),
+    and end to end against the noise floor measured in the same run.
+    """
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as dec
+    from repro_torch.models import ssm, transformer as tfm
+    from repro_torch.models.layers import init_params, rms_norm
+
+    rng = np.random.default_rng(13)
+    rec6, rec7 = ssd_kernel_checks(torch, dev, rng)
+
+    cfg = configs.get(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "params": sum(p.numel() for p in params.parameters()),
+            "init_s": time.perf_counter() - t0}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_B, SERVE_L))).to(dev)
+    batch = {"tokens": toks}
+
+    def plain_block(lp, hn):
+        y, (_, h) = ssm.mamba2_block(lp, cfg, hn, use_kernel=False)
+        return y, h
+    with torch.inference_mode():
+        plain = dec.prefill(params, cfg, batch, use_kernel=False)
+        dec.prefill(params, cfg, batch)                          # warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # The main path: reset the counts, prefill, read the counts.
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        logits = dec.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            dec.prefill(params, cfg, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dec.prefill(params, cfg, batch, use_kernel=False)
+        torch.cuda.synchronize()
+        info["plain_prefill_s"] = time.perf_counter() - t0
+        params32 = cast_params(params, torch.float32)
+        plain32 = dec.prefill(params32, cfg, batch, use_kernel=False)
+        # The amplification, for the record: float32 through the kernels,
+        # and float32 with the embeddings moved by 1e-6 of themselves.
+        info["f32_prefill_max_rel_err"] = rel_err(
+            dec.prefill(params32, cfg, batch), plain32)
+        x32 = tfm._embed_inputs(params32, cfg, batch) * (1 + 1e-6)
+        for i in range(cfg.n_layers):
+            lp = tfm.layer(params32["layers"], i)
+            y, _ = ssm.mamba2_block(lp["mixer"], cfg, rms_norm(
+                x32, lp["norm"], cfg.norm_eps), use_kernel=False)
+            x32 = x32 + y
+        info["f32_perturb_1e-6_max_rel_err"] = rel_err(tfm.logits_of(
+            params32, rms_norm(x32, params32["final_norm"], cfg.norm_eps)[:, -1]),
+            plain32)
+        del x32
+        steps = lockstep(params, cfg, tfm._embed_inputs(params, cfg, batch),
+                         plain_block)
+    for name in ("ssd_chunk", "ssd_state_scan"):
+        if launches.get(name, 0) != cfg.n_layers:
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} "
+                                 f"times in the prefill, not {cfg.n_layers}")
+    if logits.shape != (SERVE_B, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} "
+                             f"or values not finite")
+    info["prefill_max_rel_err"] = rel_err(logits, plain)
+    info["bf16_noise_max_rel_err"] = rel_err(plain, plain32)
+    info["lockstep_block_max_rel_err"] = max(y for y, _ in steps)
+    info["lockstep_state_max_rel_err"] = max(h for _, h in steps)
+    if info["lockstep_block_max_rel_err"] > BF16_BLOCK_TOL or \
+            info["lockstep_state_max_rel_err"] > STATE_TOL:
+        raise AssertionError(f"a kernel block is off the plain block: {steps}")
+    if info["prefill_max_rel_err"] > 2 * info["bf16_noise_max_rel_err"]:
+        raise AssertionError(
+            f"kernel prefill off the plain prefill by "
+            f"{info['prefill_max_rel_err']} of max|logit|, more than twice "
+            f"bf16's own {info['bf16_noise_max_rel_err']}")
+    rec6["launches"], rec7["launches"] = launches["ssd_chunk"], launches["ssd_state_scan"]
+    info["prefill_launches"] = launches
+    info["prefill_s"] = statistics.median(times)
+    info["prefill_tokens_per_s"] = SERVE_B * SERVE_L / info["prefill_s"]
+    info["prefill_peak_mem_bytes"] = peak
+
+    prompts = rng.integers(0, cfg.vocab, (GEN_B, GEN_PROMPT))
+    serve.generate(cfg, params, prompts[:, :2], 2, device=dev)   # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.generate(cfg, params, prompts, GEN_NEW, device=dev)
+    gen_s = time.perf_counter() - t0
+    if out.shape != (GEN_B, GEN_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError(f"generate: shape {out.shape} or tokens outside "
+                             f"[0, {cfg.vocab})")
+    info["decode_ms_per_step"] = gen_s / (GEN_PROMPT + GEN_NEW - 1) * 1e3
+    info["generate_s"] = gen_s
+    cache = dec.init_cache(cfg, ShapeSpec("profile", 2, GEN_B, "decode"),
+                           device=dev)
+    one = {"tokens": torch.from_numpy(prompts[:, :1]).to(dev)}
+    with torch.inference_mode():
+        dec.decode_step(params, cfg, cache, one)
+        info["decode_step_profile"] = call_profile(
+            torch, lambda: dec.decode_step(params, cfg, cache, one))
+        info["prefill_profile"] = call_profile(
+            torch, lambda: dec.prefill(params, cfg, batch))
+    del cache
+
+    # float32: every layer's chunked (kernel) block against 128 decode
+    # steps of the same block, over all 48 layers; end to end, prefill
+    # against the decode loop at a depth of 4 layers, where the
+    # amplification is small.
+    del params
+    ctoks = toks[:, :CONSIST_L]
+
+    def decode_block(lp, hn):
+        state = ssm.empty_state(cfg, hn.shape[0], dtype=hn.dtype, device=dev)
+        ys = []
+        for t in range(hn.shape[1]):
+            y, state = ssm.mamba2_block(lp, cfg, hn[:, t:t + 1], state=state)
+            ys.append(y)
+        return torch.cat(ys, dim=1), state[1]
+
+    with torch.inference_mode():
+        steps = lockstep(params32, cfg,
+                         tfm._embed_inputs(params32, cfg, {"tokens": ctoks}),
+                         decode_block)
+        cfg4 = dataclasses.replace(cfg, n_layers=CONSIST_DEPTH)
+        p4 = cast_params(params32, torch.float32, CONSIST_DEPTH)
+        want = dec.prefill(p4, cfg4, {"tokens": ctoks})
+        cache = dec.init_cache(cfg4, ShapeSpec("consist", CONSIST_L, SERVE_B,
+                                               "decode"),
+                               dtype=torch.float32, device=dev)
+        for i in range(CONSIST_L):
+            step, cache = dec.decode_step(p4, cfg4, cache,
+                                          {"tokens": ctoks[:, i:i + 1]})
+    info["f32_lockstep_decode_block_max_rel_err"] = max(y for y, _ in steps)
+    info["f32_lockstep_decode_state_max_rel_err"] = max(h for _, h in steps)
+    info["f32_decode_vs_prefill_max_rel_err"] = rel_err(step, want)
+    worst = max(info["f32_lockstep_decode_block_max_rel_err"],
+                info["f32_lockstep_decode_state_max_rel_err"],
+                info["f32_decode_vs_prefill_max_rel_err"])
+    if worst > CONSIST_TOL or not torch.isfinite(step).all():
+        raise AssertionError(f"float32 decode steps off the chunked prefill: "
+                             f"{json.dumps(info)}")
+    del params32, p4, cache
+    torch.cuda.empty_cache()
+    log(f"serve: prefill B={SERVE_B} L={SERVE_L}: "
+        f"{info['prefill_tokens_per_s']:.1f} tokens/s "
+        f"({info['prefill_s'] * 1e3:.3f} ms) | {smi}")
+    log(f"serve: decode B={GEN_B}: {info['decode_ms_per_step']:.3f} ms per "
+        f"decoded token (one lockstep step) | {smi}")
+    log(f"serve: peak device memory of the prefill {peak} bytes | {smi}")
+    log(f"serve phase ok: {json.dumps(info)}")
+    return rec6, rec7, info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -854,7 +1233,8 @@ def main() -> int:
     k5_er, k5_scale, result["spmv"] = spmv_phase(torch, dev, er, scale)
     del er, scale
     k4, result["dense"] = dense_phase(torch, dev)
-    records += [k4, k5_er]
+    k6, k7, result["serve"] = serve_phase(torch, dev, smi)
+    records += [k4, k5_er, k6, k7]
     scale_records.append(k5_scale)
     result["kernels_scale"] = scale_records
     log("kernels at the scale shapes: " + json.dumps(scale_records))

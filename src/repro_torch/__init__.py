@@ -6,7 +6,9 @@ allocation, plan compile, partition) is NumPy, carried over array for
 array. The per-iteration path - Map, XOR encode, exchange, decode, segment
 Reduce - runs on the card through hand-written CUDA kernels
 (`kernels/`, sources in `csrc/`), with device tensors kept across
-iterations.
+iterations. The model path serves the Mamba2 family (`configs`,
+`models`, `launch/serve.py`) through the chunked-SSD kernels of
+`kernels/ssd_scan`.
 
 Entry points take ``device=``; it defaults to ``"cuda"`` and raises when
 no CUDA device exists. The CPU runs only when the caller asks for it with

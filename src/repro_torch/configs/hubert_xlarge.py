@@ -1,0 +1,10 @@
+"""hubert-xlarge [audio] - encoder-only; frame embeddings are a stub frontend
+[arXiv:2106.07447; unverified]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="hubert-xlarge", family="audio",
+    n_layers=48, d_model=1280, n_heads=16, n_kv_heads=16, head_dim=80,
+    d_ff=5120, vocab=504,
+    encoder_only=True, frontend="audio",
+)

@@ -5,7 +5,8 @@ underneath; these functions rebuild the port's objects from those arrays,
 so both packages can be handed the same graph, allocation and plan (the
 tests do). Nothing here imports the reference package: callers pass the
 arrays, for example ``{f.name: getattr(obj, f.name) for f in
-dataclasses.fields(obj)}`` for a dataclass.
+dataclasses.fields(obj)}`` for a dataclass, or a model's parameter tree as
+float32 NumPy arrays.
 """
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
+from ..models.layers import Params
 from .allocation import Allocation
 from .graph_models import CSR, Graph
 from .shuffle_plan import ShufflePlan
@@ -58,3 +62,24 @@ def shuffle_plan(fields: Mapping[str, Any]) -> ShufflePlan:
         v = fields[f.name]
         kw[f.name] = np.array(v) if isinstance(v, np.ndarray) else v
     return ShufflePlan(**kw)
+
+
+def params(tree: Mapping[str, Any], dtype: torch.dtype = torch.bfloat16,
+           device: str | torch.device | None = "cuda") -> Params:
+    """The port's `Params` from the reference's parameter tree (nested
+    dicts under the same keys), given as float32 NumPy arrays, cast to
+    `dtype` on `device` (default the card, which raises without one).
+    bf16 -> float32 -> bf16 is exact, so bf16 weights cross unchanged."""
+    dev = resolve_device(device)
+
+    def leaf(path: str, v) -> torch.Tensor:
+        a = np.asarray(v)
+        if a.dtype != np.float32:
+            raise TypeError(f"{path} must be a float32 array, got {a.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def walk(node, prefix: str):
+        return {k: walk(v, f"{prefix}{k}.") if isinstance(v, Mapping)
+                else leaf(prefix + k, v) for k, v in node.items()}
+
+    return Params(walk(tree, ""))

@@ -8,15 +8,18 @@ the port):
 Each CUDA kernel is held against its plain PyTorch version on the same
 device tensors (K1, K2 and K3-min bitwise, K3-sum within rtol 1e-5; K4 at
 float32 rtol 1e-4 / atol 1e-5 and float16 2e-3, K5 within rtol 1e-5 and
-bitwise repeatable), and small coded and spmv sessions against the NumPy
-oracle. Whether a card exists is decided inside the `cuda` fixture, never
-at import time.
+bitwise repeatable; K6 within rtol 1e-4 and atol 1e-4 * max|plain|, K7
+bitwise), small coded and spmv sessions against the NumPy oracle, and the
+reduced mamba2-370m served on the card (the kernel prefill against the
+plain chunked prefill and the decode loop). Whether a card exists is
+decided inside the `cuda` fixture, never at import time.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import graphs
+from repro_torch import configs, graphs
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.core import algorithms as algo
 from repro_torch.core import engine
 from repro_torch.core.allocation import divisible_n, er_allocation
@@ -26,8 +29,15 @@ from repro_torch.kernels.segment_reduce import ref as sr_ref
 from repro_torch.kernels.spmv import ops as spmv_ops
 from repro_torch.kernels.spmv import ref as spmv_ref
 from repro_torch.kernels.spmv import spmv as spmv_k
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd_k
 from repro_torch.kernels.xor_code import ref as xref
 from repro_torch.kernels.xor_code import xor_code as xc
+from repro_torch.launch import serve
+from repro_torch.models import decode as dec
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import init_params
 
 
 @pytest.fixture
@@ -167,3 +177,89 @@ def test_dense_pagerank_step_on_the_card(cuda):
         np.testing.assert_allclose(
             rank.cpu().numpy(), algo.reference_run(algo.pagerank(), g, 10),
             rtol=1e-5, atol=0)
+
+
+def _chunk_inputs(rng, G, Ch, Q, P, N, dev):
+    dt = rng.uniform(0.01, 0.2, (G, Ch, Q))
+    arrays = (rng.standard_normal((G, Ch, Q, P)), dt,
+              dt * -rng.uniform(0.5, 2.0, (G, 1, 1)),
+              rng.standard_normal((G, Ch, Q, N)),
+              rng.standard_normal((G, Ch, Q, N)))
+    return [torch.from_numpy(a).to(dev, torch.float32) for a in arrays]
+
+
+@pytest.mark.parametrize("G,Ch,Q,P,N", [
+    (1, 4, 16, 8, 4), (2, 4, 32, 16, 8), (3, 2, 64, 32, 16), (2, 2, 128, 8, 8),
+    (1, 1, 32, 64, 32), (1, 3, 8, 4, 128), (2, 1, 128, 64, 64),
+    (8, 32, 64, 64, 128)])
+def test_ssd_chunk_matches_plain_version(cuda, G, Ch, Q, P, N):
+    args = _chunk_inputs(np.random.default_rng(Q + P + N), G, Ch, Q, P, N, cuda)
+    got = ssd_k.ssd_chunk(*args)
+    want = ssd_ref.ssd_chunk(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("Ch", [1, 32, 256])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_state_scan_is_bitwise_its_plain_version(cuda, Ch, with_h0):
+    """One multiply and one add per chunk, each rounded, in the same order
+    as the plain version's two tensor ops: the same bits."""
+    rng = np.random.default_rng(Ch)
+    G = torch.from_numpy(np.exp(-rng.uniform(0.0, 3.0, (6, Ch)))).to(cuda, torch.float32)
+    S = torch.from_numpy(rng.standard_normal((6, Ch, 16, 8))).to(cuda, torch.float32)
+    h0 = (torch.from_numpy(rng.standard_normal((6, 16, 8))).to(cuda, torch.float32)
+          if with_h0 else None)
+    h_in, h_fin = ssd_k.ssd_state_scan(G, S, h0)
+    w_in, w_fin = ssd_ref.ssd_state_scan(G, S, h0)
+    assert torch.equal(h_in, w_in) and torch.equal(h_fin, w_fin)
+
+
+@pytest.mark.parametrize("G,L,P,N,chunk", [
+    (1, 64, 8, 4, 16), (2, 128, 16, 8, 32), (3, 128, 32, 16, 64),
+    (2, 256, 8, 8, 128), (1, 32, 64, 32, 32)])
+def test_ssd_matches_sequential_oracle_on_the_card(cuda, G, L, P, N, chunk):
+    rng = np.random.default_rng(L + N)
+    arrays = (rng.standard_normal((G, L, P)), rng.uniform(0.01, 0.2, (G, L)),
+              -rng.uniform(0.5, 2.0, G), rng.standard_normal((G, L, N)),
+              rng.standard_normal((G, L, N)), rng.standard_normal(G))
+    args = [torch.from_numpy(a).to(cuda, torch.float32) for a in arrays]
+    _build.LAUNCHES.clear()
+    y, h = ssd_ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_chunk"] == 1 and _build.LAUNCHES["ssd_state_scan"] == 1
+    y_ref, h_ref = ssd_ref.ssd_scan_batched(*args)
+    torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
+
+
+def test_ssd_chunk_refuses_what_a_block_cannot_hold(cuda):
+    args = _chunk_inputs(np.random.default_rng(0), 1, 1, 128, 128, 128, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_k.ssd_chunk(*args)
+
+
+def test_mamba2_served_on_the_card(cuda):
+    cfg = configs.get("mamba2-370m").reduced()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=cuda).manual_seed(0),
+                         dtype=torch.float32, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 32))).to(cuda)
+    _build.LAUNCHES.clear()
+    got = dec.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_chunk"] == cfg.n_layers
+    assert _build.LAUNCHES["ssd_state_scan"] == cfg.n_layers
+    plain = dec.prefill(params, cfg, {"tokens": toks}, use_kernel=False)
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4 * scale)
+    cache = dec.init_cache(cfg, ShapeSpec("s", 32, 2, "decode"),
+                           dtype=torch.float32, device=cuda)
+    for i in range(32):
+        step, cache = dec.decode_step(params, cfg, cache,
+                                      {"tokens": toks[:, i:i + 1]})
+    torch.testing.assert_close(step, plain, rtol=0, atol=1e-4 * scale)
+    out = serve.generate(cfg, params, toks[:, :4].cpu().numpy(), 6, device=cuda)
+    assert out.shape == (2, 6) and out.min() >= 0 and out.max() < cfg.vocab
