@@ -10,8 +10,11 @@ non-zero before its last line:
      versions, and the time to build every kernel from
      `src/repro_torch/csrc` (one nvcc per source, all in parallel);
   2. kernels: each CUDA kernel held against its plain PyTorch version on
-     the card, at random shapes (r in 1..4, B in 1 and 4, empty rows and
-     slots) and at each session's shapes (B = 1 and B = 4). K1/K2/K3-min
+     the card, at random shapes (r in 1..5, r = 5 the runtime-r instance;
+     B in 1 and 4; empty rows, empty slots and full-word leftover slots in
+     the packed K1/K2 tables; any shift and mask in K1's general form) and
+     at each session's shapes (B = 1 and B = 4, where K1's general form on
+     the unpacked tables must write the packed K1's buffers). K1/K2/K3-min
      must be bitwise equal, K3-sum within rtol 1e-5 (the plain version sums
      with atomics; atol 0 at the session shapes, whose sums do not cancel);
   3. slice: the er-76k session (ER, n = 80,000 padded for K = 4, r = 2,
@@ -52,7 +55,10 @@ The kernel phase also holds K4 (float32 rtol 1e-4 / atol 1e-5, float16
 2e-3) and K5 (rtol 1e-5, atol 1e-6 for standard-normal values, bitwise
 repeatable) against their plain versions. Prints the `kernels` JSON line
 (K1-K3 and K5 timed at the er-76k shapes with launches from their er-76k
-paths, K4 at 16,384^2 float32 with launches from the dense path), the
+paths, K4 at 16,384^2 float32 with launches from the dense path; K1 and K2
+are the packed kernels the session runs, their bounds counted on the
+packed tables, with the count on the unpacked layout and K1's general form
+timed on it kept in the full records), the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -190,36 +196,57 @@ def word_err(torch, a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
-def random_exchange(rng, K, W, Lmax, nnz, Dmax, r, B):
-    """Random tables in the ranges the kernels accept (sentinels included)."""
-    counts = rng.integers(0, Dmax + 1, size=K)
-    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    u32 = lambda shape: rng.integers(0, 2 ** 32, size=shape,  # noqa: E731
-                                     dtype=np.uint32).view(np.int32)
-    src = u32((nnz, B) if B > 1 else (nnz,))
+def u32(rng, shape):
+    """Random uint32 words as an int32 array."""
+    return rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32).view(np.int32)
+
+
+def random_general(rng, K, W, Lmax, nnz, r, B):
+    """Random tables of K1's general form in the ranges it accepts (the
+    sentinels Lmax and nnz included), any shift and mask words."""
     return dict(
-        src=src,
+        src=u32(rng, (nnz, B) if B > 1 else (nnz,)),
         loc_e=rng.integers(0, nnz + 1, size=(K, Lmax)).astype(np.int32),
         enc_l=rng.integers(0, Lmax + 1, size=(K, W, r)).astype(np.int32),
         enc_shift=rng.integers(0, 32, size=(K, W, r)).astype(np.int32),
-        enc_mask=u32((K, W, r)),
-        dec_s=rng.integers(0, K, size=(K, Dmax, r)).astype(np.int32),
-        dec_w=rng.integers(0, W + 1, size=(K, Dmax, r)).astype(np.int32),
-        dec_mask=u32((K, Dmax, r)),
-        dec_shift=rng.integers(0, 32, size=(K, Dmax, r)).astype(np.int32),
-        strip_l=rng.integers(0, Lmax + 1, size=(K, Dmax, r, r - 1)).astype(np.int32),
-        strip_shift=rng.integers(0, 32, size=(K, Dmax, r, r - 1)).astype(np.int32),
-        strip_mask=u32((K, Dmax, r, r - 1)), ptr=ptr)
+        enc_mask=u32(rng, (K, W, r)))
 
 
-def run_exchange(xc, t, ref: bool):
-    enc = xc.ref.xor_encode_gather if ref else xc.xor_encode_gather
-    dec = xc.ref.xor_decode_gather if ref else xc.xor_decode_gather
-    buf = enc(t["src"], t["loc_e"], t["enc_l"], t["enc_shift"], t["enc_mask"])
-    out = dec(t["src"], t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
-              t["dec_shift"], t["strip_l"], t["strip_shift"], t["strip_mask"],
-              t["ptr"])
-    return buf, out
+def random_packed(rng, K, W, nnz, Dmax, r, B):
+    """Random packed K1/K2 tables: entries with the zero sentinel nnz,
+    codes over the whole book (segments, the full word of a leftover,
+    empty slots), positions over every buffer column (the zero column W
+    included), deliveries per receiver from 0 to Dmax."""
+    from repro_torch.core.fused_shuffle import code_book
+
+    counts = rng.integers(0, Dmax + 1, size=K)
+    code = lambda shape: rng.integers(0, r + 2, size=shape).astype(np.uint8)  # noqa: E731
+    return dict(
+        src=u32(rng, (nnz, B) if B > 1 else (nnz,)),
+        enc_e=rng.integers(0, nnz + 1, size=(K, W, r)).astype(np.int32),
+        enc_code=code((K, W, r)),
+        dec_pos=rng.integers(0, K * (W + 1), size=(K, Dmax, r)).astype(np.int32),
+        dec_code=code((K, Dmax, r)),
+        strip_e=rng.integers(0, nnz + 1, size=(K, Dmax, r, r - 1)).astype(np.int32),
+        strip_code=code((K, Dmax, r, r - 1)),
+        book=code_book(r).view(np.int32),
+        ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+
+
+ENC_PACKED = ("src", "enc_e", "enc_code", "book")
+DEC_PACKED = ("dec_pos", "dec_code", "strip_e", "strip_code", "book", "ptr")
+ENC_GENERAL = ("src", "loc_e", "enc_l", "enc_shift", "enc_mask")
+
+
+def run_packed(xc, t, ref: bool, total=None):
+    """Packed K1 then K2 (or their plain versions) on tables `t`."""
+    if ref:
+        buf = xc.ref.xor_encode_packed(*(t[k] for k in ENC_PACKED))
+        return buf, xc.ref.xor_decode_packed(t["src"], buf,
+                                             *(t[k] for k in DEC_PACKED))
+    buf = xc.xor_encode_packed(*(t[k] for k in ENC_PACKED))
+    return buf, xc.xor_decode_packed(t["src"], buf, *(t[k] for k in DEC_PACKED),
+                                     total=total)
 
 
 def random_reduce(rng, n, nnz, M, B):
@@ -255,18 +282,22 @@ def kernel_phase(torch, dev) -> None:
 
     rng = np.random.default_rng(11)
     cases = 0
-    for r in (1, 2, 3, 4):
+    for r in (1, 2, 3, 4, 5):
         for B in (1, 4):
-            t = {k: torch.from_numpy(v).to(dev)
-                 for k, v in random_exchange(rng, 3, 57, 41, 300, 33, r,
-                                             B).items()}
-            buf, out = run_exchange(xc, t, ref=False)
-            buf0, out0 = run_exchange(xc, t, ref=True)
+            up = lambda d: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                            for k, v in d.items()}
+            t = up(random_packed(rng, 3, 57, 300, 33, r, B))
+            buf, out = run_packed(xc, t, ref=False)
+            buf0, out0 = run_packed(xc, t, ref=True)
+            g = up(random_general(rng, 3, 57, 41, 300, r, B))
+            gen = xc.xor_encode_gather(*(g[k] for k in ENC_GENERAL))
+            gen0 = xref.xor_encode_gather(*(g[k] for k in ENC_GENERAL))
             torch.cuda.synchronize()
             if not (torch.equal(buf, buf0) and torch.equal(out, out0)):
-                raise AssertionError(f"K1/K2 not bitwise at r={r} B={B}")
-            rows = torch.from_numpy(rng.integers(0, 2 ** 32, (r, 77, B),
-                                                 dtype=np.uint32).view(np.int32)).to(dev)
+                raise AssertionError(f"packed K1/K2 not bitwise at r={r} B={B}")
+            if not torch.equal(gen, gen0):
+                raise AssertionError(f"general K1 not bitwise at r={r} B={B}")
+            rows = torch.from_numpy(u32(rng, (r, 77, B))).to(dev)
             valid = torch.from_numpy(rng.random((r, 77)) < 0.6).to(dev)
             if not torch.equal(xops.xor_encode(rows, valid),
                                xref.xor_encode(rows, valid)):
@@ -283,7 +314,8 @@ def kernel_phase(torch, dev) -> None:
                          sr_ref.segment_reduce(*args, op, ident), op,
                          f"random {op} B={B}", atol=1e-6)
     cases_spmv = spmv_kernel_checks(torch, dev, rng)
-    log(f"kernel phase: {cases} random exchange cases, the K3 sum/min cases "
+    log(f"kernel phase: {cases} random exchange cases (packed K1/K2, general "
+        f"and dense K1), the K3 sum/min cases "
         f"and {cases_spmv} K4/K5 cases agree with the plain versions")
 
 
@@ -352,27 +384,33 @@ def er_session(n_base: int, seed: int, K: int = 4, r: int = 2):
     return g, alloc, time.perf_counter() - t0
 
 
-def hold_session(torch, eng, ev, what: str) -> dict:
-    """Run K1, K2 and K3 (sum and min) on Map output `ev` [nnz(, B)] at a
-    session's shapes and hold each against its plain version: K1, K2 and
-    K3-min bitwise, K3-sum within rtol 1e-5 with atol 0 (every Map value
-    here is positive, so no row sum cancels). Returns each kernel's
-    arguments and its max abs error."""
+def general_tables(torch, eng) -> dict:
+    """K1's general form's arguments on the session's unpacked tables
+    (uploaded here; the session itself holds only the packed ones)."""
+    from repro_torch.core.fused_shuffle import _i32
+
+    s = eng.fused.sched
+    return {k: _i32(getattr(s, k), eng.device)
+            for k in ("loc_e", "enc_l", "enc_shift", "enc_mask")}
+
+
+def hold_session(torch, eng, ev, what: str, general: dict) -> dict:
+    """Run the packed K1 and K2 and K3 (sum and min) on Map output `ev`
+    [nnz(, B)] at a session's shapes and hold each against its plain
+    version: K1, K2 and K3-min bitwise, K3-sum within rtol 1e-5 with atol
+    0 (every Map value here is positive, so no row sum cancels); K1's
+    general form on the unpacked tables must write the same buffers.
+    Returns each kernel's arguments and its max abs error."""
     from repro_torch.kernels.segment_reduce import ops as sr
     from repro_torch.kernels.segment_reduce import ref as sr_ref
-    from repro_torch.kernels.xor_code import ref as xref
     from repro_torch.kernels.xor_code import xor_code as xc
 
-    fx, t = eng.fused, eng.fused.tables
-    src = ev.view(torch.int32)
-    enc = (src, t["loc_e"], t["enc_l"], t["enc_shift"], t["enc_mask"])
-    buf = xc.xor_encode_gather(*enc)
-    buf0 = xref.xor_encode_gather(*enc)
-    dec = (src, t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
-           t["dec_shift"], t["strip_l"], t["strip_shift"], t["strip_mask"],
-           t["ptr"])
-    words = xc.xor_decode_gather(*dec, total=fx.M)
-    words0 = xref.xor_decode_gather(*dec)
+    fx = eng.fused
+    t = dict(fx.tables, src=ev.view(torch.int32))
+    buf, words = run_packed(xc, t, ref=False, total=fx.M)
+    buf0, words0 = run_packed(xc, t, ref=True)
+    gen_args = (t["src"],) + tuple(general[k] for k in ENC_GENERAL[1:])
+    gen = xc.xor_encode_gather(*gen_args)
     red = {op: (ev, words, eng._gather, eng._indptr, op, ident)
            for op, ident in (("sum", 0.0), ("min", np.inf))}
     acc = {op: sr.segment_reduce(*a) for op, a in red.items()}
@@ -380,52 +418,57 @@ def hold_session(torch, eng, ev, what: str) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(buf, buf0):
         raise AssertionError(f"K1 xor_encode not bitwise at {what}")
+    if not torch.equal(gen, buf):
+        raise AssertionError(f"general K1 on the unpacked tables differs "
+                             f"from the packed K1 at {what}")
     if not torch.equal(words, words0):
         raise AssertionError(f"K2 xor_decode not bitwise at {what}")
     err3 = check_reduce(torch, acc["sum"], acc0["sum"], "sum", what, atol=0.0)
     check_reduce(torch, acc["min"], acc0["min"], "min", what, atol=0.0)
-    return {"enc": enc, "dec": dec, "red": red["sum"], "words": words,
+    return {"tables": t, "general": gen_args, "red": red["sum"],
+            "words": words,
             "err": {"xor_encode": word_err(torch, buf, buf0),
                     "xor_decode": word_err(torch, words, words0),
                     "segment_reduce": err3}}
 
 
-def kernel_records(torch, eng) -> list[dict]:
-    """Hold K1/K2/K3 against their plain versions at this session's shapes,
-    on pagerank's Map output (B = 1) and on multi_sssp's over a seeded
-    random [n, 4] state (B = 4); time them at B = 1 and compute each
-    kernel's bytes bound."""
-    from repro_torch.core import algorithms as algo
-    from repro_torch.core.bitcodec import words_to_floats_t
-    from repro_torch.kernels.segment_reduce import ops as sr
-    from repro_torch.kernels.segment_reduce import ref as sr_ref
-    from repro_torch.kernels.xor_code import ref as xref
-    from repro_torch.kernels.xor_code import xor_code as xc
+def packed_bytes(eng, B: int = 1) -> tuple[int, int]:
+    """Bytes the packed K1 and K2 must move on this session's data: each
+    packed table read once (K2: the rows of real deliveries), the book,
+    each distinct src word and buffer word a slot with a nonzero mask
+    reads (sentinels excluded), each output written once."""
+    fx = eng.fused
+    p, nnz, M = fx.packed, fx.nnz, fx.M
+    K, W, r = p.enc_e.shape
+    live = lambda code: p.book[1][code] != 0  # noqa: E731
+    e1 = p.enc_e[(p.enc_e < nnz) & live(p.enc_code)]
+    k1 = (p.enc_e.nbytes + p.enc_code.nbytes + p.book.nbytes
+          + 4 * B * np.unique(e1).size + 4 * B * K * (W + 1))
+    rows = np.arange(p.dec_pos.shape[1])[None, :] < np.diff(eng.plan.ptr)[:, None]
+    pos, pc = p.dec_pos[rows], p.dec_code[rows]
+    got = pos[live(pc) & (pos % (W + 1) < W)]
+    se, sc = p.strip_e[rows], p.strip_code[rows]
+    e2 = se[(se < nnz) & live(sc)]
+    n = int(rows.sum())
+    k2 = (n * r * 5 + n * r * (r - 1) * 5 + 4 * (K + 1) + p.book.nbytes
+          + 4 * B * np.unique(got).size + 4 * B * np.unique(e2).size
+          + 4 * B * M)
+    return int(k1), int(k2)
 
-    fx, s, dev = eng.fused, eng.fused.sched, eng.device
-    state4 = torch.from_numpy(np.random.default_rng(4).random(
-        (eng.g.n, 4), dtype=np.float32)).to(dev)
-    ev4 = algo.multi_sssp([0, 1, 2, 3]).map_edge_values_t(eng._dg, state4)
-    hold_session(torch, eng, ev4.contiguous(), "the session shapes, B = 4")
-    prog = algo.pagerank()
-    state = torch.as_tensor(prog.init(eng.g), device=dev)
-    ev = prog.map_edge_values_t(eng._dg, state).contiguous()
-    held = hold_session(torch, eng, ev, "the session shapes, B = 1")
-    enc_args, dec_args, red_args = held["enc"], held["dec"], held["red"]
-    words = held["words"]
 
-    # Bytes each kernel must move on this run's data: every table read
-    # once, each distinct referenced word read once, each output written
-    # once. All three kernels are bound by bytes (a few integer ops per
-    # word), so bound_ms = bytes / memory rate.
+def unpacked_bytes(eng, B: int = 1) -> tuple[int, int]:
+    """The same count for the unpacked layout (`bound_ms_old_layout`):
+    three words per K1 slot and the loc_e hop, four words per K2 segment
+    and three per strip slot."""
+    fx, s = eng.fused, eng.fused.sched
     K, W, r = s.enc_l.shape
-    nnz, M, n, B = eng.g.csr.nnz, fx.M, eng.g.n, 1
+    nnz, M = fx.nnz, fx.M
     lmask = s.enc_l < s.Lmax
     kk = np.broadcast_to(np.arange(K)[:, None, None], s.enc_l.shape)
     e_ref = s.loc_e[kk[lmask], s.enc_l[lmask]]
     e_ref = np.unique(e_ref[e_ref < nnz])
-    k1_bytes = (3 * s.enc_l.nbytes + 4 * int(lmask.sum())
-                + 4 * B * e_ref.size + 4 * B * K * (W + 1))
+    k1 = (3 * s.enc_l.nbytes + 4 * int(lmask.sum())
+          + 4 * B * e_ref.size + 4 * B * K * (W + 1))
     dvalid = np.arange(s.Dmax)[None, :] < np.diff(eng.plan.ptr)[:, None]
     dmask = dvalid[..., None] & (s.dec_w < s.W)
     got_ref = np.unique(s.dec_s[dmask].astype(np.int64) * (s.W + 1)
@@ -434,28 +477,70 @@ def kernel_records(torch, eng) -> list[dict]:
     ks = np.broadcast_to(np.arange(K)[:, None, None, None], s.strip_l.shape)
     se = s.loc_e[ks[smask], s.strip_l[smask]] if smask.any() else np.zeros(0, int)
     n_dec = int(dvalid.sum())
-    k2_bytes = (4 * 4 * n_dec * r + 3 * 4 * int(smask.sum()) + 4 * (K + 1)
-                + 4 * B * got_ref.size + 4 * B * np.unique(se[se < nnz]).size
-                + 4 * B * M)
+    k2 = (4 * 4 * n_dec * r + 3 * 4 * int(smask.sum()) + 4 * (K + 1)
+          + 4 * B * got_ref.size + 4 * B * np.unique(se[se < nnz]).size
+          + 4 * B * M)
+    return int(k1), int(k2)
+
+
+def kernel_records(torch, eng) -> list[dict]:
+    """Hold K1/K2/K3 against their plain versions at this session's shapes,
+    on pagerank's Map output (B = 1) and on multi_sssp's over a seeded
+    random [n, 4] state (B = 4); time them at B = 1 and compute each
+    kernel's bytes bound, K1's and K2's also on the layout before packing
+    (`bound_ms_old_layout`). K1's record carries the general form's time
+    on the unpacked tables (`general_ms`), the same card's before."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core.bitcodec import words_to_floats_t
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.kernels.segment_reduce import ref as sr_ref
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    fx, dev = eng.fused, eng.device
+    general = general_tables(torch, eng)
+    state4 = torch.from_numpy(np.random.default_rng(4).random(
+        (eng.g.n, 4), dtype=np.float32)).to(dev)
+    ev4 = algo.multi_sssp([0, 1, 2, 3]).map_edge_values_t(eng._dg, state4)
+    hold_session(torch, eng, ev4.contiguous(), "the session shapes, B = 4",
+                 general)
+    prog = algo.pagerank()
+    state = torch.as_tensor(prog.init(eng.g), device=dev)
+    ev = prog.map_edge_values_t(eng._dg, state).contiguous()
+    held = hold_session(torch, eng, ev, "the session shapes, B = 1", general)
+    t, red_args, words = held["tables"], held["red"], held["words"]
+    buf = xc.xor_encode_packed(*(t[k] for k in ENC_PACKED))
+    dec_args = (t["src"], buf) + tuple(t[k] for k in DEC_PACKED)
+
+    # All three kernels are bound by bytes (a few integer ops per word),
+    # so bound_ms = bytes / memory rate.
+    k1_bytes, k2_bytes = packed_bytes(eng)
+    k1_old, k2_old = unpacked_bytes(eng)
+    nnz, n, B = eng.g.csr.nnz, eng.g.n, 1
     k3_bytes = 4 * nnz + 4 * (n + 1) + 4 * B * nnz + 4 * B * n
 
     gathered = torch.cat([ev, words_to_floats_t(words)])[eng._gather.long()]
     offsets = eng._indptr.long()
     runs = (
         ("xor_encode", k1_bytes,
-         lambda: xc.xor_encode_gather(*enc_args),
-         lambda: xref.xor_encode_gather(*enc_args), None),
+         lambda: xc.xor_encode_packed(*(t[k] for k in ENC_PACKED)),
+         lambda: xc.ref.xor_encode_packed(*(t[k] for k in ENC_PACKED)), None),
         ("xor_decode", k2_bytes,
-         lambda: xc.xor_decode_gather(*dec_args, total=M),
-         lambda: xref.xor_decode_gather(*dec_args), None),
+         lambda: xc.xor_decode_packed(*dec_args, total=fx.M),
+         lambda: xc.ref.xor_decode_packed(*dec_args), None),
         ("segment_reduce", k3_bytes,
          lambda: sr.segment_reduce(*red_args),
          lambda: sr_ref.segment_reduce(*red_args),
          lambda: torch.segment_reduce(gathered, "sum", offsets=offsets,
                                       axis=0)))
-    return [kernel_record(torch, name, kernel, plain, library,
-                          held["err"][name], nbytes, 0)
-            for name, nbytes, kernel, plain, library in runs]
+    records = [kernel_record(torch, name, kernel, plain, library,
+                             held["err"][name], nbytes, 0)
+               for name, nbytes, kernel, plain, library in runs]
+    for rec, old in zip(records, (k1_old, k2_old)):
+        rec["bytes_old_layout"] = old
+        rec["bound_ms_old_layout"] = bound(torch, old, 0)[0]
+    records[0]["general_ms"] = time_ms_graph(
+        torch, lambda: xc.xor_encode_gather(*held["general"]))
+    return records
 
 
 def kernel_record(torch, name: str, kernel, plain, library, err: float,
@@ -485,6 +570,24 @@ def record_launches(records: list[dict], launches: dict, path: str) -> dict:
     return launches
 
 
+def session_costs(fx) -> dict:
+    """What the packed tables cost the session: the host time to pack a
+    schedule (timed again here on its own), and the device bytes of the
+    tables it uploads against those of the unpacked tables and loc_e."""
+    from repro_torch.core.fused_shuffle import pack_schedule
+
+    t0 = time.perf_counter()
+    pack_schedule(fx.sched, fx.nnz)
+    s = fx.sched
+    unpacked = sum(getattr(s, k).size * 4 for k in (
+        "loc_e", "enc_l", "enc_shift", "enc_mask", "dec_s", "dec_w",
+        "dec_mask", "dec_shift", "strip_l", "strip_shift", "strip_mask"))
+    return {"pack_s": time.perf_counter() - t0,
+            "table_bytes": sum(t.numel() * t.element_size()
+                               for t in fx.tables.values()),
+            "table_bytes_unpacked": unpacked + fx.tables["ptr"].numel() * 4}
+
+
 def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
@@ -503,7 +606,7 @@ def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     s = fx.sched
     info = dict(n=g.n, nnz=g.csr.nnz, C=int(plan.col_sender.size), W=s.W,
                 Lmax=s.Lmax, Dmax=s.Dmax, M=fx.M, graph_s=t_graph,
-                compile_s=t_compile, session_s=t_session)
+                compile_s=t_compile, session_s=t_session, **session_costs(fx))
     log(f"slice: er-76k {json.dumps(info)}")
 
     # Delivered words of one exchange vs the NumPy executor.
@@ -656,7 +759,8 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     t_session = time.perf_counter() - t0
     info = dict(n=g.n, nnz=g.csr.nnz, C=int(eng.plan.col_sender.size),
                 W=fx.sched.W, Lmax=fx.sched.Lmax, Dmax=fx.sched.Dmax, M=fx.M,
-                graph_s=t_graph, compile_s=t_compile, session_s=t_session)
+                graph_s=t_graph, compile_s=t_compile, session_s=t_session,
+                **session_costs(fx))
     eng.run(1)
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()

@@ -10,17 +10,23 @@ tensor whose column W is zero:
   * `partition_plan` (host NumPy, bitwise the reference's tables) splits a
     compiled CSR `ShufflePlan` per server: each server's Map slice
     (`loc_e`, the CSR entries whose source vertex it Mapped) plus its
-    encode/decode/strip tables. The tables go to the device once.
-  * encode - kernel K1 (`kernels/xor_code`, `xor_encode_gather`): per server
-    and buffer column, gather the slot values from the Map output through
-    `loc_e`, byteswap the float bits into codec order, shift, mask and XOR
-    over the r slots, straight into the shared buffer tensor.
+    encode/decode/strip tables.
+  * `pack_schedule` derives the kernels' packed tables from them once:
+    every local index composed through `loc_e` into a CSR entry, every
+    (shift, mask) pair replaced by a one-byte code into a book of r + 2
+    pairs, every (sender, column) pair by one buffer position. Only the
+    packed tables go to the device.
+  * encode - kernel K1 (`kernels/xor_code`, `xor_encode_packed`): per
+    server and buffer column, gather the slot values from the Map output,
+    byteswap the float bits into codec order, shift, mask and XOR over the
+    r slots, straight into the shared buffer tensor.
   * exchange - nothing moves: every receiver reads the senders' columns in
     place. The span carries the schedule's bits-on-the-wire.
-  * decode - kernel K2 (`xor_decode_gather`): per receiver and delivery,
-    read the coded words, strip the slots it recomputes from its own Map
-    slice, mask, shift back and OR, writing codec-order words straight
-    into the flat (k, i, j) delivery order of the plan.
+  * decode - kernel K2 (`xor_decode_packed`): per receiver and delivery,
+    read the coded words from the senders' columns, strip the slots it
+    recomputes from its own Map slice, mask, shift back and OR, writing
+    codec-order words straight into the flat (k, i, j) delivery order of
+    the plan.
 
 Nothing returns to the host between Map and Reduce. Delivered words are
 bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
@@ -37,11 +43,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.xor_code.xor_code import xor_decode_gather, xor_encode_gather
+from ..kernels.xor_code.xor_code import xor_decode_packed, xor_encode_packed
 from ..obs import get_tracer
 from .allocation import Allocation
-from .bitcodec import (floats_to_words, np_words_to_t, t_words_to_np,
-                       words_to_floats)
+from .bitcodec import (floats_to_words, np_words_to_t, segment_words,
+                       t_words_to_np, words_to_floats)
 from .graph_models import CSR
 from .shuffle_plan import PlanShuffleResult, ShufflePlan, _run_ranks
 
@@ -238,6 +244,77 @@ def partition_plan(plan: ShufflePlan, csr: CSR,
         strip_l=strip_l, strip_shift=strip_shift, strip_mask=strip_mask)
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedSchedule:
+    """The kernels' form of a `FusedSparseSchedule`: what goes to the card.
+
+    Entries index the [nnz] Map output directly (`nnz` = a zero word): the
+    schedule's local indices composed through `loc_e` once, here, so the
+    kernels make one random read per slot instead of two. Codes name a
+    (shift, mask) pair of `book` (`code_book`), one byte in place of two
+    words; positions name a buffer column across all senders.
+    """
+
+    enc_e: np.ndarray             # [K, W, r] int32 CSR entry (nnz = zero)
+    enc_code: np.ndarray          # [K, W, r] uint8 code of enc_shift/enc_mask
+    dec_pos: np.ndarray           # [K, Dmax, r] int32 dec_s * (W + 1) + dec_w
+    dec_code: np.ndarray          # [K, Dmax, r] uint8 code of dec_shift/dec_mask
+    strip_e: np.ndarray           # [K, Dmax, r, r-1] int32 CSR entry (nnz = zero)
+    strip_code: np.ndarray        # [K, Dmax, r, r-1] uint8
+    book: np.ndarray              # [2, r + 2] uint32: shifts, then masks
+
+
+def code_book(r: int) -> np.ndarray:
+    """[2, r + 2] uint32 (shift, mask) pairs a packed code names: code t < r
+    is segment t (`segment_words(r)`), code r the full word of a unicast
+    leftover, code r + 1 an empty slot."""
+    seg_shift, seg_mask = segment_words(r)
+    return np.stack([np.concatenate([seg_shift, [0, 0]]),
+                     np.concatenate([seg_mask, [FULL_MASK, 0]])]).astype(np.uint32)
+
+
+def _codes(shift: np.ndarray, mask: np.ndarray, book: np.ndarray,
+           what: str) -> np.ndarray:
+    """uint8 code of every (shift, mask) pair (the lowest code where the
+    book repeats a pair); raises for a pair the book lacks."""
+    code = np.full(shift.shape, 255, dtype=np.uint8)
+    for c in range(book.shape[1] - 1, -1, -1):
+        code[(mask == book[1, c]) & (shift == book[0, c])] = c
+    if (code == 255).any():
+        bad = np.argwhere(code == 255)[0]
+        raise ValueError(f"{what}{tuple(bad)}: (shift, mask) = "
+                         f"({shift[tuple(bad)]}, {mask[tuple(bad)]:#x}) is not "
+                         "in the code book")
+    return code
+
+
+def pack_schedule(s: FusedSparseSchedule, nnz: int) -> PackedSchedule:
+    """Derive the kernels' packed tables from a schedule, in vectorised
+    NumPy: entries composed through `loc_e`, (shift, mask) pairs coded,
+    (sender, column) pairs as buffer positions. Raises `ValueError` if a
+    pair is not in the book or an index does not fit int32; never falls
+    back."""
+    if nnz >= 2 ** 31 or s.K * (s.W + 1) >= 2 ** 31:
+        raise ValueError(f"nnz = {nnz} or K (W + 1) = {s.K * (s.W + 1)} does "
+                         "not fit int32 indexing")
+    book = code_book(s.r)
+    # Every loc_e entry is <= nnz < 2^31, so the composed entries fit int32.
+    loc = np.concatenate([s.loc_e, np.full((s.K, 1), nnz, np.int64)],
+                         axis=1).astype(np.int32)
+
+    def entries(local: np.ndarray) -> np.ndarray:     # local index -> entry
+        return np.stack([np.take(loc[k], local[k]) for k in range(s.K)])
+
+    return PackedSchedule(
+        enc_e=entries(s.enc_l),
+        enc_code=_codes(s.enc_shift, s.enc_mask, book, "enc"),
+        dec_pos=s.dec_s * np.int32(s.W + 1) + s.dec_w,
+        dec_code=_codes(s.dec_shift, s.dec_mask, book, "dec"),
+        strip_e=entries(s.strip_l),
+        strip_code=_codes(s.strip_shift, s.strip_mask, book, "strip"),
+        book=book)
+
+
 def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload an index/word table as int32 (uint32 bits kept as-is)."""
     a = np.ascontiguousarray(a)
@@ -246,6 +323,13 @@ def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     elif a.size and (a.min() < -2 ** 31 or a.max() >= 2 ** 31):
         raise ValueError("table does not fit int32 indexing")
     return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a packed table as it is (`pack_schedule` has checked its
+    range): uint8 codes, int32 indices, the uint32 book as int32 bits."""
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                            else a).to(device)
 
 
 class FusedSparseShuffle:
@@ -263,12 +347,13 @@ class FusedSparseShuffle:
         self.plan = plan
         self.nnz = csr.nnz
         self.sched = partition_plan(plan, csr, alloc)
+        self.packed = pack_schedule(self.sched, csr.nnz)
         self.schedule_bits = plan.coded_bits + plan.leftover_bits
-        s, dev = self.sched, self.device
         self.M = int(plan.all_k.size)
-        self.tables = {name: _i32(getattr(s, name), dev) for name in (
-            "loc_e", "enc_l", "enc_shift", "enc_mask", "dec_s", "dec_w",
-            "dec_mask", "dec_shift", "strip_l", "strip_shift", "strip_mask")}
+        p, dev = self.packed, self.device
+        self.tables = {name: _upload(getattr(p, name), dev) for name in (
+            "enc_e", "enc_code", "dec_pos", "dec_code", "strip_e",
+            "strip_code", "book")}
         self.tables["ptr"] = _i32(plan.ptr, dev)
 
     def _sync(self, tr) -> None:
@@ -293,17 +378,17 @@ class FusedSparseShuffle:
         t, tr = self.tables, get_tracer()
         B = 1 if src.dim() == 1 else int(src.shape[1])
         with tr.span("phase.encode", backend="fused", B=B, nnz=self.nnz):
-            buf = xor_encode_gather(src, t["loc_e"], t["enc_l"],
-                                    t["enc_shift"], t["enc_mask"], swap=swap)
+            buf = xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"],
+                                    swap=swap)
             self._sync(tr)
         with tr.span("phase.exchange", backend="fused",
                      bits=self.schedule_bits * B, B=B, K=self.sched.K):
             self._sync(tr)
         with tr.span("phase.decode", backend="fused", B=B, deliveries=self.M):
-            words = xor_decode_gather(
-                src, t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
-                t["dec_shift"], t["strip_l"], t["strip_shift"],
-                t["strip_mask"], t["ptr"], swap=swap, total=self.M)
+            words = xor_decode_packed(
+                src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
+                t["strip_code"], t["book"], t["ptr"], swap=swap,
+                total=self.M)
             self._sync(tr)
         return words
 

@@ -75,30 +75,77 @@ def xor_encode_gather(src, loc_e, enc_l, enc_shift, enc_mask, *,
     return buf if src.dim() == 2 else buf[..., 0]
 
 
-def xor_decode_gather(src, loc_e, buf, dec_s, dec_w, dec_mask, dec_shift,
-                      strip_l, strip_shift, strip_mask, ptr, *,
+def _book(book: torch.Tensor, code: torch.Tensor):
+    """(shift, mask) int64 of every code; codes past the book read as its
+    last code (empty), as the kernels read them."""
+    code = code.long().clamp(max=book.shape[1] - 1)
+    b = words_to_u64(book)
+    return b[0][code], b[1][code]
+
+
+def _src_words(src: torch.Tensor, swap: bool) -> torch.Tensor:
+    """[n_src + 1, B] int64 (unsigned) words of the Map output, codec order
+    when `swap`; row n_src is the zero word every sentinel entry reads."""
+    src = _as_2d(src)
+    words = bswap_words(src) if swap else src
+    return words_to_u64(torch.cat([words, words.new_zeros(1, src.shape[1])]))
+
+
+def _take_rows(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """words [n + 1, B], idx [...] -> [..., B]; idx outside [0, n) reads
+    row n (zero)."""
+    n = words.shape[0] - 1
+    idx = idx.long()
+    return words[torch.where((idx >= 0) & (idx < n), idx, n)]
+
+
+def xor_encode_packed(src, enc_e, enc_code, book, *,
                       swap: bool = True) -> torch.Tensor:
+    """Per-server coded buffers [K, W + 1(, B)] with a zero column W, from
+    packed tables.
+
+    src [n_src(, B)] int32 value bits (codec words if not `swap`); enc_e
+    [K, W, r] int32 entry of src (n_src = zero); enc_code [K, W, r] uint8
+    into book [2, r + 2] (shifts, masks).
+    """
+    v = _take_rows(_src_words(src, swap), enc_e)                # [K, W, r, B]
+    shift, mask = _book(book, enc_code)
+    seg = (v << shift[..., None]) & mask[..., None]
+    acc = torch.zeros_like(seg[:, :, 0])
+    for t in range(seg.shape[2]):
+        acc ^= seg[:, :, t]
+    buf = u64_to_words(torch.cat([acc, acc.new_zeros(acc.shape[0], 1, acc.shape[2])], 1))
+    return buf if src.dim() == 2 else buf[..., 0]
+
+
+def xor_decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
+                      ptr, *, swap: bool = True) -> torch.Tensor:
     """Delivered codec words [M(, B)] in flat (k, i, j) order, M = ptr[K].
 
-    buf [K, W + 1(, B)] coded buffers (column W zero); dec_* [K, Dmax, r];
-    strip_* [K, Dmax, r, r - 1]; ptr [K + 1] delivery offsets.
+    Each segment is the coded word read from the sender's column of buf
+    [K, W + 1(, B)] at dec_pos [K, Dmax, r] (s * (W + 1) + w), stripped of
+    the r - 1 slots recomputed from src at strip_e [K, Dmax, r, r - 1]
+    under strip_code, masked and shifted back under dec_code; ptr [K + 1]
+    delivery offsets.
     """
-    local = _local_words(src, loc_e, swap)
-    B = local.shape[2]
-    bufw = words_to_u64(buf.reshape(buf.shape[0], buf.shape[1], B))
-    got = bufw[dec_s.long(), dec_w.long()]                      # [K, D, r, B]
-    sv = _take(local, strip_l)                                  # [K, D, r, r-1, B]
-    sseg = (sv << words_to_u64(strip_shift)[..., None]) & words_to_u64(strip_mask)[..., None]
+    words = _src_words(src, swap)
+    B = words.shape[1]
+    bufw = words_to_u64(buf.reshape(-1, B))
+    got = _take_rows(torch.cat([bufw, bufw.new_zeros(1, B)]), dec_pos)  # [K, D, r, B]
+    sv = _take_rows(words, strip_e)                             # [K, D, r, r-1, B]
+    sshift, smask = _book(book, strip_code)
+    sseg = (sv << sshift[..., None]) & smask[..., None]
     strip = torch.zeros_like(got)
     for u in range(sseg.shape[3]):
         strip ^= sseg[:, :, :, u]
-    rec = ((got ^ strip) & words_to_u64(dec_mask)[..., None]) >> words_to_u64(dec_shift)[..., None]
-    words = torch.zeros_like(rec[:, :, 0])
+    dshift, dmask = _book(book, dec_code)
+    rec = ((got ^ strip) & dmask[..., None]) >> dshift[..., None]
+    out = torch.zeros_like(rec[:, :, 0])
     for t in range(rec.shape[2]):
-        words |= rec[:, :, t]
+        out |= rec[:, :, t]
     ptr = ptr.long()
     counts = ptr[1:] - ptr[:-1]
-    K, Dmax = words.shape[:2]
-    keep = torch.arange(Dmax, device=words.device)[None, :] < counts[:, None]
-    out = u64_to_words(words[keep])                             # (k, d) order
+    K, Dmax = out.shape[:2]
+    keep = torch.arange(Dmax, device=out.device)[None, :] < counts[:, None]
+    out = u64_to_words(out[keep])                               # (k, d) order
     return out if src.dim() == 2 else out[:, 0]

@@ -1,12 +1,16 @@
 """Launch wrappers of the XOR encode (K1) and decode (K2) CUDA kernels.
 
 Sources: `src/repro_torch/csrc/xor_code.cu` (what each kernel replaces and
-what bounds it is noted there). Each wrapper checks device, dtype, shape
-and contiguity, allocates its output with `torch.empty`, launches on
-PyTorch's current stream without synchronising, raises on a launch error,
-and adds one to `_build.LAUNCHES[<kernel>]`. A CPU tensor runs the plain
-PyTorch version in `ref.py` instead - the only case that does; any other
-device raises.
+what bounds it is noted there). The coded Shuffle runs K1 and K2 on packed
+session tables (`xor_encode_packed`, `xor_decode_packed`, counted as
+"xor_encode" and "xor_decode"); `xor_encode_gather` is K1's general form,
+any shift and mask words per slot, behind `ops.xor_encode_slots` (counted
+as "xor_encode_gather"). Each wrapper checks device, dtype, shape and
+contiguity, allocates its output with `torch.empty`, launches on PyTorch's
+current stream without synchronising, raises on a launch error, and adds
+one to `_build.LAUNCHES[<kernel>]`. A CPU tensor runs the plain PyTorch
+version in `ref.py` instead - the only case that does; any other device
+raises.
 """
 from __future__ import annotations
 
@@ -21,12 +25,36 @@ _SIGS = {
     "xor_encode_gather": (_build.P, _build.I64, _build.P, _build.I64, _build.P,
                           _build.P, _build.P, _build.P, _build.I32, _build.I64,
                           _build.I32, _build.I32, _build.I32, _build.P),
-    "xor_decode_gather": (_build.P, _build.I64, _build.P, _build.I64, _build.P,
-                          _build.I64, _build.P, _build.P, _build.P, _build.P,
+    "xor_encode_packed": (_build.P, _build.I64, _build.P, _build.P, _build.P,
+                          _build.P, _build.I32, _build.I32, _build.I32,
+                          _build.I32, _build.I32, _build.P),
+    "xor_decode_packed": (_build.P, _build.I64, _build.P, _build.I64, _build.P,
                           _build.P, _build.P, _build.P, _build.P, _build.P,
-                          _build.I32, _build.I64, _build.I32, _build.I32,
-                          _build.I32, _build.P),
+                          _build.P, _build.I32, _build.I32, _build.I32,
+                          _build.I32, _build.I32, _build.P),
 }
+MAX_R = 32            # the kernels' book holds r + 2 <= 34 codes
+MAX_GRID_Y = 65535    # one block row per server
+
+
+def _batch(src: torch.Tensor) -> int:
+    return 1 if src.dim() == 1 else src.shape[1]
+
+
+def _check_packed(K: int, r: int, per_server: int, book: torch.Tensor,
+                  *tables: torch.Tensor) -> None:
+    """What the packed kernels' grid, 32-bit index math and vector loads
+    of table rows need."""
+    _build.check_tensor(book, "book", torch.int32, (2, r + 2))
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("packed tables must start 16-byte aligned")
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"r = {r}: the packed kernels take 1 <= r <= {MAX_R}")
+    if K > MAX_GRID_Y:
+        raise ValueError(f"K = {K} servers: the packed kernels take <= {MAX_GRID_Y}")
+    if per_server >= 2 ** 31 - 2 ** 16:
+        raise ValueError(f"{per_server} items per server do not fit the "
+                         "packed kernels' 32-bit index math")
 
 
 def _lib():
@@ -54,7 +82,8 @@ def xor_encode_dense(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
                       enc_l: torch.Tensor, enc_shift: torch.Tensor,
                       enc_mask: torch.Tensor, *, swap: bool = True) -> torch.Tensor:
-    """K1: every server's coded buffer, [K, W + 1(, B)] int32, column W zero.
+    """K1's general form: every server's coded buffer, [K, W + 1(, B)]
+    int32, column W zero, from any shift and mask words per slot.
 
     src [n_src(, B)] int32 value bits (float32 bits when `swap`, codec-order
     words otherwise); loc_e [K, Lmax] int32 CSR entry of each local value
@@ -66,7 +95,7 @@ def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
                                      swap=swap)
     K, W, r = enc_l.shape
     n_src = src.shape[0]
-    B = 1 if src.dim() == 1 else src.shape[1]
+    B = _batch(src)
     _build.check_tensor(src, "src", torch.int32)
     for name, t in (("enc_l", enc_l), ("enc_shift", enc_shift),
                     ("enc_mask", enc_mask)):
@@ -89,54 +118,86 @@ def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
             Lmax, enc_l.data_ptr(), enc_shift.data_ptr(), enc_mask.data_ptr(),
             out.data_ptr(), K, W, r, B, int(swap), _build.stream_of(src))
     _build.check(lib, "xor_encode_gather", code)
+    _build.LAUNCHES["xor_encode_gather"] += 1
+    return out if src.dim() == 2 else out[..., 0]
+
+
+def xor_encode_packed(src: torch.Tensor, enc_e: torch.Tensor,
+                      enc_code: torch.Tensor, book: torch.Tensor, *,
+                      swap: bool = True) -> torch.Tensor:
+    """K1 on packed tables: every server's coded buffer, [K, W + 1(, B)]
+    int32, column W zero.
+
+    src [n_src(, B)] int32 value bits (float32 bits when `swap`, codec-order
+    words otherwise); enc_e [K, W, r] int32 entry of src (n_src = zero);
+    enc_code [K, W, r] uint8 into book [2, r + 2] int32 (shifts, masks).
+    """
+    if not _build.on_cuda(src, enc_e, enc_code, book):
+        return ref.xor_encode_packed(src, enc_e, enc_code, book, swap=swap)
+    K, W, r = enc_e.shape
+    B = _batch(src)
+    _build.check_tensor(src, "src", torch.int32)
+    _build.check_tensor(enc_e, "enc_e", torch.int32)
+    _build.check_tensor(enc_code, "enc_code", torch.uint8, (K, W, r))
+    _check_packed(K, r, (W + 1) * B, book, enc_e, enc_code)
+    out = torch.empty((K, W + 1, B), dtype=torch.int32, device=src.device)
+    _build.check_tensor(out, "out", torch.int32)
+    lib = _lib()
+    with torch.cuda.device(src.device):
+        code = lib.xor_encode_packed(
+            src.data_ptr(), src.shape[0], enc_e.data_ptr(), enc_code.data_ptr(),
+            book.data_ptr(), out.data_ptr(), K, W, r, B, int(swap),
+            _build.stream_of(src))
+    _build.check(lib, "xor_encode_packed", code)
     _build.LAUNCHES["xor_encode"] += 1
     return out if src.dim() == 2 else out[..., 0]
 
 
-def xor_decode_gather(src: torch.Tensor, loc_e: torch.Tensor, buf: torch.Tensor,
-                      dec_s: torch.Tensor, dec_w: torch.Tensor,
-                      dec_mask: torch.Tensor, dec_shift: torch.Tensor,
-                      strip_l: torch.Tensor, strip_shift: torch.Tensor,
-                      strip_mask: torch.Tensor, ptr: torch.Tensor, *,
+def xor_decode_packed(src: torch.Tensor, buf: torch.Tensor,
+                      dec_pos: torch.Tensor, dec_code: torch.Tensor,
+                      strip_e: torch.Tensor, strip_code: torch.Tensor,
+                      book: torch.Tensor, ptr: torch.Tensor, *,
                       swap: bool = True, total: int | None = None) -> torch.Tensor:
-    """K2: delivered codec words [M(, B)] int32 in flat (k, i, j) order.
+    """K2 on packed tables: delivered codec words [M(, B)] int32 in flat
+    (k, i, j) order.
 
-    buf [K, W + 1(, B)] from K1; dec_* [K, Dmax, r] int32; strip_*
-    [K, Dmax, r, r - 1] int32; ptr [K + 1] int32 delivery offsets. `total`
-    is M = ptr[K] (pass it to keep the host from reading ptr back).
+    buf [K, W + 1(, B)] from K1; dec_pos [K, Dmax, r] int32 buffer position
+    s * (W + 1) + w of each segment's coded word; dec_code [K, Dmax, r]
+    uint8; strip_e [K, Dmax, r, r - 1] int32 entries of src the receiver
+    strips; strip_code uint8 alike; book [2, r + 2]; ptr [K + 1] int32
+    delivery offsets. `total` is M = ptr[K] (pass it to keep the host from
+    reading ptr back).
     """
-    if not _build.on_cuda(src, loc_e, buf, dec_s, dec_w, dec_mask, dec_shift,
-                          strip_l, strip_shift, strip_mask, ptr):
-        return ref.xor_decode_gather(src, loc_e, buf, dec_s, dec_w, dec_mask,
-                                     dec_shift, strip_l, strip_shift,
-                                     strip_mask, ptr, swap=swap)
-    K, Dmax, r = dec_s.shape
-    n_src = src.shape[0]
-    B = 1 if src.dim() == 1 else src.shape[1]
-    W = buf.shape[1] - 1
+    if not _build.on_cuda(src, buf, dec_pos, dec_code, strip_e, strip_code,
+                          book, ptr):
+        return ref.xor_decode_packed(src, buf, dec_pos, dec_code, strip_e,
+                                     strip_code, book, ptr, swap=swap)
+    K, Dmax, r = dec_pos.shape
+    B = _batch(src)
     _build.check_tensor(src, "src", torch.int32)
-    _build.check_tensor(loc_e, "loc_e", torch.int32)
-    if loc_e.dim() != 2 or loc_e.shape[0] != K:
-        raise ValueError(f"loc_e must be [K={K}, Lmax], got {tuple(loc_e.shape)}")
-    _build.check_tensor(buf, "buf", torch.int32,
-                        (K, W + 1) + ((B,) if src.dim() == 2 else ()))
-    for name, t in (("dec_s", dec_s), ("dec_w", dec_w), ("dec_mask", dec_mask),
-                    ("dec_shift", dec_shift)):
-        _build.check_tensor(t, name, torch.int32, (K, Dmax, r))
-    for name, t in (("strip_l", strip_l), ("strip_shift", strip_shift),
-                    ("strip_mask", strip_mask)):
-        _build.check_tensor(t, name, torch.int32, (K, Dmax, r, max(r - 1, 0)))
+    if buf.dim() != src.dim() + 1 or buf.shape[0] != K:
+        raise ValueError(f"buf must be [K={K}, W + 1{', B' if B > 1 else ''}], "
+                         f"got {tuple(buf.shape)}")
+    _build.check_tensor(buf, "buf", torch.int32, (K, buf.shape[1])
+                        + ((B,) if src.dim() == 2 else ()))
+    _build.check_tensor(dec_pos, "dec_pos", torch.int32)
+    _build.check_tensor(dec_code, "dec_code", torch.uint8, (K, Dmax, r))
+    _build.check_tensor(strip_e, "strip_e", torch.int32, (K, Dmax, r, r - 1))
+    _build.check_tensor(strip_code, "strip_code", torch.uint8,
+                        (K, Dmax, r, r - 1))
     _build.check_tensor(ptr, "ptr", torch.int32, (K + 1,))
+    _check_packed(K, r, Dmax * B, book, dec_pos, dec_code, strip_e,
+                  strip_code)
     M = int(ptr[-1]) if total is None else int(total)
     out = torch.empty((M, B), dtype=torch.int32, device=src.device)
+    _build.check_tensor(out, "out", torch.int32)
     lib = _lib()
     with torch.cuda.device(src.device):
-        code = lib.xor_decode_gather(
-            src.data_ptr(), n_src, loc_e.data_ptr(), loc_e.shape[1],
-            buf.data_ptr(), W, dec_s.data_ptr(), dec_w.data_ptr(),
-            dec_mask.data_ptr(), dec_shift.data_ptr(), strip_l.data_ptr(),
-            strip_shift.data_ptr(), strip_mask.data_ptr(), ptr.data_ptr(),
+        code = lib.xor_decode_packed(
+            src.data_ptr(), src.shape[0], buf.data_ptr(), buf.shape[0] * buf.shape[1],
+            dec_pos.data_ptr(), dec_code.data_ptr(), strip_e.data_ptr(),
+            strip_code.data_ptr(), book.data_ptr(), ptr.data_ptr(),
             out.data_ptr(), K, Dmax, r, B, int(swap), _build.stream_of(src))
-    _build.check(lib, "xor_decode_gather", code)
+    _build.check(lib, "xor_decode_packed", code)
     _build.LAUNCHES["xor_decode"] += 1
     return out if src.dim() == 2 else out[:, 0]

@@ -6,7 +6,9 @@ the port):
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Each CUDA kernel is held against its plain PyTorch version on the same
-device tensors (K1, K2 and K3-min bitwise, K3-sum within rtol 1e-5; K4 at
+device tensors (the packed K1 and K2 at r = 2 and at the runtime-r
+instance r = 5, K1's general form against the packed K1, and K3-min
+bitwise, K3-sum within rtol 1e-5; K4 at
 float32 rtol 1e-4 / atol 1e-5 and float16 2e-3, K5 within rtol 1e-5 and
 bitwise repeatable; K6 within rtol 1e-4 and atol 1e-4 * max|plain|, K7
 bitwise), small coded and spmv sessions against the NumPy oracle, and the
@@ -23,6 +25,7 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.core import algorithms as algo
 from repro_torch.core import engine
 from repro_torch.core.allocation import divisible_n, er_allocation
+from repro_torch.core.fused_shuffle import _i32
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_reduce import ops as sr
 from repro_torch.kernels.segment_reduce import ref as sr_ref
@@ -48,33 +51,55 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _session(dev, n=4000):
-    n = divisible_n(n, 4, 2)
+def _session(dev, n=4000, K=4, r=2):
+    n = divisible_n(n, K, r)
     g = graphs.erdos_renyi(n, 8.0 / n, seed=5)
-    return g, engine.compile(algo.pagerank(), g, er_allocation(n, 4, 2),
+    return g, engine.compile(algo.pagerank(), g, er_allocation(n, K, r),
                              device=dev)
+
+
+def _hold_packed(dev, g, eng, B):
+    """Packed K1/K2 bitwise against their plain versions on the session's
+    tables, and K1's general form on the unpacked tables writing the same
+    buffers. Returns the Map output and the delivered words."""
+    state = torch.rand((g.n, B) if B > 1 else (g.n,), device=dev)
+    ev = algo.pagerank().map_edge_values_t(eng._dg, state).contiguous()
+    src, t, fx = ev.view(torch.int32), eng.fused.tables, eng.fused
+    enc = (src, t["enc_e"], t["enc_code"], t["book"])
+    buf = xc.xor_encode_packed(*enc)
+    assert torch.equal(buf, xref.xor_encode_packed(*enc))
+    dec = (src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
+           t["strip_code"], t["book"], t["ptr"])
+    words = xc.xor_decode_packed(*dec, total=fx.M)
+    assert torch.equal(words, xref.xor_decode_packed(*dec))
+    s = fx.sched
+    general = [_i32(a, dev) for a in (s.loc_e, s.enc_l, s.enc_shift,
+                                      s.enc_mask)]
+    assert torch.equal(xc.xor_encode_gather(src, *general), buf)
+    return ev, words
 
 
 @pytest.mark.parametrize("B", [1, 4])
 def test_kernels_match_plain_versions(cuda, B):
     g, eng = _session(cuda)
-    state = torch.rand((g.n, B) if B > 1 else (g.n,), device=cuda)
-    ev = algo.pagerank().map_edge_values_t(eng._dg, state).contiguous()
-    src, t = ev.view(torch.int32), eng.fused.tables
-    enc = (src, t["loc_e"], t["enc_l"], t["enc_shift"], t["enc_mask"])
-    buf = xc.xor_encode_gather(*enc)
-    assert torch.equal(buf, xref.xor_encode_gather(*enc))
-    dec = (src, t["loc_e"], buf, t["dec_s"], t["dec_w"], t["dec_mask"],
-           t["dec_shift"], t["strip_l"], t["strip_shift"], t["strip_mask"],
-           t["ptr"])
-    words = xc.xor_decode_gather(*dec)
-    assert torch.equal(words, xref.xor_decode_gather(*dec))
+    ev, words = _hold_packed(cuda, g, eng, B)
     args = (ev, words, eng._gather, eng._indptr)
     mn = sr.segment_reduce(*args, "min", float("inf"))
     assert torch.equal(mn, sr_ref.segment_reduce(*args, "min", float("inf")))
     torch.testing.assert_close(sr.segment_reduce(*args, "sum", 0.0),
                                sr_ref.segment_reduce(*args, "sum", 0.0),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_packed_kernels_at_runtime_r(cuda, B):
+    """r = 5 runs the runtime-r instance of the packed K1/K2."""
+    g, eng = _session(cuda, n=2000, K=6, r=5)
+    assert eng.fused.sched.r == 5
+    _hold_packed(cuda, g, eng, B)
+    np.testing.assert_allclose(eng.run(10).state.cpu().numpy(),
+                               algo.reference_run(algo.pagerank(), g, 10),
+                               rtol=1e-5, atol=0)
 
 
 def test_session_matches_oracle_and_launches_kernels(cuda):

@@ -8,6 +8,12 @@
   `engine.run(..., mode="coded", path="sparse")`: bitwise for min/integer
   programs, within rtol 1e-5 for float sums (sequential sums against
   `np.add.reduceat`), `shuffle_bits` and `loads()` exactly equal.
+* The packed session tables (`pack_schedule`) are lossless: unpacked, they
+  give back every table of the port's `partition_plan` (itself bitwise the
+  reference's) over er/pl/sbm/rb/spill x r in {1, 2, 3, 5} and the karate
+  fixture, and the packed plain versions deliver words bitwise equal to
+  `execute_coded_sparse` there at B in {1, 3}. A (shift, mask) pair
+  outside the code book, or an entry past int32, raises.
 * One subprocess with 4 forced host devices holds the port's words against
   the reference's `FusedSparseShuffle(..., encode="xor-kernel")`, the JAX
   route that reaches the Pallas kernel.
@@ -30,10 +36,12 @@ from repro.core.allocation import (bipartite_allocation, divisible_n,
                                    er_allocation)
 from repro.core.bitcodec import floats_to_words
 from repro.core.shuffle_plan import compile_plan_csr as r_compile
+from repro.graphs.io import load_fixture
 from repro_torch.core import algorithms as t_algo
 from repro_torch.core import convert
 from repro_torch.core import engine as t_engine
-from repro_torch.core.fused_shuffle import FusedSparseShuffle
+from repro_torch.core.fused_shuffle import (FusedSparseShuffle, pack_schedule,
+                                            partition_plan)
 
 SUM_RTOL = 1e-5
 
@@ -116,6 +124,106 @@ def test_delivered_words_bitwise(model, prog, B):
                                   floats_to_words(want.values))
     if model == "spill":
         assert plan.left_k.size > 0
+
+
+def _r_case(model, r):
+    """(graph, allocation) of the packing matrix at replication r: K = 6
+    (spill: K = 4, whose cluster 2 spills at every r > 1); karate at its
+    own K = 4, r = 2."""
+    if model == "karate":
+        g = load_fixture("karate")
+        n = divisible_n(g.n, 4, 2)
+        return g.padded(n), er_allocation(n, 4, 2)
+    if model in ("er", "pl"):
+        n = divisible_n(48 if model == "er" else 60, 6, r)
+        g = (r_graphs.erdos_renyi(n, 0.2, seed=11) if model == "er"
+             else r_graphs.power_law(n, 2.5, seed=9))
+        return g, er_allocation(n, 6, r)
+    g = (r_graphs.stochastic_block(48, 24, 0.25, 0.1, seed=5) if model == "sbm"
+         else r_graphs.random_bipartite(48, 24, 0.3, seed=5))
+    return g, bipartite_allocation(48, 24, 4 if model == "spill" else 6, r)
+
+
+_PACK_CASES = [(m, r) for m in ("er", "pl", "sbm", "rb", "spill")
+               for r in (1, 2, 3, 5)] + [("karate", 2)]
+
+
+def _schedule(model, r):
+    g, alloc = _r_case(model, r)
+    tg, ta = _port(g, alloc)
+    rplan = r_compile(g.csr, alloc)
+    plan = convert.shuffle_plan({f.name: getattr(rplan, f.name)
+                                 for f in dataclasses.fields(rplan)})
+    return g, alloc, rplan, plan, tg, ta
+
+
+def _unpack(p, s, nnz):
+    """The `FusedSparseSchedule` tables packed tables `p` stand for: codes
+    looked up in the book, positions split into (sender, column), entries
+    mapped back to local indices through each server's sorted Map slice."""
+    def local(e):
+        out = np.empty(e.shape, np.int64)
+        for k in range(s.K):
+            lset = s.loc_e[k][s.loc_e[k] < nnz]
+            li = np.searchsorted(lset, e[k])
+            out[k] = np.where(e[k] == nnz, s.Lmax, li)
+            assert np.array_equal(lset[np.minimum(li, lset.size - 1)][e[k] < nnz],
+                                  e[k][e[k] < nnz])
+        return out
+
+    book = p.book
+    return dict(
+        enc_l=local(p.enc_e), enc_shift=book[0][p.enc_code],
+        enc_mask=book[1][p.enc_code],
+        dec_s=p.dec_pos // (s.W + 1), dec_w=p.dec_pos % (s.W + 1),
+        dec_shift=book[0][p.dec_code], dec_mask=book[1][p.dec_code],
+        strip_l=local(p.strip_e), strip_shift=book[0][p.strip_code],
+        strip_mask=book[1][p.strip_code])
+
+
+@pytest.mark.parametrize("model,r", _PACK_CASES,
+                         ids=[f"{m}-r{r}" for m, r in _PACK_CASES])
+def test_packing_is_lossless(model, r):
+    _, _, _, plan, tg, ta = _schedule(model, r)
+    s = partition_plan(plan, tg.csr, ta)
+    assert s.r == r
+    p = pack_schedule(s, tg.csr.nnz)
+    assert p.book.shape == (2, r + 2)
+    for name, table in _unpack(p, s, tg.csr.nnz).items():
+        np.testing.assert_array_equal(table, getattr(s, name), err_msg=name)
+    if model == "spill" and r > 1:
+        assert plan.left_k.size > 0 and (p.enc_code == r).any()
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("model,r", _PACK_CASES,
+                         ids=[f"{m}-r{r}" for m, r in _PACK_CASES])
+def test_packed_words_bitwise_over_r(model, r, B):
+    g, alloc, rplan, plan, tg, ta = _schedule(model, r)
+    rng = np.random.default_rng(r + B)
+    ev = rng.standard_normal((g.csr.nnz, B) if B > 1 else g.csr.nnz
+                             ).astype(np.float32)
+    want = rplan.execute_coded_sparse(ev, rplan.edge_tables(g.csr, alloc))
+    got = FusedSparseShuffle(plan, tg.csr, ta, device="cpu").execute(ev)
+    np.testing.assert_array_equal(floats_to_words(got.values),
+                                  floats_to_words(want.values))
+    assert got.bits_sent == want.bits_sent
+
+
+@pytest.mark.parametrize("table", ["enc", "dec", "strip", "nnz"])
+def test_packing_refuses_what_the_book_cannot_name(table):
+    _, _, _, plan, tg, ta = _schedule("rb", 3)    # pairs and leftovers
+    s = partition_plan(plan, tg.csr, ta)
+    if table == "nnz":
+        with pytest.raises(ValueError, match="int32"):
+            pack_schedule(s, 2 ** 31)
+        return
+    mask = getattr(s, f"{table}_mask").copy()
+    idx = tuple(np.argwhere(mask != 0)[0])
+    mask[idx] ^= 1                                # one bit off its segment
+    bad = dataclasses.replace(s, **{f"{table}_mask": mask})
+    with pytest.raises(ValueError, match="not in the code book"):
+        pack_schedule(bad, tg.csr.nnz)
 
 
 def _check_run(model, prog, B, iters=10):

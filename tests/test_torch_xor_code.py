@@ -4,16 +4,20 @@ On the CPU the port's wrappers run their plain PyTorch versions; each is
 held *bitwise* against the reference: `xor_encode` against
 `xor_encode_pallas` in interpret mode (as `tests/test_kernels.py` runs it),
 and `xor_encode_columns` / `xor_strip_columns` / `xor_encode_slots`
-against `repro.kernels.xor_code.ops` with `use_kernel=True`. Words cross
-as uint32 numpy arrays viewed as int32 tensors.
+against `repro.kernels.xor_code.ops` with `use_kernel=True`. The plain
+versions of K1's general form and of the packed K1/K2 the coded Shuffle
+runs are held against scalar loops over random tables. Words cross as
+uint32 numpy arrays viewed as int32 tensors.
 """
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from repro.kernels.xor_code import ops as r_ops
 from repro.kernels.xor_code.xor_code import xor_encode_pallas
 from repro_torch.core.bitcodec import np_words_to_t, t_words_to_np
+from repro_torch.core.fused_shuffle import code_book
 from repro_torch.kernels.xor_code import ops as t_ops
 from repro_torch.kernels.xor_code import xor_code as t_xc
 
@@ -88,28 +92,35 @@ def test_encode_slots_matches_reference_ops(r, B):
     np.testing.assert_array_equal(t_words_to_np(got), want)
 
 
-def _loop_exchange(src, loc_e, t, swap):
-    """Scalar-loop statement of what K1 and K2 compute (the kernels' own
-    per-thread loops), in uint32 NumPy."""
+def _word(src, loc_e, k, l, b, swap):
+    """Codec word at local index l of server k (zero for the sentinels)."""
+    if l >= loc_e.shape[1] or loc_e[k, l] >= src.shape[0]:
+        return np.uint32(0)
+    v = src[loc_e[k, l], b]
+    return v.byteswap() if swap else v
+
+
+def _loop_encode(src, loc_e, t, swap):
+    """Scalar-loop statement of K1 over general tables, in uint32 NumPy."""
     src = src.reshape(src.shape[0], -1)
-    nnz, B = src.shape
     K, W, r = t["enc_l"].shape
-    Lmax = loc_e.shape[1]
-
-    def word(k, l, b):
-        if l >= Lmax or loc_e[k, l] >= nnz:
-            return np.uint32(0)
-        v = src[loc_e[k, l], b]
-        return v.byteswap() if swap else v
-
-    buf = np.zeros((K, W + 1, B), np.uint32)
-    for k, w, b in np.ndindex(K, W, B):
+    buf = np.zeros((K, W + 1, src.shape[1]), np.uint32)
+    for k, w, b in np.ndindex(K, W, src.shape[1]):
         for i in range(r):
-            buf[k, w, b] ^= ((word(k, t["enc_l"][k, w, i], b)
+            buf[k, w, b] ^= ((_word(src, loc_e, k, t["enc_l"][k, w, i], b, swap)
                               << t["enc_shift"][k, w, i]) & t["enc_mask"][k, w, i])
+    return buf
+
+
+def _loop_decode(src, loc_e, buf, t, swap):
+    """Scalar-loop statement of K2 over general tables: each segment is the
+    sender's coded word, stripped of the other slots, masked and shifted
+    back."""
+    src = src.reshape(src.shape[0], -1)
+    K, Dmax, r = t["dec_s"].shape
+    B = src.shape[1]
     ptr = t["ptr"]
     out = np.zeros((ptr[-1], B), np.uint32)
-    Dmax = t["dec_s"].shape[1]
     for k, d, b in np.ndindex(K, Dmax, B):
         if d >= ptr[k + 1] - ptr[k]:
             continue
@@ -118,80 +129,133 @@ def _loop_exchange(src, loc_e, t, swap):
             got = buf[t["dec_s"][k, d, i], t["dec_w"][k, d, i], b]
             strip = np.uint32(0)
             for u in range(r - 1):
-                strip ^= ((word(k, t["strip_l"][k, d, i, u], b)
+                strip ^= ((_word(src, loc_e, k, t["strip_l"][k, d, i, u], b, swap)
                            << t["strip_shift"][k, d, i, u])
                           & t["strip_mask"][k, d, i, u])
             acc |= ((got ^ strip) & t["dec_mask"][k, d, i]) >> t["dec_shift"][k, d, i]
         out[ptr[k] + d, b] = acc
-    return buf, out
+    return out
 
 
 def _random_tables(r, B):
-    """Random K1/K2 tables in the ranges the kernels accept (sentinels
+    """Random general K1 tables in the ranges the kernel accepts (sentinels
     included): (src words, loc_e, {table name: array})."""
-    K, W, Lmax, nnz, Dmax = 3, 9, 7, 20, 6
+    K, W, Lmax, nnz = 3, 9, 7, 20
     src = _words((nnz, B) if B > 1 else (nnz,))
     loc_e = RNG.integers(0, nnz + 1, size=(K, Lmax)).astype(np.int32)
     t = dict(
         enc_l=RNG.integers(0, Lmax + 1, size=(K, W, r)),
         enc_shift=RNG.integers(0, 32, size=(K, W, r)).astype(np.uint32),
-        enc_mask=_words((K, W, r)),
-        dec_s=RNG.integers(0, K, size=(K, Dmax, r)),
-        dec_w=RNG.integers(0, W + 1, size=(K, Dmax, r)),
-        dec_mask=_words((K, Dmax, r)),
-        dec_shift=RNG.integers(0, 32, size=(K, Dmax, r)).astype(np.uint32),
-        strip_l=RNG.integers(0, Lmax + 1, size=(K, Dmax, r, r - 1)),
-        strip_shift=RNG.integers(0, 32, size=(K, Dmax, r, r - 1)).astype(np.uint32),
-        strip_mask=_words((K, Dmax, r, r - 1)),
-        ptr=np.concatenate([[0], np.cumsum(RNG.integers(0, Dmax + 1, K))]))
+        enc_mask=_words((K, W, r)))
     return src, loc_e, t
 
 
-@pytest.mark.parametrize("r,B,swap", [(1, 1, True), (2, 1, True),
-                                      (3, 2, False), (4, 3, True)])
-def test_gather_encode_decode_plain_versions(r, B, swap):
-    """The plain versions of K1/K2 (what the card kernels are held to) agree
-    with a scalar loop over random tables, sentinels included."""
-    import torch
+def _random_packed(r, B):
+    """Random packed K1/K2 tables: entries with the zero sentinel nnz (and
+    past it), codes over the whole book (segments, full word, empty) and
+    past it, positions over every buffer column with the zero column W.
+    Returns (src words, {table name: array}, W)."""
+    K, W, nnz, Dmax = 3, 9, 20, 6
+    src = _words((nnz, B) if B > 1 else (nnz,))
+    code = lambda shape: RNG.integers(0, r + 3, size=shape).astype(np.uint8)  # noqa: E731
+    t = dict(
+        enc_e=RNG.integers(0, nnz + 2, size=(K, W, r)).astype(np.int32),
+        enc_code=code((K, W, r)),
+        dec_pos=RNG.integers(0, K * (W + 1), size=(K, Dmax, r)).astype(np.int32),
+        dec_code=code((K, Dmax, r)),
+        strip_e=RNG.integers(0, nnz + 2, size=(K, Dmax, r, r - 1)).astype(np.int32),
+        strip_code=code((K, Dmax, r, r - 1)),
+        book=code_book(r),
+        ptr=np.concatenate([[0], np.cumsum(RNG.integers(0, Dmax + 1, K))]
+                           ).astype(np.int32))
+    return src, t, W
 
+
+def _unpack_random(src, t, W):
+    """The general tables that packed tables `t` stand for: loc_e the
+    identity, codes (past the book: its last, empty) looked up, positions
+    split into (sender, column)."""
+    K = t["enc_e"].shape[0]
+    nnz = src.shape[0]
+    book = t["book"]
+
+    def pairs(code):
+        c = np.minimum(code, book.shape[1] - 1)
+        return book[0][c], book[1][c]
+
+    g = dict(enc_l=t["enc_e"], dec_s=t["dec_pos"] // (W + 1),
+             dec_w=t["dec_pos"] % (W + 1), strip_l=t["strip_e"], ptr=t["ptr"])
+    g["enc_shift"], g["enc_mask"] = pairs(t["enc_code"])
+    g["dec_shift"], g["dec_mask"] = pairs(t["dec_code"])
+    g["strip_shift"], g["strip_mask"] = pairs(t["strip_code"])
+    return np.tile(np.arange(nnz, dtype=np.int32), (K, 1)), g
+
+
+def _to_t(a):
+    return (torch.from_numpy(a) if a.dtype == np.uint8
+            else np_words_to_t(a.astype(np.uint32)))
+
+
+@pytest.mark.parametrize("r,B,swap", [(1, 1, True), (2, 1, True),
+                                      (3, 2, False), (4, 3, True),
+                                      (5, 2, True)])
+def test_gather_encode_decode_plain_versions(r, B, swap):
+    """The plain versions of K1's general form and of the packed K1/K2
+    (what the card kernels are held to) agree with a scalar loop over
+    random tables, sentinels included."""
     src, loc_e, t = _random_tables(r, B)
-    want_buf, want = _loop_exchange(src, loc_e, t, swap)
-    tt = {k: np_words_to_t(v.astype(np.uint32)) for k, v in t.items()}
-    s, le = np_words_to_t(src), torch.from_numpy(loc_e)
-    buf = t_xc.xor_encode_gather(s, le, tt["enc_l"], tt["enc_shift"],
-                                 tt["enc_mask"], swap=swap)
-    out = t_xc.xor_decode_gather(
-        s, le, buf, tt["dec_s"], tt["dec_w"], tt["dec_mask"], tt["dec_shift"],
-        tt["strip_l"], tt["strip_shift"], tt["strip_mask"], tt["ptr"],
-        swap=swap)
+    tt = {k: _to_t(v) for k, v in t.items()}
+    buf = t_xc.xor_encode_gather(np_words_to_t(src), torch.from_numpy(loc_e),
+                                 tt["enc_l"], tt["enc_shift"], tt["enc_mask"],
+                                 swap=swap)
+    want_buf = _loop_encode(src, loc_e, t, swap)
+    np.testing.assert_array_equal(t_words_to_np(buf).reshape(want_buf.shape),
+                                  want_buf)
+
+    src, p, W = _random_packed(r, B)
+    loc_e, g = _unpack_random(src, p, W)
+    want_buf = _loop_encode(src, loc_e, g, swap)
+    want = _loop_decode(src, loc_e, want_buf, g, swap)
+    pt, s = {k: _to_t(v) for k, v in p.items()}, np_words_to_t(src)
+    buf = t_xc.xor_encode_packed(s, pt["enc_e"], pt["enc_code"], pt["book"],
+                                 swap=swap)
+    out = t_xc.xor_decode_packed(s, buf, pt["dec_pos"], pt["dec_code"],
+                                 pt["strip_e"], pt["strip_code"], pt["book"],
+                                 pt["ptr"], swap=swap)
     np.testing.assert_array_equal(t_words_to_np(buf).reshape(want_buf.shape),
                                   want_buf)
     np.testing.assert_array_equal(t_words_to_np(out).reshape(want.shape), want)
 
 
-_ENC_TABLES = ("enc_l", "enc_shift", "enc_mask")
-_DEC_TABLES = ("dec_s", "dec_w", "dec_mask", "dec_shift", "strip_l",
-               "strip_shift", "strip_mask", "ptr")
+_GENERAL = ("src", "loc_e", "enc_l", "enc_shift", "enc_mask")
+_ENCODE = ("src", "enc_e", "enc_code", "book")
+_DECODE = ("src", "buf", "dec_pos", "dec_code", "strip_e", "strip_code",
+           "book", "ptr")
+_MIX = ([("general", a) for a in _GENERAL] + [("encode", a) for a in _ENCODE]
+        + [("decode", a) for a in _DECODE])
 
 
-@pytest.mark.parametrize("moved", ("src", "loc_e") + _ENC_TABLES + _DEC_TABLES)
-def test_gather_wrappers_reject_a_device_mix(moved):
-    """Every tensor argument of K1/K2's wrappers takes part in the device
-    check: one argument on another device raises before any launch (on the
-    card a stray host pointer would fault inside the kernel instead)."""
-    import torch
-
-    src, loc_e, t = _random_tables(3, 2)
-    args = {k: np_words_to_t(v.astype(np.uint32)) for k, v in t.items()}
-    args["src"], args["loc_e"] = np_words_to_t(src), torch.from_numpy(loc_e)
-    buf = t_xc.xor_encode_gather(*(args[k] for k in ("src", "loc_e")
-                                   + _ENC_TABLES))
+@pytest.mark.parametrize("kernel,moved", _MIX,
+                         ids=[a if k == "general" else f"packed_{k}-{a}"
+                              for k, a in _MIX])
+def test_gather_wrappers_reject_a_device_mix(kernel, moved):
+    """Every tensor argument of K1's general form and of the packed K1/K2
+    takes part in the device check: one argument on another device raises
+    before any launch (on the card a stray host pointer would fault inside
+    the kernel instead)."""
+    if kernel == "general":
+        src, loc_e, t = _random_tables(3, 2)
+        args = {k: _to_t(v) for k, v in t.items()}
+        args["src"], args["loc_e"] = np_words_to_t(src), torch.from_numpy(loc_e)
+        fn, names = t_xc.xor_encode_gather, _GENERAL
+    else:
+        src, p, _ = _random_packed(3, 2)
+        args = {k: _to_t(v) for k, v in p.items()}
+        args["src"] = np_words_to_t(src)
+        args["buf"] = t_xc.xor_encode_packed(*(args[k] for k in _ENCODE))
+        fn, names = ((t_xc.xor_encode_packed, _ENCODE) if kernel == "encode"
+                     else (t_xc.xor_decode_packed, _DECODE))
+    fn(*(args[k] for k in names))                   # all on one device: runs
     args[moved] = args[moved].to("meta")
-    if moved in ("src", "loc_e") + _ENC_TABLES:
-        with pytest.raises(ValueError, match="share one device"):
-            t_xc.xor_encode_gather(*(args[k] for k in ("src", "loc_e")
-                                     + _ENC_TABLES))
-    if moved not in _ENC_TABLES:
-        with pytest.raises(ValueError, match="share one device"):
-            t_xc.xor_decode_gather(args["src"], args["loc_e"], buf,
-                                   *(args[k] for k in _DEC_TABLES))
+    with pytest.raises(ValueError, match="share one device"):
+        fn(*(args[k] for k in names))
