@@ -37,8 +37,11 @@ non-zero before its last line:
      are reset just before it and read just after;
   6. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
      `ssd_state_scan` (bitwise) against their plain versions at the
-     `tests/test_kernels.py` ssd shapes, at the serve shape (G = 128
-     groups, 32 chunks of 64, P = 64, N = 128) and, for K7, 256 chunks;
+     `tests/test_kernels.py` ssd shapes, K6 at ragged shapes in float32
+     and bf16, both at the serve shape (G = 128 groups, 32 chunks of 64,
+     P = 64, N = 128; K6 with the serve path's bf16 x, B and C shared by
+     the 32 heads of a sequence, and with float32 inputs) and, for K7,
+     256 chunks;
      `ops.ssd` against the sequential oracle at 5e-4. Then mamba2-370m at
      full width and depth (48 layers, d_model 1,024, vocab 50,280), bf16
      weights from a seeded generator: `decode.prefill` of B = 4 prompts of
@@ -58,8 +61,11 @@ repeatable) against their plain versions. Prints the `kernels` JSON line
 paths, K4 at 16,384^2 float32 with launches from the dense path; K1 and K2
 are the packed kernels the session runs, their bounds counted on the
 packed tables, with the count on the unpacked layout and K1's general form
-timed on it kept in the full records), the
-card's name and power limit, and as its last line
+timed on it kept in the full records; K6 and K7 at the serve shape with
+launches from the bf16 prefill, K6 on the serve path's inputs, its bound
+counting bf16 reads and the bf16 tensor-core rate, with its float32-input
+record logged and kept in the full records), the card's name and power
+limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -93,11 +99,13 @@ BF16_BLOCK_TOL = 2.0 ** -6  # a bf16 block, kernel vs plain: share of max|y|
 STATE_TOL = 1e-3          # its float32 final state: share of max|h|
 CONSIST_TOL = 1e-3        # float32 decode steps vs the chunked prefill
 SPMV_MODES = ("single", "uncoded", "coded", "coded-fast")
-# The card the kernels are built for (sm_90a), its HBM3 rate and its
-# float32 rate outside the tensor cores (NVIDIA H100 SXM data sheet).
+# The card the kernels are built for (sm_90a), its HBM3 rate, its float32
+# rate outside the tensor cores and its dense bf16 tensor-core rate
+# (NVIDIA H100 SXM data sheet).
 CARD = "H100 80GB HBM3"
 MEM_RATE = 3.35e12        # bytes/s
 F32_RATE = 67e12          # flop/s
+BF16_TC_RATE = 989e12     # flop/s
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
@@ -131,14 +139,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(torch, nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time on the card (ms) for `nbytes` moved and `flops` float32
-    operations, and which of the two bounds it; raises for another card."""
+def bound(torch, nbytes: float, flops: float,
+          rate: float = F32_RATE) -> tuple[float, str]:
+    """Least time on the card (ms) for `nbytes` moved and `flops`
+    operations at `rate` (float32 by default), and which of the two bounds
+    it; raises for another card."""
     name = torch.cuda.get_device_name(0)
     if CARD not in name:
         raise RuntimeError(f"no peak rates known for {name!r} "
                            f"(bounds are computed for the {CARD})")
-    t_bytes, t_ops = nbytes / MEM_RATE, flops / F32_RATE
+    t_bytes, t_ops = nbytes / MEM_RATE, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -544,11 +554,12 @@ def kernel_records(torch, eng) -> list[dict]:
 
 
 def kernel_record(torch, name: str, kernel, plain, library, err: float,
-                  nbytes: float, flops: float) -> dict:
+                  nbytes: float, flops: float, rate: float = F32_RATE) -> dict:
     """One kernel's line: device time (CUDA graph), plain and library call
     times (None where no single PyTorch call computes the same function),
-    and its bound from this run's bytes and operations."""
-    bound_ms, bound_by = bound(torch, nbytes, flops)
+    and its bound from this run's bytes and operations (at `rate`, float32
+    outside the tensor cores by default)."""
+    bound_ms, bound_by = bound(torch, nbytes, flops, rate)
     return {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
@@ -985,13 +996,31 @@ def dense_phase(torch, dev) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
-def ssd_chunk_inputs(torch, dev, rng, G, Ch, Q, P, N):
+def ssd_chunk_inputs(torch, dev, rng, G, Ch, Q, P, N, dtype=None, heads=1):
+    """K6's inputs: x, b and c in `dtype` (float32 by default), b and c of
+    G // heads rows (each shared by `heads` groups), dt and dta float32."""
+    dtype = dtype or torch.float32
     dt = rng.uniform(0.01, 0.2, (G, Ch, Q))
     arrays = (rng.standard_normal((G, Ch, Q, P)), dt,
               dt * -rng.uniform(0.5, 2.0, (G, 1, 1)),
-              rng.standard_normal((G, Ch, Q, N)),
-              rng.standard_normal((G, Ch, Q, N)))
-    return [torch.from_numpy(a).to(dev, torch.float32) for a in arrays]
+              rng.standard_normal((G // heads, Ch, Q, N)),
+              rng.standard_normal((G // heads, Ch, Q, N)))
+    return [torch.from_numpy(a).to(dev, torch.float32 if i in (1, 2) else dtype)
+            for i, a in enumerate(arrays)]
+
+
+def k6_cost(args) -> tuple[int, int]:
+    """K6's bytes (each input read once in its own type, each float32
+    output written once) and its operations over the causal triangle (the
+    scores and y_intra for s <= t, plus S)."""
+    x, _, _, b, _ = args
+    G, Ch, Q, P = x.shape
+    N = b.shape[-1]
+    tri = Q * (Q + 1) // 2
+    nbytes = (x.numel() * x.element_size() + 2 * 4 * G * Ch * Q
+              + 2 * b.numel() * b.element_size()
+              + 4 * (G * Ch * Q * P + G * Ch * N * P + G * Ch + G * Ch * Q * N))
+    return nbytes, 2 * G * Ch * (tri * N + tri * P + Q * N * P)
 
 
 def check_ssd_chunk(torch, args, what: str) -> float:
@@ -1025,10 +1054,12 @@ def check_state_scan(torch, G, S, h0, what: str) -> None:
 
 
 def ssd_kernel_checks(torch, dev, rng) -> tuple[dict, dict]:
-    """K6 and K7 at the `tests/test_kernels.py` ssd shapes, at the serve
-    shape and (K7) 256 chunks; `ops.ssd` against the sequential oracle at
-    the reference's 5e-4. Returns K6's and K7's records at the serve
-    shape."""
+    """K6 and K7 at the `tests/test_kernels.py` ssd shapes, K6 at ragged
+    shapes (float32, and bf16 with b / c shared by 2 groups), both at the
+    serve shape and K7 at 256 chunks; `ops.ssd` against the sequential
+    oracle at the reference's 5e-4. Returns K6's record at the serve shape
+    with the serve path's inputs (bf16, B / C shared by the heads), its
+    float32-input record inside it, and K7's record."""
     from repro_torch import configs
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -1055,39 +1086,63 @@ def ssd_kernel_checks(torch, dev, rng) -> tuple[dict, dict]:
         torch.testing.assert_close(h, h0, rtol=5e-4, atol=5e-4)
         cases += 1
 
-    # The serve shape: B = 4 sequences x 32 heads, L = 2,048 in 32 chunks.
+    # Ragged shapes (Q, P or N not a multiple of the tiles), float32 and
+    # bf16 with b / c shared by 2 groups. These and the serve-path inputs
+    # draw from a generator of their own, so the model's tokens, drawn from
+    # `rng` after these checks, do not depend on them.
+    rng2 = np.random.default_rng(15)
+    for G, Ch, Q, P, N in ((2, 4, 16, 8, 4), (2, 2, 128, 72, 136),
+                           (2, 3, 5, 3, 7), (2, 2, 200, 24, 40)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_chunk_inputs(torch, dev, rng2, G, Ch, Q, P, N, dtype, 2)
+            check_ssd_chunk(torch, args, f"{dtype} G={G} Ch={Ch} Q={Q} P={P} N={N}")
+            cases += 1
+
+    # The serve shape: B = 4 sequences x 32 heads, L = 2,048 in 32 chunks,
+    # at the serve path's inputs (bf16 x, B and C shared by the 32 heads of
+    # a sequence) and at float32 inputs materialised per group (PR 13's).
     cfg = configs.get(SERVE_ARCH)
     s = cfg.ssm
-    G, Ch, Q = SERVE_B * s.n_heads(cfg.d_model), SERVE_L // s.chunk, s.chunk
+    nh = s.n_heads(cfg.d_model)
+    G, Ch, Q = SERVE_B * nh, SERVE_L // s.chunk, s.chunk
     P, N = s.head_dim, s.d_state
-    args = ssd_chunk_inputs(torch, dev, rng, G, Ch, Q, P, N)
-    err6 = check_ssd_chunk(torch, args, "the serve shape")
-    _, S, Gd, _ = ssd_k.ssd_chunk(*args)
+    args = ssd_chunk_inputs(torch, dev, rng2, G, Ch, Q, P, N, torch.bfloat16, nh)
+    err6 = check_ssd_chunk(torch, args, "the serve shape, serve-path inputs")
+    args32 = ssd_chunk_inputs(torch, dev, rng, G, Ch, Q, P, N)
+    err32 = check_ssd_chunk(torch, args32, "the serve shape, float32 inputs")
+    _, S, Gd, _ = ssd_k.ssd_chunk(*args32)
     check_state_scan(torch, Gd, S, None, "the serve shape")
     long_args = ssd_chunk_inputs(torch, dev, rng, 32, 256, Q, P, N)
     _, S_long, G_long, _ = ssd_k.ssd_chunk(*long_args)
     check_state_scan(torch, G_long, S_long, None, "256 chunks")
     del long_args, S_long, G_long
     log(f"serve phase: K6/K7 and ops.ssd agree with their plain versions at "
-        f"{cases} test shapes, the serve shape and (K7) 256 chunks")
+        f"{cases} test and ragged shapes, the serve shape (bf16 with shared "
+        f"B / C, and float32) and (K7) 256 chunks")
 
-    # Bounds from this run's shapes: each input read once, each output
-    # written once; K6's float32 work over the causal triangle (the scores
-    # and y_intra for s <= t, plus S), K7's one multiply-add per state.
-    L = Ch * Q
-    tri = Q * (Q + 1) // 2
-    k6_bytes = 4 * (G * L * (2 * P + 3 * N) + 2 * G * L + G * Ch * (N * P + 1))
-    k6_flops = 2 * G * Ch * (tri * N + tri * P + Q * N * P)
-    k7_bytes = 4 * (2 * G * Ch * N * P + G * Ch + G * N * P)
-    k7_flops = 2 * G * Ch * N * P
+    # Bounds from this run's inputs: each input read once in its own type,
+    # each output written once. K6's operations at the bf16 tensor-core
+    # rate for the serve path's inputs; at the float32 rate for the float32
+    # record, as PR 13 reckoned it. K7: one multiply-add per state.
     rec6 = kernel_record(torch, "ssd_chunk", lambda: ssd_k.ssd_chunk(*args),
                          lambda: ssd_ref.ssd_chunk(*args), None, err6,
-                         k6_bytes, k6_flops)
+                         *k6_cost(args), rate=BF16_TC_RATE)
+    rec32 = kernel_record(torch, "ssd_chunk", lambda: ssd_k.ssd_chunk(*args32),
+                          lambda: ssd_ref.ssd_chunk(*args32), None, err32,
+                          *k6_cost(args32))
+    rec6["float32_inputs"] = {k: rec32[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ms_per_call",
+        "bytes")}
+    log(f"K6 at the serve shape, float32 inputs: "
+        f"{json.dumps(rec6['float32_inputs'])}")
+    k7_bytes = 4 * (2 * G * Ch * N * P + G * Ch + G * N * P)
+    k7_flops = 2 * G * Ch * N * P
     rec7 = kernel_record(torch, "ssd_state_scan",
                          lambda: ssd_k.ssd_state_scan(Gd, S),
                          lambda: ssd_ref.ssd_state_scan(Gd, S), None, 0.0,
                          k7_bytes, k7_flops)
-    rec6["shape"] = rec7["shape"] = dict(G=G, Ch=Ch, Q=Q, P=P, N=N)
+    rec6["shape"] = dict(G=G, Ch=Ch, Q=Q, P=P, N=N, heads=nh, dtype="bfloat16")
+    rec7["shape"] = dict(G=G, Ch=Ch, Q=Q, P=P, N=N)
     return rec6, rec7
 
 

@@ -15,40 +15,48 @@ import torch
 from . import ref
 from .ssd_scan import ssd_chunk, ssd_state_scan
 
-F32 = torch.float32
+F32, BF16 = torch.float32, torch.bfloat16
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         C: torch.Tensor, D: torch.Tensor, h0: torch.Tensor | None = None, *,
         chunk: int = 64, use_kernel: bool = True
         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched SSD. x [G, L, P]; dt [G, L]; A [G]; B/C [G, L, N]; D [G].
+    """Batched SSD. x [G, L, P]; dt [G, L]; A [G]; B/C [G, L, N], or
+    [G // h, L, N] shared by h consecutive groups (group g reads row
+    g // h); D [G].
 
     Returns (y [G, L, P], h_final [G, N, P]), float32. L must be a multiple
     of `chunk` (the model pads; `ValueError` otherwise); h0 seeds the scan
     (decode restarts). `use_kernel=False` runs the sequential oracle.
     """
     if not use_kernel:
-        return ref.ssd_scan_batched(x, dt, A, B, C, D, h0)
+        g = x.shape[0]
+        return ref.ssd_scan_batched(x, dt, A, ref.per_group(B, g),
+                                    ref.per_group(C, g), D, h0)
     return chunked(x, dt, A, B, C, D, h0, chunk=chunk)
 
 
 def chunked(x, dt, A, B, C, D, h0=None, *, chunk: int, plain: bool = False):
     """The chunked form of `ssd`: K6, K7 and the readout, or with
     `plain=True` their plain versions on any device (the model's
-    `use_kernel=False` path)."""
+    `use_kernel=False` path). x, B and C reach K6 as they are when they
+    share float32 or bfloat16, and as float32 copies otherwise."""
     chunk_fn, scan_fn = ((ref.ssd_chunk, ref.ssd_state_scan) if plain
                          else (ssd_chunk, ssd_state_scan))
     g, L, p = x.shape
-    n = B.shape[-1]
+    gb, n = B.shape[0], B.shape[-1]
     if chunk < 1 or L % chunk:
         raise ValueError(f"L={L} must be a multiple of chunk={chunk}")
     ch = L // chunk
-    xr = x.reshape(g, ch, chunk, p).to(F32).contiguous()
+    xs, Bs, Cs = x, B, C
+    if not (x.dtype == B.dtype == C.dtype and x.dtype in (F32, BF16)):
+        xs, Bs, Cs = x.to(F32), B.to(F32), C.to(F32)
+    xr = xs.reshape(g, ch, chunk, p).contiguous()
     dtr = dt.reshape(g, ch, chunk).to(F32).contiguous()
     dta = dtr * A[:, None, None].to(F32)
-    br = B.reshape(g, ch, chunk, n).to(F32).contiguous()
-    cr = C.reshape(g, ch, chunk, n).to(F32).contiguous()
+    br = Bs.reshape(gb, ch, chunk, n).contiguous()
+    cr = Cs.reshape(gb, ch, chunk, n).contiguous()
     y_intra, S, G, cexp = chunk_fn(xr, dtr, dta, br, cr)
     h_in, h_final = scan_fn(G, S, None if h0 is None
                             else h0.to(F32).contiguous())

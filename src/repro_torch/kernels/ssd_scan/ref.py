@@ -46,10 +46,36 @@ def ssd_scan_batched(x, dt, A, B, C, D, h0=None):
     return y, h
 
 
+def input_dtype(x, b, c) -> torch.dtype:
+    """The one dtype of K6's x, b and c: float32 or bfloat16 (what the
+    Pallas kernel casts to float32 inside); `TypeError` otherwise."""
+    if x.dtype not in (f32, torch.bfloat16) or not x.dtype == b.dtype == c.dtype:
+        raise TypeError(f"x, b and c must all be float32 or all bfloat16, got "
+                        f"{x.dtype}, {b.dtype} and {c.dtype}")
+    return x.dtype
+
+
+def heads_per_row(g: int, rows: int) -> int:
+    """h, where B / C of `rows` rows serve g groups (group i reads row
+    i // h); `ValueError` unless rows divides g."""
+    if rows < 1 or g % rows:
+        raise ValueError(f"b / c's leading axis ({rows}) must divide G ({g})")
+    return g // rows
+
+
+def per_group(t, g: int):
+    """B / C of [G // h, ...] materialised as [G, ...] (row i // h for group
+    i): the reference's layout, for the plain versions."""
+    h = heads_per_row(g, t.shape[0])
+    return t if h == 1 else t.repeat_interleave(h, dim=0)
+
+
 def ssd_chunk(x, dt, dta, b, c):
     """K6's plain version: `ssd_chunk_pallas`'s body over every (g, chunk).
 
-    x [G, Ch, Q, P]; dt/dta [G, Ch, Q]; b/c [G, Ch, Q, N], all float32 ->
+    x [G, Ch, Q, P]; dt/dta [G, Ch, Q]; b/c [G, Ch, Q, N] or [G // h, Ch,
+    Q, N] (group g reads row g // h); x, b and c all float32 or all
+    bfloat16, read as float32 ->
     y_intra [G, Ch, Q, P], S [G, Ch, N, P], G [G, Ch], Cexp [G, Ch, Q, N]:
       y_intra[t] = sum_{s<=t} (c_t.b_s) dt_s e^{cum_t-cum_s} x_s
       S          = sum_s e^{cum_Q-cum_s} dt_s b_s x_s^T
@@ -57,7 +83,10 @@ def ssd_chunk(x, dt, dta, b, c):
     with cum the inclusive cumsum of dta. The upper triangle of the decay
     is set to 0 directly (the reference masks inside the exp with -1e30).
     """
-    q = x.shape[2]
+    input_dtype(x, b, c)
+    g, _, q, _ = x.shape
+    x = x.to(f32)
+    b, c = (per_group(t, g).to(f32) for t in (b, c))
     cum = torch.cumsum(dta, dim=-1)
     scores = torch.matmul(c, b.transpose(-1, -2))
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()

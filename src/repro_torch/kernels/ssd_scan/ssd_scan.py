@@ -17,28 +17,39 @@ from . import ref
 
 _P, _I32, _I64 = _build.P, _build.I32, _build.I64
 _SIGS = {
-    "ssd_chunk": (_P,) * 9 + (_I64, _I32, _I32, _I32, _P),
+    "ssd_chunk": (_P,) * 9 + (_I64,) + (_I32,) * 7 + (_P,),
     "ssd_state_scan": (_P,) * 5 + (_I64, _I32, _I64, _P),
 }
 MAX_SMEM = 232448          # bytes of shared memory a block may have (H100)
-F32 = torch.float32
+F32, BF16 = torch.float32, torch.bfloat16
+_CODES = {F32: 0, BF16: 1}  # the kernel's dtype argument
 
 
 def _lib():
     return _build.library("ssd_scan", _SIGS)
 
 
-def chunk_smem_bytes(q: int, p: int, n: int) -> int:
-    """Shared memory K6 stages per block: x [Q, P], b and c [Q, N + 1],
-    the [Q, Q] score tile and four [Q] vectors, float32."""
-    return 4 * (q * p + 2 * q * (n + 1) + q * q + 4 * q)
+def chunk_smem_bytes(q: int, p: int, n: int, dtype: torch.dtype) -> int:
+    """Shared memory K6 stages per block: a 48-byte header, cum / dt / w as
+    float32 [Q] (rounded up to 16 B), and x, b and c as bf16 rows of
+    ceil(P / 8) and ceil(N / 8) 16-byte chunks: one plane each for bfloat16
+    inputs, a hi and a lo plane each for float32 inputs."""
+    planes = 2 if dtype == F32 else 1
+    return (48 + -(-12 * q // 16) * 16
+            + planes * 16 * q * (-(-p // 8) + 2 * -(-n // 8)))
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor):
     """K6: the intra-chunk SSD of every (group, chunk).
 
-    x [G, Ch, Q, P]; dt/dta [G, Ch, Q]; b/c [G, Ch, Q, N], float32 ->
+    x [G, Ch, Q, P]; dt/dta [G, Ch, Q] float32; b/c [G, Ch, Q, N] or
+    [G // h, Ch, Q, N] (shared by h consecutive groups: group g reads row
+    g // h); x, b and c all float32 or all bfloat16 ->
     (y_intra [G, Ch, Q, P], S [G, Ch, N, P], G [G, Ch], Cexp [G, Ch, Q, N]),
     float32, as `ref.ssd_chunk` defines them.
     """
@@ -46,31 +57,37 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
         raise ValueError(f"x must be [G, Ch, Q, P], got {tuple(x.shape)}")
     g, ch, q, p = x.shape
     if b.dim() != 4:
-        raise ValueError(f"b must be [G, Ch, Q, N], got {tuple(b.shape)}")
-    n = b.shape[-1]
-    _build.check_tensor(x, "x", F32)
+        raise ValueError(f"b must be [G // h, Ch, Q, N], got {tuple(b.shape)}")
+    gb, n = b.shape[0], b.shape[-1]
+    dtype = ref.input_dtype(x, b, c)
+    _build.check_tensor(x, "x", dtype)
     for t, name in ((dt, "dt"), (dta, "dta")):
         _build.check_tensor(t, name, F32, (g, ch, q))
+    heads = ref.heads_per_row(g, gb)
     for t, name in ((b, "b"), (c, "c")):
-        _build.check_tensor(t, name, F32, (g, ch, q, n))
+        _build.check_tensor(t, name, dtype, (gb, ch, q, n))
     if min(q, p, n) < 1:
         raise ValueError(f"Q, P and N must be >= 1, got {(q, p, n)}")
-    if chunk_smem_bytes(q, p, n) > MAX_SMEM:
+    smem = chunk_smem_bytes(q, p, n, dtype)
+    if smem > MAX_SMEM:
         raise ValueError(
-            f"chunk Q={q}, P={p}, N={n} needs {chunk_smem_bytes(q, p, n)} B "
-            f"of shared memory per block; the kernel takes <= {MAX_SMEM}")
+            f"chunk Q={q}, P={p}, N={n} in {dtype} needs {smem} B of shared "
+            f"memory per block; the kernel takes <= {MAX_SMEM}")
     if not _build.on_cuda(x, dt, dta, b, c):
         return ref.ssd_chunk(x, dt, dta, b, c)
-    y = torch.empty_like(x)
+    y = torch.empty((g, ch, q, p), dtype=F32, device=x.device)
     S = torch.empty((g, ch, n, p), dtype=F32, device=x.device)
     G = torch.empty((g, ch), dtype=F32, device=x.device)
-    cexp = torch.empty_like(b)
+    cexp = torch.empty((g, ch, q, n), dtype=F32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         code = lib.ssd_chunk(x.data_ptr(), dt.data_ptr(), dta.data_ptr(),
                              b.data_ptr(), c.data_ptr(), y.data_ptr(),
                              S.data_ptr(), G.data_ptr(), cexp.data_ptr(),
-                             g * ch, q, p, n, _build.stream_of(x))
+                             g * ch, ch, heads, q, p, n, _CODES[dtype],
+                             int(p % 8 == 0 and _aligned(x)),
+                             int(n % 8 == 0 and _aligned(b, c)),
+                             _build.stream_of(x))
     _build.check(lib, "ssd_chunk", code)
     _build.LAUNCHES["ssd_chunk"] += 1
     return y, S, G, cexp

@@ -89,28 +89,31 @@ def mamba2_block(p, cfg: ModelConfig, u, *, state=None, use_kernel=True):
     A = -torch.exp(p["a_log"].to(F32))                               # [nh]
     xh = x.reshape(Bsz, S, nh, P)
 
-    # Flatten (batch, head) into the scan group axis; B and C are
-    # broadcast over the heads and materialised, as the reference does.
+    # Flatten (batch, head) into the scan group axis. K6 reads B and C as
+    # they come from the conv split, [Bsz, S, N], shared by the nh heads of
+    # a batch row; the decode step and the plain path take them broadcast
+    # over the heads and materialised, as the reference does.
     xg = xh.permute(0, 2, 1, 3).reshape(Bsz * nh, S, P)
     dtg = dt_full.permute(0, 2, 1).reshape(Bsz * nh, S)
-    Bg = B_[:, None].expand(Bsz, nh, S, N).reshape(Bsz * nh, S, N)
-    Cg = C_[:, None].expand(Bsz, nh, S, N).reshape(Bsz * nh, S, N)
     Ag = A.repeat(Bsz)
     Dg = p["d_skip"].to(F32).repeat(Bsz)
     h0 = None if state is None else state[1].reshape(Bsz * nh, N, P)
+
+    def per_head(t):
+        return t[:, None].expand(Bsz, nh, S, N).reshape(Bsz * nh, S, N).to(F32)
 
     if S == 1:                                   # decode: O(1) state update
         if h0 is None:
             h0 = torch.zeros((Bsz * nh, N, P), dtype=F32, device=u.device)
         y1, hT = ssd_ops.ssd_decode_step(xg[:, 0].to(F32), dtg[:, 0], Ag,
-                                         Bg[:, 0].to(F32), Cg[:, 0].to(F32),
-                                         Dg, h0)
+                                         per_head(B_)[:, 0],
+                                         per_head(C_)[:, 0], Dg, h0)
         yg = y1[:, None]
     elif use_kernel:
-        yg, hT = ssd_ops.ssd(xg, dtg, Ag, Bg, Cg, Dg, h0, chunk=s.chunk)
+        yg, hT = ssd_ops.ssd(xg, dtg, Ag, B_, C_, Dg, h0, chunk=s.chunk)
     else:
-        yg, hT = _ssd_chunked(xg.to(F32), dtg, Ag, Bg.to(F32), Cg.to(F32),
-                              Dg, h0, s.chunk)
+        yg, hT = _ssd_chunked(xg.to(F32), dtg, Ag, per_head(B_),
+                              per_head(C_), Dg, h0, s.chunk)
 
     y = yg.reshape(Bsz, nh, S, P).permute(0, 2, 1, 3).reshape(Bsz, S, di)
     y = rms_norm(y.to(u.dtype) * F.silu(z), p["out_norm"], cfg.norm_eps)

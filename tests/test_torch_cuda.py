@@ -10,8 +10,9 @@ device tensors (the packed K1 and K2 at r = 2 and at the runtime-r
 instance r = 5, K1's general form against the packed K1, and K3-min
 bitwise, K3-sum within rtol 1e-5; K4 at
 float32 rtol 1e-4 / atol 1e-5 and float16 2e-3, K5 within rtol 1e-5 and
-bitwise repeatable; K6 within rtol 1e-4 and atol 1e-4 * max|plain|, K7
-bitwise), small coded and spmv sessions against the NumPy oracle, and the
+bitwise repeatable; K6 within rtol 1e-4 and atol 1e-4 * max|plain|, in
+float32 and on the serve path's bf16 inputs with B / C shared by the
+heads, K7 bitwise), small coded and spmv sessions against the NumPy oracle, and the
 reduced mamba2-370m served on the card (the kernel prefill against the
 plain chunked prefill and the decode loop). Whether a card exists is
 decided inside the `cuda` fixture, never at import time.
@@ -204,13 +205,23 @@ def test_dense_pagerank_step_on_the_card(cuda):
             rtol=1e-5, atol=0)
 
 
-def _chunk_inputs(rng, G, Ch, Q, P, N, dev):
+def _chunk_inputs(rng, G, Ch, Q, P, N, dev, dtype=torch.float32, heads=1):
+    """x, b and c in `dtype`, b and c of G // heads rows; dt, dta float32."""
     dt = rng.uniform(0.01, 0.2, (G, Ch, Q))
     arrays = (rng.standard_normal((G, Ch, Q, P)), dt,
               dt * -rng.uniform(0.5, 2.0, (G, 1, 1)),
-              rng.standard_normal((G, Ch, Q, N)),
-              rng.standard_normal((G, Ch, Q, N)))
-    return [torch.from_numpy(a).to(dev, torch.float32) for a in arrays]
+              rng.standard_normal((G // heads, Ch, Q, N)),
+              rng.standard_normal((G // heads, Ch, Q, N)))
+    return [torch.from_numpy(a).to(dev, torch.float32 if i in (1, 2) else dtype)
+            for i, a in enumerate(arrays)]
+
+
+def _hold_chunk(args):
+    got = ssd_k.ssd_chunk(*args)
+    want = ssd_ref.ssd_chunk(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
 
 
 @pytest.mark.parametrize("G,Ch,Q,P,N", [
@@ -219,11 +230,22 @@ def _chunk_inputs(rng, G, Ch, Q, P, N, dev):
     (8, 32, 64, 64, 128)])
 def test_ssd_chunk_matches_plain_version(cuda, G, Ch, Q, P, N):
     args = _chunk_inputs(np.random.default_rng(Q + P + N), G, Ch, Q, P, N, cuda)
-    got = ssd_k.ssd_chunk(*args)
-    want = ssd_ref.ssd_chunk(*args)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-4,
-                                   atol=1e-4 * float(w.abs().max()))
+    _hold_chunk(args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,Ch,Q,P,N,heads", [
+    (128, 32, 64, 64, 128, 32),                      # the serve shape
+    (4, 4, 16, 8, 4, 2), (4, 2, 128, 64, 128, 4),   # ragged Q = 16; Q = 128
+    (2, 3, 5, 3, 7, 1), (2, 2, 200, 24, 40, 2), (2, 2, 128, 72, 136, 2),
+    (2, 2, 1, 1, 1, 2)])
+def test_ssd_chunk_bf16_and_shared_bc_match_plain_version(cuda, G, Ch, Q, P,
+                                                          N, heads, dtype):
+    """The serve path's inputs (bf16 x, b and c; b / c shared by `heads`
+    groups) and ragged shapes, at the same rtol 1e-4 / atol 1e-4 max."""
+    args = _chunk_inputs(np.random.default_rng(G + Q + N), G, Ch, Q, P, N,
+                         cuda, dtype, heads)
+    _hold_chunk(args)
 
 
 @pytest.mark.parametrize("Ch", [1, 32, 256])
@@ -260,9 +282,33 @@ def test_ssd_matches_sequential_oracle_on_the_card(cuda, G, L, P, N, chunk):
 
 
 def test_ssd_chunk_refuses_what_a_block_cannot_hold(cuda):
-    args = _chunk_inputs(np.random.default_rng(0), 1, 1, 128, 128, 128, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_k.ssd_chunk(*args)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _chunk_inputs(np.random.default_rng(0), 1, 1, 256, 256, 256,
+                             cuda, dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            ssd_k.ssd_chunk(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_with_shared_bc_on_the_card(cuda, dtype):
+    """`ops.ssd` on the serve path's layout: x, B and C in `dtype`, B / C
+    shared by 4 groups, one launch of K6 and of K7, against the sequential
+    oracle on the same values materialised per group at 5e-4."""
+    rng = np.random.default_rng(3)
+    G, L, P, N, h = 8, 256, 16, 32, 4
+    x, B, C = (torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
+               for s in ((G, L, P), (G // h, L, N), (G // h, L, N)))
+    dt, A, D = (torch.from_numpy(a).to(cuda, torch.float32) for a in (
+        rng.uniform(0.01, 0.2, (G, L)), -rng.uniform(0.5, 2.0, G),
+        rng.standard_normal(G)))
+    _build.LAUNCHES.clear()
+    y, hT = ssd_ops.ssd(x, dt, A, B, C, D, chunk=64)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_chunk"] == 1 and _build.LAUNCHES["ssd_state_scan"] == 1
+    y_ref, h_ref = ssd_ref.ssd_scan_batched(
+        x, dt, A, B.repeat_interleave(h, 0), C.repeat_interleave(h, 0), D)
+    torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(hT, h_ref, rtol=5e-4, atol=5e-4)
 
 
 def test_mamba2_served_on_the_card(cuda):

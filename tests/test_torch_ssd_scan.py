@@ -3,9 +3,11 @@
 Inputs are made with numpy from a seed and handed to both packages.
 `ssd_chunk` (K6's wrapper, which runs its plain version for CPU tensors) is
 held against `ssd_chunk_pallas` in interpret mode within rtol 1e-5 and
-atol 1e-5 * max|ref| (float32, another summation order); `ops.ssd` against
-the reference's `ops.ssd` and its sequential oracle at the reference's own
-5e-4 on the `tests/test_kernels.py` shapes; the state scan's sequential
+atol 1e-5 * max|ref| (float32, another summation order), also with bf16
+x / b / c and with b / c shared by h groups, against the Pallas kernel on
+the same values materialised in float32; `ops.ssd` against the reference's
+`ops.ssd` and its sequential oracle at the reference's own 5e-4 on the
+`tests/test_kernels.py` shapes, also with B / C shared by h groups; the state scan's sequential
 walk (K7's plain version) against the reference's associative scan within
 rtol 1e-5 and atol 1e-6 * max|ref| (the two orders round differently).
 """
@@ -67,6 +69,29 @@ def test_ssd_chunk_matches_pallas_interpret(G, Ch, Q, P, N):
         _close(g, w, rtol=1e-5, atol_rel=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 2, 4])
+@pytest.mark.parametrize("G,Ch,Q,P,N", [(4, 2, 16, 8, 4), (4, 3, 64, 64, 128),
+                                        (8, 1, 32, 16, 16)])
+def test_ssd_chunk_bf16_and_shared_bc_match_pallas_interpret(G, Ch, Q, P, N, h,
+                                                              dtype):
+    """K6's contract on the serve path's inputs: x, b and c in bf16 (read as
+    float32) and b / c of [G // h, ...] rows, group g reading row g // h.
+    The Pallas kernel gets the same values in float32, materialised."""
+    x, dt, dta, b, c = _chunk_inputs(np.random.default_rng(G * Q + h), G, Ch,
+                                     Q, P, N)
+    b, c = b[::h].copy(), c[::h].copy()
+    xt, bt, ct = (torch.from_numpy(a).to(dtype) for a in (x, b, c))
+    x32, b32, c32 = (t.float().numpy() for t in (xt, bt, ct))
+    want = ssd_chunk_pallas(*map(jnp.asarray, (
+        x32, dt, dta, np.repeat(b32, h, axis=0), np.repeat(c32, h, axis=0))),
+        interpret=True)
+    got = k.ssd_chunk(xt, *_t(dt, dta), bt, ct)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32
+        _close(g, w, rtol=1e-5, atol_rel=1e-5)
+
+
 def test_ssd_chunk_masks_the_upper_triangle():
     """A token's y_intra reads no later token: changing x at t = 5 leaves
     y_intra[:5] bitwise unchanged."""
@@ -88,6 +113,27 @@ def test_ssd_matches_reference_and_sequential_oracle(G, L, P, N, chunk):
     for got, want in ((y, y_ref), (h, h_ref), (y, y_jk), (h, h_jk)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("h", [2, 4])
+@pytest.mark.parametrize("G,L,P,N,chunk", [(4, 64, 8, 4, 16), (4, 128, 16, 8, 32),
+                                           (8, 128, 32, 16, 64)])
+def test_ssd_with_shared_bc_matches_reference(G, L, P, N, chunk, h):
+    """`ops.ssd` with B / C of [G // h, L, N] against the reference's
+    `ops.ssd` on them materialised per group, at its 5e-4, for the chunked
+    form and the oracle (`use_kernel=False`)."""
+    x, dt, A, B, C, D = _ssd_inputs(np.random.default_rng(L + h), G, L, P, N)
+    B, C = B[::h].copy(), C[::h].copy()
+    y_jk, h_jk = jops.ssd(*map(jnp.asarray, (x, dt, A, np.repeat(B, h, 0),
+                                             np.repeat(C, h, 0), D)),
+                          chunk=chunk)
+    for use_kernel in (True, False):
+        y, hT = ops.ssd(*_t(x, dt, A, B, C, D), chunk=chunk,
+                        use_kernel=use_kernel)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_jk), rtol=5e-4,
+                                   atol=5e-4)
+        np.testing.assert_allclose(hT.numpy(), np.asarray(h_jk), rtol=5e-4,
+                                   atol=5e-4)
 
 
 @pytest.mark.parametrize("G,L,P,N,chunk", SHAPES)
@@ -191,17 +237,38 @@ def test_chunk_rule_and_wrapper_checks():
     ops.ssd(x, dt, A, B, C, D, chunk=32, use_kernel=False)   # the oracle takes any L
     with pytest.raises(TypeError):
         ops.ssd(x, dt, A, B, C, D, chunk=16, interpret=True)
-    a = _t(*_chunk_inputs(np.random.default_rng(9), 1, 2, 8, 4, 4))
+    a = _t(*_chunk_inputs(np.random.default_rng(9), 2, 2, 8, 4, 4))
     with pytest.raises(TypeError, match="float32"):
         k.ssd_chunk(a[0].double(), *a[1:])
+    with pytest.raises(TypeError, match="bfloat16"):
+        k.ssd_chunk(*(t.half() if i in (0, 3, 4) else t for i, t in enumerate(a)))
+    with pytest.raises(TypeError, match="all"):          # one dtype for x, b, c
+        k.ssd_chunk(a[0].bfloat16(), *a[1:])
+    with pytest.raises(TypeError, match="float32"):      # dt stays float32
+        k.ssd_chunk(a[0], a[1].bfloat16(), *a[2:])
     with pytest.raises(ValueError, match="shape"):
-        k.ssd_chunk(a[0], a[1][:, :1], *a[2:])
+        k.ssd_chunk(a[0], a[1][:, :1].contiguous(), *a[2:])
     with pytest.raises(ValueError, match="contiguous"):
         k.ssd_chunk(a[0].transpose(2, 3).contiguous().transpose(2, 3), *a[1:])
-    big = _t(*_chunk_inputs(np.random.default_rng(9), 1, 1, 128, 128, 128))
-    with pytest.raises(ValueError, match="shared memory"):
-        k.ssd_chunk(*big)
-    assert k.chunk_smem_bytes(64, 64, 128) == 4 * 24960    # 99.8 KB, serve
+    three = torch.cat([a[3], a[3][:1]])                  # 3 rows for G = 2
+    with pytest.raises(ValueError, match="divide"):
+        k.ssd_chunk(*a[:3], three, torch.cat([a[4], a[4][:1]]))
+    with pytest.raises(ValueError, match="shape"):       # b and c must agree
+        k.ssd_chunk(*a[:3], a[3][:1].contiguous(), a[4])
+    k.ssd_chunk(*a[:3], a[3][:1].contiguous(), a[4][:1].contiguous())
+    # The new footprint: 48 B, [Q] x 3 float32, bf16 planes of x, b and c
+    # (hi and lo for float32 inputs). 40.8 KiB at the serve shape in bf16.
+    assert k.chunk_smem_bytes(64, 64, 128, torch.bfloat16) == 48 + 768 + 16 * 64 * 40
+    assert k.chunk_smem_bytes(64, 64, 128, torch.bfloat16) == 41776
+    assert k.chunk_smem_bytes(64, 64, 128, torch.float32) == 82736
+    assert k.chunk_smem_bytes(128, 128, 128, torch.float32) == 198192
+    assert k.chunk_smem_bytes(1, 4, 4, torch.bfloat16) == 48 + 16 + 16 * 3
+    for dtype in (torch.float32, torch.bfloat16):
+        big = [t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(
+            _t(*_chunk_inputs(np.random.default_rng(9), 1, 1, 256, 256, 256)))]
+        assert k.chunk_smem_bytes(256, 256, 256, dtype) > k.MAX_SMEM
+        with pytest.raises(ValueError, match="shared memory"):
+            k.ssd_chunk(*big)
     G, S = torch.ones((2, 3)), torch.zeros((2, 3, 4, 5))
     with pytest.raises(ValueError, match="shape"):
         k.ssd_state_scan(G, S, torch.zeros((2, 5, 4)))
