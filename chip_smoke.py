@@ -10,13 +10,17 @@ non-zero before its last line:
      versions, and the time to build every kernel from
      `src/repro_torch/csrc` (one nvcc per source, all in parallel);
   2. kernels: each CUDA kernel held against its plain PyTorch version on
-     the card, at random shapes (r in 1..5, r = 5 the runtime-r instance;
-     B in 1 and 4; empty rows, empty slots and full-word leftover slots in
-     the packed K1/K2 tables; any shift and mask in K1's general form) and
-     at each session's shapes (B = 1 and B = 4, where K1's general form on
-     the unpacked tables must write the packed K1's buffers). K1/K2/K3-min
-     must be bitwise equal, K3-sum within rtol 1e-5 (the plain version sums
-     with atomics; atol 0 at the session shapes, whose sums do not cancel);
+     the card, at random shapes (r in 1..5 and 33, r >= 5 the runtime-r
+     instance, r = 33 with zero-width segments; B in 1 and 4; empty rows,
+     empty slots and full-word leftover slots in the packed K1/K2 tables;
+     any shift and mask in K1's general form) and at each session's shapes
+     (B = 1 and B = 4, where K1's general form on the unpacked tables must
+     write the packed K1's buffers). K1/K2/K3-min must be bitwise equal,
+     K3-sum within rtol 1e-5 of the scatter plain version (which sums with
+     atomics; atol 0 at the session shapes, whose sums do not cancel); K3
+     (sum and min) and K5, the CSR-streaming body, bitwise the sequential
+     plain version at B = 1, 2, 4, 5 on random CSR with empty rows, ragged
+     tiles and a long tile, and at the session shapes;
   3. slice: the er-76k session (ER, n = 80,000 padded for K = 4, r = 2,
      average degree 8, seed 76) through `engine.compile(...).run(...)`:
      delivered words of one exchange bitwise equal to the NumPy executor,
@@ -56,9 +60,14 @@ non-zero before its last line:
 
 The kernel phase also holds K4 (float32 rtol 1e-4 / atol 1e-5, float16
 2e-3) and K5 (rtol 1e-5, atol 1e-6 for standard-normal values, bitwise
-repeatable) against their plain versions. Prints the `kernels` JSON line
+repeatable, bitwise the sequential plain version for every `bm`) against
+their plain versions. The serve phase also holds K6 at chunks of 128 to
+400 tokens (P = 64, N = 128; staged in parts where a chunk does not fit a
+block: float32 from Q = 180, bf16 at Q = 400) and `ops.ssd` at chunk 256,
+and times K6 at Q = 128 and 256. Prints the `kernels` JSON line
 (K1-K3 and K5 timed at the er-76k shapes with launches from their er-76k
-paths, K4 at 16,384^2 float32 with launches from the dense path; K1 and K2
+paths, K3 and K5 also at B = 4 and with their L2 sector traffic in the
+full records, K4 at 16,384^2 float32 with launches from the dense path; K1 and K2
 are the packed kernels the session runs, their bounds counted on the
 packed tables, with the count on the unpacked layout and K1's general form
 timed on it kept in the full records; K6 and K7 at the serve shape with
@@ -292,7 +301,7 @@ def kernel_phase(torch, dev) -> None:
 
     rng = np.random.default_rng(11)
     cases = 0
-    for r in (1, 2, 3, 4, 5):
+    for r in (1, 2, 3, 4, 5, 33):
         for B in (1, 4):
             up = lambda d: {k: torch.from_numpy(v).to(dev)  # noqa: E731
                             for k, v in d.items()}
@@ -324,9 +333,73 @@ def kernel_phase(torch, dev) -> None:
                          sr_ref.segment_reduce(*args, op, ident), op,
                          f"random {op} B={B}", atol=1e-6)
     cases_spmv = spmv_kernel_checks(torch, dev, rng)
+    cases_stream = stream_kernel_checks(torch, dev, rng)
     log(f"kernel phase: {cases} random exchange cases (packed K1/K2, general "
-        f"and dense K1), the K3 sum/min cases "
-        f"and {cases_spmv} K4/K5 cases agree with the plain versions")
+        f"and dense K1; r = 33 the runtime-r instance with zero-width "
+        f"segments), the K3 sum/min cases, {cases_spmv} K4/K5 cases and "
+        f"{cases_stream} K3/K5 cases bitwise the sequential plain version "
+        f"(long tiles included) agree with the plain versions")
+
+
+def stream_case(rng, n, B, long_row: int = 5000):
+    """A CSR of `n` rows for K3 and K5: 30% empty rows, degrees 0..40
+    (ragged tiles), one row of `long_row` entries (a long tile, in parts of
+    TILE_ENTRIES), K3's gather and standard-normal values (sums cancel, so
+    only the sequential order is bitwise), K5's indices and values."""
+    deg = rng.integers(0, 41, size=n)
+    deg[rng.random(n) < 0.3] = 0
+    deg[n // 3] = long_row
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz, M = int(indptr[-1]), 3000
+    shape = lambda m: (m, B) if B > 1 else (m,)  # noqa: E731
+    dv = rng.standard_normal(shape(M)).astype(np.float32)
+    return dict(
+        indptr=indptr, gather=rng.permutation(nnz + M)[:nnz].astype(np.int32),
+        ev=rng.standard_normal(shape(nnz)).astype(np.float32),
+        words=dv.view(np.uint32).byteswap().view(np.int32),
+        indices=rng.integers(0, n, size=nnz).astype(np.int32),
+        c=rng.standard_normal(shape(n)).astype(np.float32))
+
+
+def bitwise(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def stream_kernel_checks(torch, dev, rng) -> int:
+    """K3 (sum, min) and K5, the CSR-streaming body, bitwise against the
+    sequential plain version at B = 1, 2, 4, 5 (vector widths 1, 2, 4 and
+    column chunks), with empty rows, ragged tiles and a long tile; K3-min
+    also bitwise the scatter plain version; two runs bitwise equal; K5 the
+    same bits for every `bm`."""
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.kernels.segment_reduce import ref as sr_ref
+    from repro_torch.kernels.spmv import ref as spmv_ref
+    from repro_torch.kernels.spmv import spmv as spmv_k
+
+    cases = 0
+    for B in (1, 2, 4, 5):
+        t = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream_case(rng, 7001, B).items()}
+        red = (t["ev"], t["words"], t["gather"], t["indptr"])
+        for op, ident in (("sum", 0.0), ("min", float("inf"))):
+            got = sr.segment_reduce(*red, op, ident)
+            again = sr.segment_reduce(*red, op, ident)
+            if not (bitwise(torch, got, sr_ref.segment_reduce_seq(*red, op, ident))
+                    and bitwise(torch, got, again)):
+                raise AssertionError(f"K3 {op} not bitwise the sequential "
+                                     f"plain version (or not repeatable) at B={B}")
+            if op == "min" and not bitwise(
+                    torch, got, sr_ref.segment_reduce(*red, op, ident)):
+                raise AssertionError(f"K3 min not bitwise the plain version at B={B}")
+        want = spmv_ref.spmv_csr_seq(t["indptr"], t["indices"], t["c"])
+        for bm in (1, 8, 128, 256):
+            if not bitwise(torch, spmv_k.spmv_csr(t["indptr"], t["indices"],
+                                                  t["c"], bm=bm), want):
+                raise AssertionError(f"K5 not bitwise the sequential plain "
+                                     f"version at B={B} bm={bm}")
+        cases += 1
+    return cases
 
 
 def random_csr(rng, n, B):
@@ -373,6 +446,9 @@ def spmv_kernel_checks(torch, dev, rng) -> int:
                                        rtol=SUM_RTOL, atol=1e-6)
             if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
                 raise AssertionError(f"K5 not repeatable at B={B} bm={bm}")
+            if not bitwise(torch, got, spmv_ref.spmv_csr_seq(*args)):
+                raise AssertionError(f"K5 not bitwise the sequential plain "
+                                     f"version at B={B} bm={bm}")
             cases += 1
     return cases
 
@@ -408,9 +484,10 @@ def hold_session(torch, eng, ev, what: str, general: dict) -> dict:
     """Run the packed K1 and K2 and K3 (sum and min) on Map output `ev`
     [nnz(, B)] at a session's shapes and hold each against its plain
     version: K1, K2 and K3-min bitwise, K3-sum within rtol 1e-5 with atol
-    0 (every Map value here is positive, so no row sum cancels); K1's
-    general form on the unpacked tables must write the same buffers.
-    Returns each kernel's arguments and its max abs error."""
+    0 of the scatter plain version (every Map value here is positive, so
+    no row sum cancels) and K3 sum and min bitwise the sequential plain
+    version; K1's general form on the unpacked tables must write the same
+    buffers. Returns each kernel's arguments and its max abs error."""
     from repro_torch.kernels.segment_reduce import ops as sr
     from repro_torch.kernels.segment_reduce import ref as sr_ref
     from repro_torch.kernels.xor_code import xor_code as xc
@@ -423,8 +500,9 @@ def hold_session(torch, eng, ev, what: str, general: dict) -> dict:
     gen = xc.xor_encode_gather(*gen_args)
     red = {op: (ev, words, eng._gather, eng._indptr, op, ident)
            for op, ident in (("sum", 0.0), ("min", np.inf))}
-    acc = {op: sr.segment_reduce(*a) for op, a in red.items()}
+    acc = {op: sr.segment_reduce(*a, tiles=eng._tiles) for op, a in red.items()}
     acc0 = {op: sr_ref.segment_reduce(*a) for op, a in red.items()}
+    seq = {op: sr_ref.segment_reduce_seq(*a) for op, a in red.items()}
     torch.cuda.synchronize()
     if not torch.equal(buf, buf0):
         raise AssertionError(f"K1 xor_encode not bitwise at {what}")
@@ -435,6 +513,10 @@ def hold_session(torch, eng, ev, what: str, general: dict) -> dict:
         raise AssertionError(f"K2 xor_decode not bitwise at {what}")
     err3 = check_reduce(torch, acc["sum"], acc0["sum"], "sum", what, atol=0.0)
     check_reduce(torch, acc["min"], acc0["min"], "min", what, atol=0.0)
+    for op in red:
+        if not bitwise(torch, acc[op], seq[op]):
+            raise AssertionError(f"K3 {op} not bitwise the sequential plain "
+                                 f"version at {what}")
     return {"tables": t, "general": gen_args, "red": red["sum"],
             "words": words,
             "err": {"xor_encode": word_err(torch, buf, buf0),
@@ -499,11 +581,10 @@ def kernel_records(torch, eng) -> list[dict]:
     random [n, 4] state (B = 4); time them at B = 1 and compute each
     kernel's bytes bound, K1's and K2's also on the layout before packing
     (`bound_ms_old_layout`). K1's record carries the general form's time
-    on the unpacked tables (`general_ms`), the same card's before."""
+    on the unpacked tables (`general_ms`), the same card's before. K3's
+    record carries its L2 sector traffic and, under "b4", the same record
+    at B = 4 (pagerank's Map over the random [n, 4] state)."""
     from repro_torch.core import algorithms as algo
-    from repro_torch.core.bitcodec import words_to_floats_t
-    from repro_torch.kernels.segment_reduce import ops as sr
-    from repro_torch.kernels.segment_reduce import ref as sr_ref
     from repro_torch.kernels.xor_code import xor_code as xc
 
     fx, dev = eng.fused, eng.device
@@ -514,10 +595,13 @@ def kernel_records(torch, eng) -> list[dict]:
     hold_session(torch, eng, ev4.contiguous(), "the session shapes, B = 4",
                  general)
     prog = algo.pagerank()
+    ev4 = prog.map_edge_values_t(eng._dg, state4).contiguous()
+    held4 = hold_session(torch, eng, ev4, "the session shapes, pagerank B = 4",
+                         general)
     state = torch.as_tensor(prog.init(eng.g), device=dev)
     ev = prog.map_edge_values_t(eng._dg, state).contiguous()
     held = hold_session(torch, eng, ev, "the session shapes, B = 1", general)
-    t, red_args, words = held["tables"], held["red"], held["words"]
+    t = held["tables"]
     buf = xc.xor_encode_packed(*(t[k] for k in ENC_PACKED))
     dec_args = (t["src"], buf) + tuple(t[k] for k in DEC_PACKED)
 
@@ -525,23 +609,13 @@ def kernel_records(torch, eng) -> list[dict]:
     # so bound_ms = bytes / memory rate.
     k1_bytes, k2_bytes = packed_bytes(eng)
     k1_old, k2_old = unpacked_bytes(eng)
-    nnz, n, B = eng.g.csr.nnz, eng.g.n, 1
-    k3_bytes = 4 * nnz + 4 * (n + 1) + 4 * B * nnz + 4 * B * n
-
-    gathered = torch.cat([ev, words_to_floats_t(words)])[eng._gather.long()]
-    offsets = eng._indptr.long()
     runs = (
         ("xor_encode", k1_bytes,
          lambda: xc.xor_encode_packed(*(t[k] for k in ENC_PACKED)),
          lambda: xc.ref.xor_encode_packed(*(t[k] for k in ENC_PACKED)), None),
         ("xor_decode", k2_bytes,
          lambda: xc.xor_decode_packed(*dec_args, total=fx.M),
-         lambda: xc.ref.xor_decode_packed(*dec_args), None),
-        ("segment_reduce", k3_bytes,
-         lambda: sr.segment_reduce(*red_args),
-         lambda: sr_ref.segment_reduce(*red_args),
-         lambda: torch.segment_reduce(gathered, "sum", offsets=offsets,
-                                      axis=0)))
+         lambda: xc.ref.xor_decode_packed(*dec_args), None))
     records = [kernel_record(torch, name, kernel, plain, library,
                              held["err"][name], nbytes, 0)
                for name, nbytes, kernel, plain, library in runs]
@@ -550,7 +624,54 @@ def kernel_records(torch, eng) -> list[dict]:
         rec["bound_ms_old_layout"] = bound(torch, old, 0)[0]
     records[0]["general_ms"] = time_ms_graph(
         torch, lambda: xc.xor_encode_gather(*held["general"]))
-    return records
+    rec3 = segment_reduce_record(torch, eng, held)
+    rec3["b4"] = segment_reduce_record(torch, eng, held4)
+    return records + [rec3]
+
+
+def l2_sectors(nnz: int, B: int) -> dict:
+    """The L2 sector traffic of the random reads of K3 / K5: one 32-byte
+    sector per entry and column for a per-column gather (the first
+    designs), one per entry and chunk of up to 4 columns read as one vector
+    (the CSR-streaming body, where B's alignment allows)."""
+    V = 4 if B % 4 == 0 else 2 if B % 2 == 0 else 1
+    return {"l2_sector_bytes": 32 * nnz * B,
+            "l2_sector_bytes_vector": 32 * nnz * (B // V)}
+
+
+def segment_reduce_record(torch, eng, held) -> dict:
+    """K3 (sum) on a session's gather at the width of `held` (from
+    `hold_session`): bound (gather, indptr, the gathered values, the
+    output), L2 sectors, the scatter plain version's time (`plain_ms`), the
+    sequential plain version's (`seq_plain_ms`), `torch.segment_reduce` on
+    the values gathered beforehand (`library_ms`, timed only) and on the
+    same inputs as K3, gathered in the call (`library_with_gather_ms`:
+    concatenation, index and segment_reduce)."""
+    from repro_torch.core.bitcodec import words_to_floats_t
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.kernels.segment_reduce import ref as sr_ref
+
+    red_args = held["red"]
+    ev, words = red_args[0], held["words"]
+    nnz, n = eng.g.csr.nnz, eng.g.n
+    B = 1 if ev.dim() == 1 else ev.shape[1]
+    nbytes = 4 * nnz + 4 * (n + 1) + 4 * B * nnz + 4 * B * n
+    rows = eng._gather.long()
+    gathered = torch.cat([ev, words_to_floats_t(words)])[rows]
+    offsets = eng._indptr.long()
+    rec = kernel_record(
+        torch, "segment_reduce",
+        lambda: sr.segment_reduce(*red_args, tiles=eng._tiles),
+        lambda: sr_ref.segment_reduce(*red_args),
+        lambda: torch.segment_reduce(gathered, "sum", offsets=offsets, axis=0),
+        held["err"]["segment_reduce"], nbytes, 0)
+    rec["seq_plain_ms"] = time_ms(
+        torch, lambda: sr_ref.segment_reduce_seq(*red_args), reps=5)
+    rec["library_with_gather_ms"] = time_ms(torch, lambda: torch.segment_reduce(
+        torch.cat([ev, words_to_floats_t(words)])[rows], "sum", offsets=offsets,
+        axis=0))
+    rec.update(l2_sectors(nnz, B), B=B)
+    return rec
 
 
 def kernel_record(torch, name: str, kernel, plain, library, err: float,
@@ -798,36 +919,53 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
 
 
 def spmv_csr_record(torch, eng, state) -> dict:
-    """Hold K5 against its plain version on the session's CSR and the Map
-    of `state` (rtol 1e-5, atol 0: every value is positive), check that two
-    runs are bitwise equal, and time it beside a CSR sparse tensor times
-    the vector (`torch.sparse_csr_tensor(...) @ c`, timed only)."""
+    """Hold K5 against its plain versions on the session's CSR and the Map
+    of `state`: within rtol 1e-5 (atol 0: every value is positive) of the
+    scatter plain version, bitwise the sequential one, bitwise repeatable
+    and the same bits for every `bm`; time it beside a CSR sparse tensor
+    times the vector (`torch.sparse_csr_tensor(...) @ c`, timed only), with
+    its bound and L2 sector traffic. Under "b4" the same at B = 4 (a
+    seeded random positive [n, 4] payload)."""
+    c = eng.program.map_source_t(eng._dg, state).contiguous()
+    rec = spmv_csr_width(torch, eng, c)
+    c4 = torch.from_numpy(np.random.default_rng(5).random(
+        (eng.g.n, 4), dtype=np.float32) + 0.01).to(c.device)
+    rec["b4"] = spmv_csr_width(torch, eng, c4)
+    return rec
+
+
+def spmv_csr_width(torch, eng, c) -> dict:
     from repro_torch.kernels.spmv import ref as spmv_ref
     from repro_torch.kernels.spmv import spmv as spmv_k
 
-    c = eng.program.map_source_t(eng._dg, state).contiguous()
     args = (eng._indptr, eng._indices, c)
-    got = spmv_k.spmv_csr(*args, bm=eng.bm)
-    again = spmv_k.spmv_csr(*args, bm=eng.bm)
+    got = spmv_k.spmv_csr(*args, bm=eng.bm, tiles=eng._tiles)
+    again = spmv_k.spmv_csr(*args, bm=eng.bm, tiles=eng._tiles)
     want = spmv_ref.spmv_csr(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
-    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+    if not bitwise(torch, got, again):
         raise AssertionError("K5 spmv_csr is not bitwise repeatable")
+    if not bitwise(torch, got, spmv_ref.spmv_csr_seq(*args)):
+        raise AssertionError("K5 spmv_csr is not bitwise the sequential "
+                             "plain version")
     n, nnz = eng.g.n, eng.g.csr.nnz
     B = 1 if c.dim() == 1 else c.shape[1]
+    for bm in (8, 32, 256):
+        if not bitwise(torch, spmv_k.spmv_csr(*args, bm=bm, tiles=eng._tiles), got):
+            raise AssertionError(f"K5 spmv_csr depends on bm ({bm})")
     sp = torch.sparse_csr_tensor(
         eng._indptr, eng._indices,
         torch.ones(nnz, dtype=torch.float32, device=c.device), size=(n, n))
     rec = kernel_record(
-        torch, "spmv_csr", lambda: spmv_k.spmv_csr(*args, bm=eng.bm),
+        torch, "spmv_csr",
+        lambda: spmv_k.spmv_csr(*args, bm=eng.bm, tiles=eng._tiles),
         lambda: spmv_ref.spmv_csr(*args), lambda: sp @ c,
         float((got - want).abs().max()),
         4 * nnz + 4 * (n + 1) + 4 * B * n + 4 * B * n, nnz * B)
-    # Lanes per row = 256 / bm; bm = 256 is K3's layout, a row per thread.
-    rec["bm_sweep_ms"] = {bm: time_ms_graph(
-        torch, lambda bm=bm: spmv_k.spmv_csr(*args, bm=bm))
-        for bm in (8, 32, 128, 256)}
+    rec["seq_plain_ms"] = time_ms(
+        torch, lambda: spmv_ref.spmv_csr_seq(*args), reps=5)
+    rec.update(l2_sectors(nnz, B), B=B)
     return rec
 
 
@@ -1024,7 +1162,8 @@ def k6_cost(args) -> tuple[int, int]:
 
 
 def check_ssd_chunk(torch, args, what: str) -> float:
-    """K6 against its plain version: rtol 1e-4 and atol 1e-4 * max|plain|
+    """K6 (one shot, or staged in parts where a chunk does not fit a
+    block) against its plain version: rtol 1e-4 and atol 1e-4 * max|plain|
     per output (float32 in another summation order). Returns the max abs
     error over the four outputs."""
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -1098,6 +1237,37 @@ def ssd_kernel_checks(torch, dev, rng) -> tuple[dict, dict]:
             check_ssd_chunk(torch, args, f"{dtype} G={G} Ch={Ch} Q={Q} P={P} N={N}")
             cases += 1
 
+    # Chunks past one block's shared memory (Mamba2's P = 64, N = 128 at
+    # Q = 256 in float32, which the reference computes; bf16 at Q = 400):
+    # staged in parts, held to K6's gates, `ops.ssd` at chunk 256 against
+    # the oracle. Timed at 2,048 tokens per group (the serve shape's), per
+    # token against one shot at Q = 128.
+    rng3 = np.random.default_rng(256)
+    arrays = (rng3.standard_normal((2, 512, 64)), rng3.uniform(0.01, 0.2, (2, 512)),
+              -rng3.uniform(0.5, 2.0, 2), rng3.standard_normal((2, 512, 128)),
+              rng3.standard_normal((2, 512, 128)), rng3.standard_normal(2))
+    ssd_args = [torch.from_numpy(a).to(dev, torch.float32) for a in arrays]
+    y, h = ssd_ops.ssd(*ssd_args, chunk=256)
+    y0, h0 = ssd_ref.ssd_scan_batched(*ssd_args)
+    torch.testing.assert_close(y, y0, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(h, h0, rtol=5e-4, atol=5e-4)
+    large = {}
+    for dtype, tag, qs in ((torch.float32, "float32", (128, 180, 256)),
+                           (torch.bfloat16, "bf16", (128, 256, 400))):
+        for q in qs:
+            args = ssd_chunk_inputs(torch, dev, rng3, 8, 2, q, 64, 128, dtype, 2)
+            check_ssd_chunk(torch, args, f"{tag} Q={q}")
+            large[f"q{q}_{tag}_part_tokens"] = ssd_k.part_tokens(q, 64, 128, dtype)
+            cases += 1
+        for q in (128, 256):
+            targs = ssd_chunk_inputs(torch, dev, rng3, 128, 2048 // q, q, 64,
+                                     128, dtype, 32)
+            large[f"q{q}_{tag}_ms"] = time_ms_graph(
+                torch, lambda: ssd_k.ssd_chunk(*targs))
+        del args, targs
+    log(f"K6 at chunks of 128 to 400 (timed: G = 128, 2,048 tokens, P = 64, "
+        f"N = 128, B / C shared by 32): {json.dumps(large)}")
+
     # The serve shape: B = 4 sequences x 32 heads, L = 2,048 in 32 chunks,
     # at the serve path's inputs (bf16 x, B and C shared by the 32 heads of
     # a sequence) and at float32 inputs materialised per group (PR 13's).
@@ -1142,6 +1312,7 @@ def ssd_kernel_checks(torch, dev, rng) -> tuple[dict, dict]:
                          lambda: ssd_ref.ssd_state_scan(Gd, S), None, 0.0,
                          k7_bytes, k7_flops)
     rec6["shape"] = dict(G=G, Ch=Ch, Q=Q, P=P, N=N, heads=nh, dtype="bfloat16")
+    rec6["large_chunks"] = large
     rec7["shape"] = dict(G=G, Ch=Ch, Q=Q, P=P, N=N)
     return rec6, rec7
 

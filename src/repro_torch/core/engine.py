@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.csr_tiles import tile_rows
 from ..kernels.segment_reduce.ops import segment_reduce
 from ..kernels.spmv.spmv import check_bm, spmv_csr
 from ..obs import get_tracer
@@ -138,9 +139,10 @@ class EngineResult:
 class CompiledEngine:
     """Compile-once session bound to (graph, allocation) on one device.
 
-    Holds the `ShufflePlan` and its CSR edge tables; for backend="fused"
-    also the exchange with its uploaded tables and the device gather
-    table, for backend="spmv" the device CSR arrays. All of it is
+    Holds the `ShufflePlan` and its CSR edge tables, and the tile table
+    of K3 / K5 (`kernels/csr_tiles`); for backend="fused" also the
+    exchange with its uploaded tables and the device gather table, for
+    backend="spmv" the device CSR arrays. All of it is
     program-independent, so `with_program` rebinds the vertex program for
     free.
     """
@@ -177,6 +179,8 @@ class CompiledEngine:
                        else None)
         self._bits = _plan_bits(plan, mode) if self.distributed else 0
         self._indptr = _i32(g.csr.indptr, self.device)
+        # K3's and K5's tile table: built once, for either route.
+        self._tiles = _i32(tile_rows(g.csr.indptr), self.device)
         self._dg = g.device_view(self.device)
         if backend == "fused":
             self.fused = FusedSparseShuffle(plan, g.csr, alloc,
@@ -217,7 +221,8 @@ class CompiledEngine:
             with tr.span("phase.map", n=self.g.n):
                 c = program.map_source_t(self._dg, state).contiguous()
             with tr.span("phase.reduce", nnz=self.g.csr.nnz):
-                acc = spmv_csr(self._indptr, self._indices, c, bm=self.bm)
+                acc = spmv_csr(self._indptr, self._indices, c, bm=self.bm,
+                               tiles=self._tiles)
                 state = program.finalize_t(acc, state, self._dg)
                 if tr.enabled and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -227,7 +232,8 @@ class CompiledEngine:
         words = self.fused.exchange(edge_vals)
         with tr.span("phase.reduce", nnz=self.g.csr.nnz):
             acc = segment_reduce(edge_vals, words, self._gather, self._indptr,
-                                 program.reduce_op, program.identity)
+                                 program.reduce_op, program.identity,
+                                 tiles=self._tiles)
             state = program.finalize_t(acc, state, self._dg)
             if tr.enabled and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

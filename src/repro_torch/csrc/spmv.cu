@@ -18,25 +18,29 @@
 // backend="spmv" Reduce (engine.py:180-203) by densifying [bm, n] row strips
 // on the host for every call:
 //     acc[i, b] = sum over e in indptr[i] .. indptr[i+1]-1 of c[indices[e], b]
-// (empty rows give 0). A 256-thread block covers bm rows with 256 / bm lanes
-// per row, so the reference's `bm` keeps its meaning (rows per tile). The
-// lanes of a row stride over its entries, then reduce with shuffles (and,
-// past 32 lanes, shared memory) in a fixed order: no atomics, so two runs
-// give the same bits. grid.y walks the B payload columns, so [n, B] payloads
-// run in one launch and column b is bitwise the [n] run of column b.
+// (empty rows give 0). It runs the CSR-streaming body of csr_stream.cuh,
+// shared with K3: a block per tile of whole rows (the session's host-built
+// tile table), the tile's indices streamed with coalesced loads, every
+// random read of c issued before any is used and kept in L2 (evict-last),
+// all payload columns of an entry in one vector load where B is 2 or 4,
+// and one thread per row summing from shared memory in CSR order:
+// sequential sums, so the bits do not depend on the reference's `bm`
+// (validated, unused) and two runs give the same bits (no atomics).
 //
 // Bounds, on this card: both are bound by bytes. K4 moves m*n*elt(A) +
 // n*elt(x) + 4m bytes for 2mn flops (well under one flop per byte); K5
 // moves 4*nnz (indices) + 4*(n+1) (indptr) + 4*B*n (c, read once: it fits
-// in L2) + 4*B*n (output). K5's reads of c are random 4-B gathers, each
-// pulling a 32-B sector through L2, which keeps it well above that bound
-// at low degree. These are first, simple designs that are right; making
-// them fast (more bytes in flight per lane for K4; for K5, ordering or
-// blocking the gathers of c, and a split of long rows) is a later change.
+// in L2) + 4*B*n (output). K5's reads of c are random: each pulls a 32-B
+// sector through L2 (nnz sectors per chunk of <= 4 columns). They are
+// limited by the rate at which L2 serves single-sector requests, not by
+// the reads in flight (tile size, reads per thread and the vector loads of
+// B = 4 leave K5's time nearly unchanged), which keeps it well above that
+// bound at low degree.
 // Built with -fmad=false: every product and sum rounds on its own.
 #include <cuda_fp16.h>
 
 #include "common.cuh"
+#include "csr_stream.cuh"
 
 namespace {
 
@@ -128,58 +132,6 @@ __global__ void spmv_dense_kernel(const TA* __restrict__ A,
   if (lane == 0) y[row] = acc;
 }
 
-template <int LANES>
-__global__ void spmv_csr_kernel(const int32_t* __restrict__ indptr,
-                                const int32_t* __restrict__ indices,
-                                const float* __restrict__ c,
-                                float* __restrict__ out, long long n, int B) {
-  constexpr int kRows = repro::kThreads / LANES;
-  const int lane = threadIdx.x % LANES;
-  const long long row =
-      blockIdx.x * static_cast<long long>(kRows) + threadIdx.x / LANES;
-  const int b = blockIdx.y;
-  float acc = 0.0f;
-  if (row < n) {
-    const int end = indptr[row + 1];
-    for (int e = indptr[row] + lane; e < end; e += LANES) {
-      acc = __fadd_rn(acc, __ldg(c + static_cast<long long>(indices[e]) * B + b));
-    }
-  }
-  // Rows past n keep acc = 0 and stay for the shuffles below.
-  if constexpr (LANES <= kWarp) {
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off /= 2) {
-      acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off, LANES));
-    }
-    if (lane == 0 && row < n) out[row * B + b] = acc;
-  } else {
-    __shared__ float part[repro::kThreads / kWarp];
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off /= 2) {
-      acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-    }
-    const int warp = threadIdx.x / kWarp;
-    if (threadIdx.x % kWarp == 0) part[warp] = acc;
-    __syncthreads();
-    if (lane == 0 && row < n) {
-      float s = part[warp];
-      for (int w = 1; w < LANES / kWarp; ++w) s = __fadd_rn(s, part[warp + w]);
-      out[row * B + b] = s;
-    }
-  }
-}
-
-template <int LANES>
-void launch_csr(const void* indptr, const void* indices, const void* c,
-                void* out, long long n, int B, cudaStream_t stream) {
-  constexpr int kRows = repro::kThreads / LANES;
-  const dim3 grid(static_cast<unsigned int>((n + kRows - 1) / kRows),
-                  static_cast<unsigned int>(B));
-  spmv_csr_kernel<LANES><<<grid, repro::kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
-      static_cast<const float*>(c), static_cast<float*>(out), n, B);
-}
-
 template <typename TA, typename TX>
 void launch_dense(const void* A, const void* x, void* y, long long m,
                   long long n, cudaStream_t stream) {
@@ -210,24 +162,17 @@ extern "C" int spmv_dense(const void* A, int a_half, const void* x, int x_half,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[n, B] float32: per-row sums of c[indices[e], b]; bm rows per block
-// (a power of two from 1 to 256, else cudaErrorInvalidValue).
-extern "C" int spmv_csr(const void* indptr, const void* indices, const void* c,
-                        void* out, long long n, int B, int bm, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0 && B > 0) {
-    switch (bm) {
-      case 1: launch_csr<256>(indptr, indices, c, out, n, B, s); break;
-      case 2: launch_csr<128>(indptr, indices, c, out, n, B, s); break;
-      case 4: launch_csr<64>(indptr, indices, c, out, n, B, s); break;
-      case 8: launch_csr<32>(indptr, indices, c, out, n, B, s); break;
-      case 16: launch_csr<16>(indptr, indices, c, out, n, B, s); break;
-      case 32: launch_csr<8>(indptr, indices, c, out, n, B, s); break;
-      case 64: launch_csr<4>(indptr, indices, c, out, n, B, s); break;
-      case 128: launch_csr<2>(indptr, indices, c, out, n, B, s); break;
-      case 256: launch_csr<1>(indptr, indices, c, out, n, B, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+// out[n, B] float32: per-row sums of c[indices[e], b] in CSR order, a
+// block per tile of tile_row [T + 1] (rows of at most E entries, or one
+// longer row); indices 16-byte aligned, n_idx = nnz.
+extern "C" int spmv_csr(const void* indptr, const void* indices, int n_idx,
+                        const void* c, void* out, const void* tile_row, int T,
+                        int B, int E, void* stream) {
+  const repro::csr::Gather src{static_cast<const float*>(c), B};
+  const cudaError_t err = repro::csr::reduce(
+      static_cast<const int32_t*>(tile_row), T,
+      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+      n_idx, src, reinterpret_cast<uintptr_t>(c), static_cast<float*>(out), B, E,
+      false, 0.0f, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

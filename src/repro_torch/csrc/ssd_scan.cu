@@ -65,6 +65,17 @@
 //    are staged as zeros; stores are masked. Shared memory is
 //    chunk_smem_bytes(); a shape past the 227 KB a block may opt in to is
 //    refused (cudaErrorInvalidValue; the wrapper refuses it first).
+//  - Chunks past one block's shared memory (e.g. Q = 256, P = 64, N = 128
+//    in float32, which the reference computes) run the same kernel staged
+//    in parts (PARTS): cum, dt and w stay in shared memory for all Q rows,
+//    while x, b and c are staged Qt rows at a time (Qt a multiple of 16,
+//    the largest that fits). For each row part I, c_I is staged once (and
+//    Cexp written from it) and the parts J <= I of x and b in turn; the
+//    warps add each part's share of the y_intra tiles of I into y, and at
+//    J = I the part's share of S into S, in device memory, in part order
+//    (no atomics: a tile belongs to one warp, and the block synchronises
+//    between parts). One launch either way; the wrapper picks the one-shot
+//    form whenever a whole chunk fits, so the serve shape runs as before.
 //
 // K7 ssd_state_scan replaces the cross-chunk stitch of the reference's
 // `ops.ssd` (src/repro/kernels/ssd_scan/ops.py:40-52): the
@@ -94,13 +105,14 @@ constexpr int kChunkThreads = 128;  // 4 warps
 constexpr int kHeader = 48;  // zero segment (16 B), scan totals and counter
 
 // Shared memory of one K6 block: the header, cum / dt / w as float32 [Q]
-// (rounded up to 16 B), and x, b and c as bf16 rows of ceil(P / 8) and
+// (rounded up to 16 B), and `rows` rows of x, b and c (all Q of them in
+// one shot, Qt at a time in parts) as bf16 rows of ceil(P / 8) and
 // ceil(N / 8) 16-byte chunks, one plane each for bf16 inputs, a hi and a
 // lo plane each for float32 inputs.
-inline long long chunk_smem_bytes(int Q, int P, int N, bool split) {
+inline long long chunk_smem_bytes(int Q, int P, int N, bool split, int rows) {
   const long long xc = (P + 7) / 8, bc = (N + 7) / 8;
   return kHeader + (12LL * Q + 15) / 16 * 16 +
-         (split ? 2 : 1) * 16LL * Q * (xc + 2 * bc);
+         (split ? 2 : 1) * 16LL * rows * (xc + 2 * bc);
 }
 
 // One staged operand: `rows` rows of `nck` 16-byte chunks at byte offset
@@ -301,10 +313,12 @@ __device__ __forceinline__ void cexp_from_plane(const unsigned char* smem,
 }
 
 // Store a warp's 16 x 64 float32 accumulator tile at rows r0.., columns
-// c0.. of a [rows, cols] matrix, masked.
+// c0.. of a [rows, cols] matrix, masked; with `add`, add it to what is
+// there (a later part of a chunk staged in parts).
 __device__ __forceinline__ void store_tile(float* __restrict__ out,
                                            const float (&acc)[8][4], int r0,
-                                           int c0, int rows, int cols) {
+                                           int c0, int rows, int cols,
+                                           bool add) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -315,11 +329,16 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out,
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + 8 * j + 2 * (lane & 3);
       if (c + 1 < cols && cols % 2 == 0) {
-        *reinterpret_cast<float2*>(row + c) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+        float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+        if (add) {
+          const float2 o = *reinterpret_cast<const float2*>(row + c);
+          v = make_float2(o.x + v.x, o.y + v.y);
+        }
+        *reinterpret_cast<float2*>(row + c) = v;
       } else if (c < cols) {
-        row[c] = acc[j][2 * h];
-        if (c + 1 < cols) row[c + 1] = acc[j][2 * h + 1];
+        row[c] = add ? row[c] + acc[j][2 * h] : acc[j][2 * h];
+        if (c + 1 < cols)
+          row[c + 1] = add ? row[c + 1] + acc[j][2 * h + 1] : acc[j][2 * h + 1];
       }
     }
   }
@@ -330,29 +349,35 @@ struct Chunk {  // one block's (g, chunk) in shared memory
   const float *cum, *dts, *w;
   Plane xp, bp, cp;
   int Q, P, N;
+  // Tokens staged: x and b rows s_base .. s_end - 1, c rows from t_base
+  // (all of the chunk in one shot).
+  int s_base, s_end, t_base;
 };
 
-// y_intra rows 16*mt.., columns 64*pb..: scores C.B^T per block of 64 s at
-// or below the diagonal, masked and decayed in registers into m, then
-// y += m.x with m fed from the accumulators.
+// y_intra rows 16*mt.., columns 64*pb..: scores C.B^T per block of 64
+// staged s at or below the diagonal, masked and decayed in registers into
+// m, then y += m.x with m fed from the accumulators; with `add`, added to
+// the tile's earlier parts in y.
 template <bool SPLIT>
-__device__ void y_tile(const Chunk& ck, float* __restrict__ y, int mt, int pb) {
+__device__ void y_tile(const Chunk& ck, float* __restrict__ y, int mt, int pb,
+                       bool add) {
   const int lane = threadIdx.x & 31;
-  const int t0 = 16 * mt, send = min(ck.Q, t0 + 16);
+  const int t0 = 16 * mt, send = min(min(ck.Q, t0 + 16), ck.s_end);
+  const int tr = t0 - ck.t_base, sb = ck.s_base;
   float yacc[8][4] = {};
-  for (int s0 = 0; s0 < send; s0 += 64) {
+  for (int s0 = sb; s0 < send; s0 += 64) {
     const int nst = min(8, (send - s0 + 7) >> 3);  // n8 tiles of s needed
     float sc[8][4] = {};
     for (int kc = 0; kc < ck.cp.nck; kc += 2) {
       Frag a;
-      load_frag<SPLIT>(a, ck.cp, ck.sbase, t0 + (lane & 15), kc + (lane >> 4),
+      load_frag<SPLIT>(a, ck.cp, ck.sbase, tr + (lane & 15), kc + (lane >> 4),
                        false);
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         if (2 * jp >= nst) break;
         Frag b;
         load_frag<SPLIT>(b, ck.bp, ck.sbase,
-                         s0 + 16 * jp + (lane & 7) + ((lane >> 4) << 3),
+                         s0 - sb + 16 * jp + (lane & 7) + ((lane >> 4) << 3),
                          kc + ((lane >> 3) & 1), false);
         if (SPLIT) {
           mma_split<true>(sc[2 * jp], a, b, 0);
@@ -363,14 +388,15 @@ __device__ void y_tile(const Chunk& ck, float* __restrict__ y, int mt, int pb) {
         }
       }
     }
-    // m[t][s] = ((c_t.b_s) e^{cum_t - cum_s}) dt_s for s <= t < Q, else 0.
+    // m[t][s] = ((c_t.b_s) e^{cum_t - cum_s}) dt_s for staged s <= t < Q,
+    // else 0.
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = t0 + (lane >> 2) + 8 * (e >> 1);
         const int s = s0 + 8 * j + 2 * (lane & 3) + (e & 1);
-        sc[j][e] = (s <= t && t < ck.Q)
+        sc[j][e] = (s <= t && t < ck.Q && s < ck.s_end)
                        ? (sc[j][e] * expf(ck.cum[t] - ck.cum[s])) * ck.dts[s]
                        : 0.0f;
       }
@@ -387,37 +413,39 @@ __device__ void y_tile(const Chunk& ck, float* __restrict__ y, int mt, int pb) {
       for (int q = 0; q < 4; ++q) {
         if (64 * pb + 16 * q >= ck.P) break;
         Frag x;
-        load_frag<SPLIT>(x, ck.xp, ck.sbase, s0 + 16 * kk + (lane & 15),
+        load_frag<SPLIT>(x, ck.xp, ck.sbase, s0 - sb + 16 * kk + (lane & 15),
                          8 * pb + 2 * q + (lane >> 4), true);
         mma_split<SPLIT>(yacc[2 * q], m, x, 0);
         mma_split<SPLIT>(yacc[2 * q + 1], m, x, 1);
       }
     }
   }
-  store_tile(y, yacc, t0, 64 * pb, ck.Q, ck.P);
+  store_tile(y, yacc, t0, 64 * pb, ck.Q, ck.P, add);
 }
 
-// S rows 16*R*nt.., columns 64*pb..: S = (b*w)^T x over all Q tokens, b^T
-// read with ldmatrix.trans and scaled by w_s in registers; R row tiles of
-// 16 share each fragment of x.
+// S rows 16*R*nt.., columns 64*pb..: S = (b*w)^T x over the staged
+// tokens, b^T read with ldmatrix.trans and scaled by w_s in registers; R
+// row tiles of 16 share each fragment of x; with `add`, added to the
+// earlier parts in S.
 template <bool SPLIT, int R>
-__device__ void s_tile(const Chunk& ck, float* __restrict__ S, int nt, int pb) {
+__device__ void s_tile(const Chunk& ck, float* __restrict__ S, int nt, int pb,
+                       bool add) {
   const int lane = threadIdx.x & 31;
   float acc[R][8][4] = {};
-  for (int k0 = 0; k0 < ck.Q; k0 += 16) {
-    const int s = k0 + 2 * (lane & 3);
+  for (int k0 = ck.s_base; k0 < ck.s_end; k0 += 16) {
+    const int s = k0 + 2 * (lane & 3), kr = k0 - ck.s_base;
     float w[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int se = s + (e & 1) + 8 * (e >> 1);
-      w[e] = se < ck.Q ? ck.w[se] : 0.0f;
+      w[e] = se < ck.s_end ? ck.w[se] : 0.0f;
     }
     Frag a[R];
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
       Frag bt;
       load_frag<SPLIT>(bt, ck.bp, ck.sbase,
-                       k0 + (lane & 7) + ((lane >> 4) << 3),
+                       kr + (lane & 7) + ((lane >> 4) << 3),
                        2 * (R * nt + rr) + ((lane >> 3) & 1), true);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -435,7 +463,7 @@ __device__ void s_tile(const Chunk& ck, float* __restrict__ S, int nt, int pb) {
     for (int q = 0; q < 4; ++q) {
       if (64 * pb + 16 * q >= ck.P) break;
       Frag x;
-      load_frag<SPLIT>(x, ck.xp, ck.sbase, k0 + (lane & 15),
+      load_frag<SPLIT>(x, ck.xp, ck.sbase, kr + (lane & 15),
                        8 * pb + 2 * q + (lane >> 4), true);
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
@@ -446,17 +474,20 @@ __device__ void s_tile(const Chunk& ck, float* __restrict__ S, int nt, int pb) {
   }
 #pragma unroll
   for (int rr = 0; rr < R; ++rr)
-    store_tile(S, acc[rr], 16 * (R * nt + rr), 64 * pb, ck.N, ck.P);
+    store_tile(S, acc[rr], 16 * (R * nt + rr), 64 * pb, ck.N, ck.P, add);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kChunkThreads, 4)
+// Four blocks per SM in one shot (41.8 KB each at the serve shape); in
+// parts a block holds most of the SM's shared memory, so one per SM and the
+// registers that leaves.
+template <typename T, bool PARTS>
+__global__ void __launch_bounds__(kChunkThreads, PARTS ? 1 : 4)
 ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ dta, const T* __restrict__ b,
                  const T* __restrict__ c, float* __restrict__ y,
                  float* __restrict__ S, float* __restrict__ G,
                  float* __restrict__ cexp, int Ch, int heads, int Q, int P,
-                 int N, bool vec_x, bool vec_bc) {
+                 int N, bool vec_x, bool vec_bc, int rows) {
   constexpr bool SPLIT = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem + 16);  // [4] warp totals
@@ -473,9 +504,14 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   ck.Q = Q;
   ck.P = P;
   ck.N = N;
-  ck.xp = make_plane(arrays, Q, P);
-  ck.bp = make_plane(arrays + (SPLIT ? 2 : 1) * ck.xp.plane, Q, N);
-  ck.cp = make_plane(ck.bp.off + (SPLIT ? 2 : 1) * ck.bp.plane, Q, N);
+  ck.s_base = 0;
+  ck.s_end = Q;
+  ck.t_base = 0;
+  // Planes of `rows` rows (Q in one shot); in parts, each part sets the
+  // rows it stages.
+  ck.xp = make_plane(arrays, rows, P);
+  ck.bp = make_plane(arrays + (SPLIT ? 2 : 1) * ck.xp.plane, rows, N);
+  ck.cp = make_plane(ck.bp.off + (SPLIT ? 2 : 1) * ck.bp.plane, rows, N);
 
   const long long blk = blockIdx.x;  // g * Ch + chunk
   const long long bblk = blk / Ch / heads * Ch + blk % Ch;
@@ -486,7 +522,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* cexp_g = cexp + blk * Q * N;
   // bf16 rows of whole 16-byte runs are copied while dta is scanned.
   const bool async_x = !SPLIT && vec_x, async_bc = !SPLIT && vec_bc;
-  if constexpr (!SPLIT) {
+  if constexpr (!SPLIT && !PARTS) {
     if (async_x) stage_async(ck.sbase, ck.xp, xg);
     if (async_bc) {
       stage_async(ck.sbase, ck.bp, bg);
@@ -524,6 +560,55 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int i = tid; i < Q; i += kChunkThreads)
     w[i] = expf(last - cum[i]) * dts[i];
   if (tid == 0) G[blk] = expf(last);
+  const int pbs = (P + 63) / 64, nts = (N + 31) / 32 * pbs;
+
+  if constexpr (PARTS) {
+    // Row part I: c_I staged once (Cexp written from it), then x_J and b_J
+    // for J <= I; each stage's y tiles of I (and S at J = I) go to device
+    // memory, added to the parts before.
+    const int parts = (Q + rows - 1) / rows;
+    for (int I = 0; I < parts; ++I) {
+      ck.t_base = I * rows;
+      ck.cp.rows = min(rows, Q - ck.t_base);
+      for (int J = 0; J <= I; ++J) {
+        ck.s_base = J * rows;
+        ck.s_end = min(Q, ck.s_base + rows);
+        ck.xp.rows = ck.bp.rows = ck.s_end - ck.s_base;
+        const T* xj = xg + static_cast<long long>(ck.s_base) * P;
+        const T* bj = bg + static_cast<long long>(ck.s_base) * N;
+        const T* ci = cg + static_cast<long long>(ck.t_base) * N;
+        float* cexp_i = cexp_g + static_cast<long long>(ck.t_base) * N;
+        if (async_x) stage_async(ck.sbase, ck.xp, reinterpret_cast<const __nv_bfloat16*>(xj));
+        if (async_bc) {
+          stage_async(ck.sbase, ck.bp, reinterpret_cast<const __nv_bfloat16*>(bj));
+          if (J == 0) stage_async(ck.sbase, ck.cp, reinterpret_cast<const __nv_bfloat16*>(ci));
+        }
+        if (!async_x) stage<SPLIT>(smem, ck.xp, xj, P, vec_x, cum, nullptr);
+        if (!async_bc) {
+          stage<SPLIT>(smem, ck.bp, bj, N, vec_bc, cum, nullptr);
+          if (J == 0)
+            stage<SPLIT>(smem, ck.cp, ci, N, vec_bc, cum + ck.t_base, cexp_i);
+        }
+        cp_async_wait();
+        __syncthreads();
+        if (async_bc && J == 0) cexp_from_plane(smem, ck.cp, cum + ck.t_base, cexp_i);
+        const int mts = (ck.cp.rows + 15) / 16;
+        const int n_y = mts * pbs, n_items = n_y + (J == I ? nts : 0);
+        for (int j = warp; j < n_items; j += kChunkThreads / 32) {
+          if (j < n_y) {
+            y_tile<SPLIT>(ck, y + blk * Q * P, ck.t_base / 16 + j / pbs, j % pbs,
+                          J > 0);
+          } else {
+            s_tile<SPLIT, 2>(ck, S + blk * N * P, (j - n_y) / pbs,
+                             (j - n_y) % pbs, J > 0);
+          }
+        }
+        __syncthreads();
+      }
+    }
+    return;
+  }
+
   if (!async_x) stage<SPLIT>(smem, ck.xp, xg, P, vec_x, cum, nullptr);
   if (!async_bc) {
     stage<SPLIT>(smem, ck.bp, bg, N, vec_bc, cum, nullptr);
@@ -534,54 +619,69 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (async_bc) cexp_from_plane(smem, ck.cp, cum, cexp_g);
 
   // Work items, taken from the counter: y tiles last rows first, then S.
-  const int pbs = (P + 63) / 64, mts = (Q + 15) / 16;
-  const int n_y = mts * pbs, n_items = n_y + (N + 31) / 32 * pbs;
+  const int mts = (Q + 15) / 16;
+  const int n_y = mts * pbs, n_items = n_y + nts;
   for (;;) {
     int j = 0;
     if (lane == 0) j = atomicAdd(next, 1);
     j = __shfl_sync(0xffffffffu, j, 0);
     if (j >= n_items) break;
     if (j < n_y) {
-      y_tile<SPLIT>(ck, y + blk * Q * P, mts - 1 - j / pbs, j % pbs);
+      y_tile<SPLIT>(ck, y + blk * Q * P, mts - 1 - j / pbs, j % pbs, false);
     } else {
       j -= n_y;
-      s_tile<SPLIT, 2>(ck, S + blk * N * P, j / pbs, j % pbs);
+      s_tile<SPLIT, 2>(ck, S + blk * N * P, j / pbs, j % pbs, false);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool PARTS>
 int launch_chunk(const void* x, const void* dt, const void* dta,
                  const void* b, const void* c, void* y, void* S, void* G,
                  void* cexp, long long blocks, int Ch, int heads, int Q,
-                 int P, int N, bool vec_x, bool vec_bc, cudaStream_t stream) {
+                 int P, int N, bool vec_x, bool vec_bc, int rows,
+                 cudaStream_t stream) {
   static int opted = -1;  // bytes opted in to; -1 before the first launch
-  const long long bytes = chunk_smem_bytes(Q, P, N, sizeof(T) == 4);
+  const long long bytes = chunk_smem_bytes(Q, P, N, sizeof(T) == 4, rows);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (opted < 0) {  // prefer shared memory over L1: blocks per SM
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        ssd_chunk_kernel<T, PARTS>, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = 48 * 1024;  // the default a block may use
   }
   if (bytes > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_chunk_kernel<T, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = static_cast<int>(bytes);
   }
   if (blocks > 0) {
-    ssd_chunk_kernel<T><<<static_cast<unsigned int>(blocks), kChunkThreads,
-                          static_cast<size_t>(bytes), stream>>>(
+    ssd_chunk_kernel<T, PARTS><<<static_cast<unsigned int>(blocks), kChunkThreads,
+                                 static_cast<size_t>(bytes), stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(dta), static_cast<const T*>(b),
         static_cast<const T*>(c), static_cast<float*>(y),
         static_cast<float*>(S), static_cast<float*>(G),
-        static_cast<float*>(cexp), Ch, heads, Q, P, N, vec_x, vec_bc);
+        static_cast<float*>(cexp), Ch, heads, Q, P, N, vec_x, vec_bc, rows);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_chunk_any(const void* x, const void* dt, const void* dta,
+                     const void* b, const void* c, void* y, void* S, void* G,
+                     void* cexp, long long blocks, int Ch, int heads, int Q,
+                     int P, int N, bool vec_x, bool vec_bc, int rows,
+                     cudaStream_t stream) {
+  if (rows >= Q)
+    return launch_chunk<T, false>(x, dt, dta, b, c, y, S, G, cexp, blocks, Ch,
+                                  heads, Q, P, N, vec_x, vec_bc, Q, stream);
+  if (rows < 16 || rows % 16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_chunk<T, true>(x, dt, dta, b, c, y, S, G, cexp, blocks, Ch,
+                               heads, Q, P, N, vec_x, vec_bc, rows, stream);
 }
 
 __global__ void ssd_state_scan_kernel(const float* __restrict__ G,
@@ -613,22 +713,25 @@ __global__ void ssd_state_scan_kernel(const float* __restrict__ G,
 // S [blocks, N, P], G [blocks], cexp [blocks, Q, N], float32. `vec_x` and
 // `vec_bc` say that rows of x, and of b and c, are whole 16-byte-aligned
 // runs of 8 elements (P or N % 8 == 0, aligned pointers), read as vectors.
-// A shape past the 227 KB of shared memory a block may have returns
-// cudaErrorInvalidValue (the wrapper refuses it first). The opt-in is kept
-// per process and per type: one card.
+// `rows` >= Q stages the whole chunk at once; a smaller multiple of 16
+// stages it in parts of `rows` tokens. A shape past the 227 KB of shared
+// memory a block may have returns cudaErrorInvalidValue (the wrapper
+// refuses it first). The opt-in is kept per process, type and form: one
+// card.
 extern "C" int ssd_chunk(const void* x, const void* dt, const void* dta,
                          const void* b, const void* c, void* y, void* S,
                          void* G, void* cexp, long long blocks, int Ch,
                          int heads, int Q, int P, int N, int dtype,
-                         int vec_x, int vec_bc, void* stream) {
+                         int vec_x, int vec_bc, int rows, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_chunk<float>(x, dt, dta, b, c, y, S, G, cexp, blocks, Ch,
-                               heads, Q, P, N, vec_x != 0, vec_bc != 0, st);
+    return launch_chunk_any<float>(x, dt, dta, b, c, y, S, G, cexp, blocks, Ch,
+                                   heads, Q, P, N, vec_x != 0, vec_bc != 0,
+                                   rows, st);
   if (dtype == 1)
-    return launch_chunk<__nv_bfloat16>(x, dt, dta, b, c, y, S, G, cexp,
-                                       blocks, Ch, heads, Q, P, N,
-                                       vec_x != 0, vec_bc != 0, st);
+    return launch_chunk_any<__nv_bfloat16>(x, dt, dta, b, c, y, S, G, cexp,
+                                           blocks, Ch, heads, Q, P, N,
+                                           vec_x != 0, vec_bc != 0, rows, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

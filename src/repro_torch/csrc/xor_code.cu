@@ -43,7 +43,10 @@
 // so each load of a warp is coalesced, and issues all of their random reads
 // before its first XOR. Loads of slots whose mask is 0 are skipped. For
 // B > 1 consecutive lanes run over b, so src[e * B + b] stays coalesced.
-// r > 4 runs a runtime-r instance of the same kernels (one slot at a time).
+// r > 4 runs a runtime-r instance of the same kernels (one slot at a time),
+// up to r = 64 (K <= 64 in the reference): the book then holds r + 2 <= 66
+// codes, and the zero-width segments of r > 32 (mask 0, shift clipped to 31,
+// `bitcodec.segment_words`) are slots whose loads are skipped.
 //
 // K1's general form `xor_encode_gather` (any shift and mask words per slot,
 // local indices through an optional Map slice `loc_e`) stays behind
@@ -59,7 +62,7 @@ namespace {
 using repro::bswap32;
 using repro::kThreads;
 
-constexpr int kMaxCodes = 34;   // r <= 32 segments + the full word + empty
+constexpr int kMaxCodes = 66;   // r <= 64 segments + the full word + empty
 
 // ---------------------------------------------------------------------------
 // general forms
@@ -429,7 +432,7 @@ extern "C" int xor_encode_gather(const void* src, long long n_src,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wrapper has checked 1 <= r <= 32, K <= 65535, that every index
+// The wrapper has checked 1 <= r <= 64, K <= 65535, that every index
 // within a server fits 32 bits and that every table is 16-byte aligned.
 extern "C" int xor_encode_packed(const void* src, long long n_src,
                                  const void* enc_e, const void* enc_code,

@@ -10,26 +10,30 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, csr_tiles
 from . import ref
 
 _SIGS = {
     "segment_reduce": (_build.P, _build.I64, _build.P, _build.P, _build.P,
-                       _build.P, _build.I64, _build.I32, _build.I32,
-                       _build.F32, _build.P),
+                       _build.P, _build.I32, _build.P, _build.I32, _build.I32,
+                       _build.F32, _build.I32, _build.P),
 }
 OPS = ("sum", "min")
+MAX_B = 65535                                   # grid.y walks the columns
 
 
 def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
                    gather: torch.Tensor, indptr: torch.Tensor, op: str,
-                   identity: float) -> torch.Tensor:
+                   identity: float,
+                   tiles: torch.Tensor | None = None) -> torch.Tensor:
     """Per-row `op` ("sum" | "min") over concat(edge_vals,
     floats(delivered))[gather], in canonical CSR entry order.
 
     edge_vals [nnz(, B)] float32 Map output; delivered [M(, B)] int32 codec
     words from the decode; gather [nnz] int32 into the concatenation;
     indptr [n + 1] int32 -> [n(, B)] float32 (identity for empty rows).
+    `tiles` is the kernel's tile table (`csr_tiles.tile_rows(indptr)` on
+    the card; built here when None); the CPU does not need it.
     """
     if op not in OPS:
         raise ValueError(f"unknown reduce op {op!r}; expected one of {OPS}")
@@ -39,19 +43,25 @@ def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
     nnz = edge_vals.shape[0]
     B = 1 if edge_vals.dim() == 1 else edge_vals.shape[1]
     n = indptr.shape[0] - 1
+    if B > MAX_B:
+        raise ValueError(f"B = {B} columns; the kernel takes <= {MAX_B}")
     _build.check_tensor(edge_vals, "edge_vals", torch.float32)
     _build.check_tensor(delivered, "delivered", torch.int32,
                         (delivered.shape[0],) + tuple(edge_vals.shape[1:]))
     _build.check_tensor(gather, "gather", torch.int32, (nnz,))
     _build.check_tensor(indptr, "indptr", torch.int32)
+    if gather.data_ptr() % 16:
+        raise ValueError("gather must start 16-byte aligned")
+    tiles = csr_tiles.tiles_for(indptr, tiles)
     out = torch.empty((n,) + tuple(edge_vals.shape[1:]), dtype=torch.float32,
                       device=edge_vals.device)
     lib = _build.library("segment_reduce", _SIGS)
     with torch.cuda.device(edge_vals.device):
         code = lib.segment_reduce(
             edge_vals.data_ptr(), nnz, delivered.data_ptr(), gather.data_ptr(),
-            indptr.data_ptr(), out.data_ptr(), n, B, int(op == "min"),
-            float(identity), _build.stream_of(edge_vals))
+            indptr.data_ptr(), tiles.data_ptr(), tiles.numel() - 1,
+            out.data_ptr(), B, int(op == "min"), float(identity),
+            csr_tiles.tile_entries(nnz), _build.stream_of(edge_vals))
     _build.check(lib, "segment_reduce", code)
     _build.LAUNCHES["segment_reduce"] += 1
     return out

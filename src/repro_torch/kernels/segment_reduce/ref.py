@@ -1,9 +1,14 @@
-"""Plain PyTorch version of the gather + segmented reduce kernel (K3).
+"""Plain PyTorch versions of the gather + segmented reduce kernel (K3).
 
-The CPU runs it (the wrapper in `ops.py` picks it only for CPU tensors),
-and `chip_smoke.py` holds the CUDA kernel against it on the card. On the
-card `index_add_` sums with atomics, in no fixed order; `scatter_reduce_`
-with "amin" is exact in any order.
+`segment_reduce` is what the CPU runs (the wrapper in `ops.py` picks it
+only for CPU tensors). On the card `index_add_` sums with atomics, in no
+fixed order; `scatter_reduce_` with "amin" is exact in any order.
+
+`csr_reduce_seq` is the sequential plain version of the CSR-streaming
+body that K3 and K5 share (`csrc/csr_stream.cuh`): each row reduced in
+CSR order from its first value, every add rounded on its own, so the
+kernels' sums are held bitwise against it on the card
+(`segment_reduce_seq` for K3, `spmv/ref.spmv_csr_seq` for K5).
 """
 from __future__ import annotations
 
@@ -37,3 +42,46 @@ def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
         raise ValueError(f"unknown reduce op {op!r}")
     out[indptr[1:] == indptr[:-1]] = identity
     return out
+
+
+def csr_reduce_seq(vals: torch.Tensor, indptr: torch.Tensor, op: str,
+                   identity: float) -> torch.Tensor:
+    """Per-row `op` over vals [nnz(, B)] float32 in CSR order.
+
+    Row i starts from vals[indptr[i]] and combines position k = 1, 2, ...
+    of the row in turn, vectorised over the rows that have a position k:
+    a float32 add per step for "sum", NumPy's minimum rule (keep the
+    accumulator when it is <= the value or NaN) for "min". Empty rows get
+    `identity`. -> [n(, B)] float32.
+    """
+    if op not in ("sum", "min"):
+        raise ValueError(f"unknown reduce op {op!r}")
+    indptr = indptr.long()
+    n = indptr.numel() - 1
+    start, deg = indptr[:-1], indptr[1:] - indptr[:-1]
+    out = torch.full((n,) + tuple(vals.shape[1:]), identity,
+                     dtype=torch.float32, device=vals.device)
+    if n == 0 or vals.shape[0] == 0:
+        return out
+    order = torch.argsort(deg, descending=True, stable=True)
+    # counts[k]: the rows with a position k, a prefix of `order`.
+    counts = deg.numel() - torch.cumsum(torch.bincount(deg), 0)
+    longest = int(deg.max())
+    rows = order[:int(counts[0])]
+    out[rows] = vals[start[rows]].to(torch.float32)
+    for k in range(1, longest):
+        rows = order[:int(counts[k])]
+        v = vals[start[rows] + k]
+        acc = out[rows]
+        out[rows] = (acc + v if op == "sum" else
+                     torch.where((acc <= v) | torch.isnan(acc), acc, v))
+    return out
+
+
+def segment_reduce_seq(edge_vals: torch.Tensor, delivered: torch.Tensor,
+                       gather: torch.Tensor, indptr: torch.Tensor, op: str,
+                       identity: float) -> torch.Tensor:
+    """K3's sequential plain version: `csr_reduce_seq` over
+    concat(edge_vals, floats(delivered))[gather]."""
+    vals = torch.cat([edge_vals, words_to_floats_t(delivered)])[gather.long()]
+    return csr_reduce_seq(vals, indptr, op, identity)

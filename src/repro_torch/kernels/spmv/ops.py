@@ -56,14 +56,16 @@ def pagerank_step(adj: torch.Tensor, rank: torch.Tensor,
 
 
 def spmv_csr_rows(indptr, indices, c, n: int, *, rows=None,
-                  bm: int = 128) -> torch.Tensor:
+                  bm: int = 128, tiles=None) -> torch.Tensor:
     """acc[i] = sum_{j in row i} c[j] from a CSR adjacency, via K5.
 
     indptr [n + 1], indices [nnz], c [n] or [n, B]: tensors (cast on their
     own device, never moved) or NumPy arrays (taken as CPU tensors) ->
     [n] or [n, B] float32. `bm` is the reference's rows per tile (a power
-    of two, 1..256); `rows`, the reference's cached per-entry row array, is
-    accepted and not needed.
+    of two, 1..256, validated; K5's result does not depend on it); `rows`,
+    the reference's cached per-entry row array, is accepted and not
+    needed. `tiles` is K5's tile table (`csr_tiles.tile_rows(indptr)`),
+    built from `indptr` when None.
     """
     del rows
     bm = check_bm(bm)
@@ -73,5 +75,7 @@ def spmv_csr_rows(indptr, indices, c, n: int, *, rows=None,
         raise ValueError(
             f"n={n} needs indptr [n + 1] and c [n(, B)]; got indptr "
             f"{tuple(indptr.shape)}, c {tuple(c.shape)}")
+    if tiles is not None:
+        tiles = _tensor(tiles, torch.int32)
     return spmv_csr(indptr.contiguous(), indices.contiguous(),
-                    c.contiguous(), bm=bm)
+                    c.contiguous(), bm=bm, tiles=tiles)

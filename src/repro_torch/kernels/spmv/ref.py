@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..segment_reduce.ref import csr_reduce_seq
+
 
 def spmv(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = adj @ x with float32 accumulation.
@@ -35,6 +37,14 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor,
     out = torch.zeros((n,) + tuple(c.shape[1:]), dtype=torch.float32,
                       device=c.device)
     return out.index_add_(0, rows, c[indices.long()])
+
+
+def spmv_csr_seq(indptr: torch.Tensor, indices: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """K5's sequential plain version: `spmv_csr` with every row summed in
+    CSR order from its first value (`segment_reduce.ref.csr_reduce_seq`),
+    the order K5 sums in, so K5 is held bitwise against it."""
+    return csr_reduce_seq(c[indices.long()], indptr, "sum", 0.0)
 
 
 def pagerank_step(adj: torch.Tensor, rank: torch.Tensor,

@@ -11,14 +11,14 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, csr_tiles
 from . import ref
 
 _SIGS = {
     "spmv_dense": (_build.P, _build.I32, _build.P, _build.I32, _build.P,
                    _build.I64, _build.I64, _build.P),
-    "spmv_csr": (_build.P, _build.P, _build.P, _build.P, _build.I64,
-                 _build.I32, _build.I32, _build.P),
+    "spmv_csr": (_build.P, _build.P, _build.I32, _build.P, _build.P,
+                 _build.P, _build.I32, _build.I32, _build.I32, _build.P),
 }
 DENSE_DTYPES = (torch.float32, torch.float16)
 ROW_TILES = tuple(2 ** k for k in range(9))     # bm: 1, 2, 4, ..., 256
@@ -30,7 +30,9 @@ def _lib():
 
 
 def check_bm(bm) -> int:
-    """`bm` (rows per 256-thread block) must be a power of two, 1..256."""
+    """`bm`, the reference's rows per tile, must be a power of two, 1..256
+    (validated as the reference's argument; K5's result does not depend
+    on it)."""
     if isinstance(bm, bool) or bm not in ROW_TILES:
         raise ValueError(
             f"bm must be a power of two from 1 to 256, got {bm!r}")
@@ -62,13 +64,16 @@ def spmv_dense(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, c: torch.Tensor,
-             bm: int = 128) -> torch.Tensor:
-    """K5: acc[i(, b)] = sum of c[indices[e](, b)] over e in row i.
+             bm: int = 128, tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: acc[i(, b)] = sum of c[indices[e](, b)] over e in row i, in CSR
+    order.
 
     indptr [n + 1] int32, indices [nnz] int32, c [n] or [n, B] float32 ->
-    [n] or [n, B] float32 (0 for empty rows); `bm` rows per block.
+    [n] or [n, B] float32 (0 for empty rows). `bm` is validated only;
+    `tiles` is the kernel's tile table (`csr_tiles.tile_rows(indptr)`,
+    built here when None).
     """
-    bm = check_bm(bm)
+    check_bm(bm)
     if c.dim() not in (1, 2):
         raise ValueError(f"c must be [n] or [n, B], got shape {tuple(c.shape)}")
     n = c.shape[0]
@@ -82,12 +87,16 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"indices must be [nnz], got {tuple(indices.shape)}")
     if not _build.on_cuda(indptr, indices, c):
         return ref.spmv_csr(indptr, indices, c)
+    if indices.data_ptr() % 16:
+        raise ValueError("indices must start 16-byte aligned")
+    tiles = csr_tiles.tiles_for(indptr, tiles)
     out = torch.empty(c.shape, dtype=torch.float32, device=c.device)
     lib = _lib()
     with torch.cuda.device(c.device):
         code = lib.spmv_csr(indptr.data_ptr(), indices.data_ptr(),
-                            c.data_ptr(), out.data_ptr(), n, B, bm,
-                            _build.stream_of(c))
+                            indices.numel(), c.data_ptr(), out.data_ptr(),
+                            tiles.data_ptr(), tiles.numel() - 1, B,
+                            csr_tiles.tile_entries(indices.numel()), _build.stream_of(c))
     _build.check(lib, "spmv_csr", code)
     _build.LAUNCHES["spmv_csr"] += 1
     return out

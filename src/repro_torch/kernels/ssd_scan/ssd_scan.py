@@ -17,7 +17,7 @@ from . import ref
 
 _P, _I32, _I64 = _build.P, _build.I32, _build.I64
 _SIGS = {
-    "ssd_chunk": (_P,) * 9 + (_I64,) + (_I32,) * 7 + (_P,),
+    "ssd_chunk": (_P,) * 9 + (_I64,) + (_I32,) * 8 + (_P,),
     "ssd_state_scan": (_P,) * 5 + (_I64, _I32, _I64, _P),
 }
 MAX_SMEM = 232448          # bytes of shared memory a block may have (H100)
@@ -29,14 +29,28 @@ def _lib():
     return _build.library("ssd_scan", _SIGS)
 
 
-def chunk_smem_bytes(q: int, p: int, n: int, dtype: torch.dtype) -> int:
+def chunk_smem_bytes(q: int, p: int, n: int, dtype: torch.dtype,
+                     rows: int | None = None) -> int:
     """Shared memory K6 stages per block: a 48-byte header, cum / dt / w as
-    float32 [Q] (rounded up to 16 B), and x, b and c as bf16 rows of
-    ceil(P / 8) and ceil(N / 8) 16-byte chunks: one plane each for bfloat16
-    inputs, a hi and a lo plane each for float32 inputs."""
+    float32 [Q] (rounded up to 16 B), and `rows` tokens (all Q by default)
+    of x, b and c as bf16 rows of ceil(P / 8) and ceil(N / 8) 16-byte
+    chunks: one plane each for bfloat16 inputs, a hi and a lo plane each
+    for float32 inputs."""
+    rows = q if rows is None else rows
     planes = 2 if dtype == F32 else 1
     return (48 + -(-12 * q // 16) * 16
-            + planes * 16 * q * (-(-p // 8) + 2 * -(-n // 8)))
+            + planes * 16 * rows * (-(-p // 8) + 2 * -(-n // 8)))
+
+
+def part_tokens(q: int, p: int, n: int, dtype: torch.dtype) -> int:
+    """Tokens K6 stages at once: all Q when a whole chunk fits a block's
+    shared memory (the one-shot form), else the largest multiple of 16 that
+    fits (the form staged in parts); 0 when not even 16 fit."""
+    if chunk_smem_bytes(q, p, n, dtype) <= MAX_SMEM:
+        return q
+    fixed = chunk_smem_bytes(q, p, n, dtype, 0)
+    per16 = chunk_smem_bytes(q, p, n, dtype, 16) - fixed
+    return max(0, (MAX_SMEM - fixed) // per16) * 16
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -52,6 +66,10 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
     g // h); x, b and c all float32 or all bfloat16 ->
     (y_intra [G, Ch, Q, P], S [G, Ch, N, P], G [G, Ch], Cexp [G, Ch, Q, N]),
     float32, as `ref.ssd_chunk` defines them.
+
+    One launch: the whole chunk staged at once where it fits a block's
+    shared memory, else staged in parts of `part_tokens(...)` tokens; a
+    chunk where not even 16 tokens fit is refused on every device.
     """
     if x.dim() != 4:
         raise ValueError(f"x must be [G, Ch, Q, P], got {tuple(x.shape)}")
@@ -68,11 +86,13 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
         _build.check_tensor(t, name, dtype, (gb, ch, q, n))
     if min(q, p, n) < 1:
         raise ValueError(f"Q, P and N must be >= 1, got {(q, p, n)}")
-    smem = chunk_smem_bytes(q, p, n, dtype)
-    if smem > MAX_SMEM:
+    rows = part_tokens(q, p, n, dtype)
+    if rows == 0:
+        smem = chunk_smem_bytes(q, p, n, dtype, 16)
         raise ValueError(
             f"chunk Q={q}, P={p}, N={n} in {dtype} needs {smem} B of shared "
-            f"memory per block; the kernel takes <= {MAX_SMEM}")
+            f"memory per block staged 16 tokens at a time; the kernel takes "
+            f"<= {MAX_SMEM}")
     if not _build.on_cuda(x, dt, dta, b, c):
         return ref.ssd_chunk(x, dt, dta, b, c)
     y = torch.empty((g, ch, q, p), dtype=F32, device=x.device)
@@ -86,7 +106,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
                              S.data_ptr(), G.data_ptr(), cexp.data_ptr(),
                              g * ch, ch, heads, q, p, n, _CODES[dtype],
                              int(p % 8 == 0 and _aligned(x)),
-                             int(n % 8 == 0 and _aligned(b, c)),
+                             int(n % 8 == 0 and _aligned(b, c)), rows,
                              _build.stream_of(x))
     _build.check(lib, "ssd_chunk", code)
     _build.LAUNCHES["ssd_chunk"] += 1

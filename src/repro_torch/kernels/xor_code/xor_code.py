@@ -33,7 +33,7 @@ _SIGS = {
                           _build.P, _build.I32, _build.I32, _build.I32,
                           _build.I32, _build.I32, _build.P),
 }
-MAX_R = 32            # the kernels' book holds r + 2 <= 34 codes
+MAX_R = 64            # the kernels' book holds r + 2 <= 66 codes
 MAX_GRID_Y = 65535    # one block row per server
 
 
@@ -41,13 +41,10 @@ def _batch(src: torch.Tensor) -> int:
     return 1 if src.dim() == 1 else src.shape[1]
 
 
-def _check_packed(K: int, r: int, per_server: int, book: torch.Tensor,
-                  *tables: torch.Tensor) -> None:
-    """What the packed kernels' grid, 32-bit index math and vector loads
-    of table rows need."""
-    _build.check_tensor(book, "book", torch.int32, (2, r + 2))
-    if any(t.data_ptr() % 16 for t in tables):
-        raise ValueError("packed tables must start 16-byte aligned")
+def _check_limits(K: int, r: int, per_server: int) -> None:
+    """The packed kernels' limits (book size, grid, 32-bit index math),
+    checked before the device branch so that every device refuses the
+    same shapes."""
     if not 1 <= r <= MAX_R:
         raise ValueError(f"r = {r}: the packed kernels take 1 <= r <= {MAX_R}")
     if K > MAX_GRID_Y:
@@ -55,6 +52,13 @@ def _check_packed(K: int, r: int, per_server: int, book: torch.Tensor,
     if per_server >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"{per_server} items per server do not fit the "
                          "packed kernels' 32-bit index math")
+
+
+def _check_packed(r: int, book: torch.Tensor, *tables: torch.Tensor) -> None:
+    """What the packed kernels' book and vector loads of table rows need."""
+    _build.check_tensor(book, "book", torch.int32, (2, r + 2))
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("packed tables must start 16-byte aligned")
 
 
 def _lib():
@@ -132,14 +136,15 @@ def xor_encode_packed(src: torch.Tensor, enc_e: torch.Tensor,
     words otherwise); enc_e [K, W, r] int32 entry of src (n_src = zero);
     enc_code [K, W, r] uint8 into book [2, r + 2] int32 (shifts, masks).
     """
-    if not _build.on_cuda(src, enc_e, enc_code, book):
-        return ref.xor_encode_packed(src, enc_e, enc_code, book, swap=swap)
     K, W, r = enc_e.shape
     B = _batch(src)
+    _check_limits(K, r, (W + 1) * B)
+    if not _build.on_cuda(src, enc_e, enc_code, book):
+        return ref.xor_encode_packed(src, enc_e, enc_code, book, swap=swap)
     _build.check_tensor(src, "src", torch.int32)
     _build.check_tensor(enc_e, "enc_e", torch.int32)
     _build.check_tensor(enc_code, "enc_code", torch.uint8, (K, W, r))
-    _check_packed(K, r, (W + 1) * B, book, enc_e, enc_code)
+    _check_packed(r, book, enc_e, enc_code)
     out = torch.empty((K, W + 1, B), dtype=torch.int32, device=src.device)
     _build.check_tensor(out, "out", torch.int32)
     lib = _lib()
@@ -168,12 +173,13 @@ def xor_decode_packed(src: torch.Tensor, buf: torch.Tensor,
     delivery offsets. `total` is M = ptr[K] (pass it to keep the host from
     reading ptr back).
     """
+    K, Dmax, r = dec_pos.shape
+    B = _batch(src)
+    _check_limits(K, r, Dmax * B)
     if not _build.on_cuda(src, buf, dec_pos, dec_code, strip_e, strip_code,
                           book, ptr):
         return ref.xor_decode_packed(src, buf, dec_pos, dec_code, strip_e,
                                      strip_code, book, ptr, swap=swap)
-    K, Dmax, r = dec_pos.shape
-    B = _batch(src)
     _build.check_tensor(src, "src", torch.int32)
     if buf.dim() != src.dim() + 1 or buf.shape[0] != K:
         raise ValueError(f"buf must be [K={K}, W + 1{', B' if B > 1 else ''}], "
@@ -186,8 +192,7 @@ def xor_decode_packed(src: torch.Tensor, buf: torch.Tensor,
     _build.check_tensor(strip_code, "strip_code", torch.uint8,
                         (K, Dmax, r, r - 1))
     _build.check_tensor(ptr, "ptr", torch.int32, (K + 1,))
-    _check_packed(K, r, Dmax * B, book, dec_pos, dec_code, strip_e,
-                  strip_code)
+    _check_packed(r, book, dec_pos, dec_code, strip_e, strip_code)
     M = int(ptr[-1]) if total is None else int(total)
     out = torch.empty((M, B), dtype=torch.int32, device=src.device)
     _build.check_tensor(out, "out", torch.int32)

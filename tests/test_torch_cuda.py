@@ -7,15 +7,19 @@ the port):
 
 Each CUDA kernel is held against its plain PyTorch version on the same
 device tensors (the packed K1 and K2 at r = 2 and at the runtime-r
-instance r = 5, K1's general form against the packed K1, and K3-min
-bitwise, K3-sum within rtol 1e-5; K4 at
-float32 rtol 1e-4 / atol 1e-5 and float16 2e-3, K5 within rtol 1e-5 and
-bitwise repeatable; K6 within rtol 1e-4 and atol 1e-4 * max|plain|, in
-float32 and on the serve path's bf16 inputs with B / C shared by the
-heads, K7 bitwise), small coded and spmv sessions against the NumPy oracle, and the
-reduced mamba2-370m served on the card (the kernel prefill against the
-plain chunked prefill and the decode loop). Whether a card exists is
-decided inside the `cuda` fixture, never at import time.
+instance r = 5, 33 and 64, K1's general form against the packed K1, and
+r = 65 refused with the CPU's message; K3 and K5, the CSR-streaming body,
+bitwise against the sequential plain version at B = 1, 2, 4, 5 with empty
+rows, ragged tiles and a row longer than a tile, K3-min also against the
+scatter plain version, both bitwise repeatable and K5 the same for every
+`bm`; K4 at float32 rtol 1e-4 / atol 1e-5 and float16 2e-3; K6 within
+rtol 1e-4 and atol 1e-4 * max|plain|, in float32 and on the serve path's
+bf16 inputs with B / C shared by the heads, one shot and staged in parts
+up to Q = 256, K7 bitwise), small coded and spmv sessions (ER, a power-law
+graph with a row longer than a tile, r = 33 and 64) against the NumPy
+oracle, and the reduced mamba2-370m served on the card (the kernel prefill
+against the plain chunked prefill and the decode loop). Whether a card
+exists is decided inside the `cuda` fixture, never at import time.
 """
 import numpy as np
 import pytest
@@ -27,7 +31,7 @@ from repro_torch.core import algorithms as algo
 from repro_torch.core import engine
 from repro_torch.core.allocation import divisible_n, er_allocation
 from repro_torch.core.fused_shuffle import _i32
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, csr_tiles
 from repro_torch.kernels.segment_reduce import ops as sr
 from repro_torch.kernels.segment_reduce import ref as sr_ref
 from repro_torch.kernels.spmv import ops as spmv_ops
@@ -103,6 +107,47 @@ def test_packed_kernels_at_runtime_r(cuda, B):
                                rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("K,r", [(34, 33), (64, 64)])
+def test_sessions_past_32_segments(cuda, K, r):
+    """r > 32 runs the runtime-r instance with a book of r + 2 <= 66 codes:
+    K1/K2 bitwise their plain versions, delivered words bitwise the NumPy
+    executor, sssp bitwise the oracle."""
+    n = divisible_n(2 * K, K, r)
+    g = graphs.erdos_renyi(n, 0.1, seed=K)
+    eng = engine.compile(algo.sssp(0), g, er_allocation(n, K, r), device=cuda)
+    assert eng.fused.sched.r == r
+    for B in (1, 3):
+        _hold_packed(cuda, g, eng, B)
+    ev = np.random.default_rng(r).standard_normal(g.csr.nnz).astype(np.float32)
+    want = eng.plan.execute_coded_sparse(ev, eng.tables)
+    got = eng.fused.execute(ev)
+    np.testing.assert_array_equal(got.values.view(np.uint32),
+                                  want.values.view(np.uint32))
+    _build.LAUNCHES.clear()
+    res = eng.run(10)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["xor_encode"] == _build.LAUNCHES["xor_decode"] == 10
+    oracle = algo.reference_run(algo.sssp(0), g, 10)
+    np.testing.assert_array_equal(res.state.cpu().numpy().view(np.uint32),
+                                  oracle.view(np.uint32))
+
+
+def test_packed_kernels_refuse_r_past_64(cuda):
+    from repro_torch.core.fused_shuffle import code_book
+
+    K, W, Dmax, r = 2, 3, 2, 65
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda)  # noqa: E731
+    u8 = lambda *s: torch.zeros(s, dtype=torch.uint8, device=cuda)  # noqa: E731
+    book = torch.from_numpy(code_book(r).view(np.int32)).to(cuda)
+    msg = r"^r = 65: the packed kernels take 1 <= r <= 64$"
+    with pytest.raises(ValueError, match=msg):
+        xc.xor_encode_packed(z(5), z(K, W, r), u8(K, W, r), book)
+    with pytest.raises(ValueError, match=msg):
+        xc.xor_decode_packed(z(5), z(K, W + 1), z(K, Dmax, r), u8(K, Dmax, r),
+                             z(K, Dmax, r, r - 1), u8(K, Dmax, r, r - 1), book,
+                             z(K + 1))
+
+
 def test_session_matches_oracle_and_launches_kernels(cuda):
     g, eng = _session(cuda)
     _build.LAUNCHES.clear()
@@ -154,6 +199,85 @@ def _random_csr(rng, n, B, dev):
     c = np.round(rng.standard_normal((n, B) if B > 1 else n) * 1024) / 1024
     return [torch.from_numpy(a).to(dev)
             for a in (indptr, indices, c.astype(np.float32))]
+
+
+def _stream_case(rng, n, B, dev):
+    """A CSR of `n` rows with 30% empty rows, degrees 0..40 (ragged tiles)
+    and one row of 5,000 entries (a long tile of three parts), gather and
+    values for K3 (standard normal, so sums cancel: only a sequential order
+    is bitwise) and values for K5."""
+    deg = rng.integers(0, 41, size=n)
+    deg[rng.random(n) < 0.3] = 0
+    deg[n // 3] = 5000
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz, M = int(indptr[-1]), 3000
+    gather = rng.permutation(nnz + M)[:nnz].astype(np.int32)
+    shape = lambda m: (m, B) if B > 1 else (m,)  # noqa: E731
+    ev = rng.standard_normal(shape(nnz)).astype(np.float32)
+    dv = rng.standard_normal(shape(M)).astype(np.float32)
+    words = dv.view(np.uint32).byteswap().view(np.int32)
+    indices = rng.integers(0, n, size=nnz).astype(np.int32)
+    c = rng.standard_normal(shape(n)).astype(np.float32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return up(indptr), up(gather), up(ev), up(words), up(indices), up(c)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 5])
+def test_csr_stream_kernels_are_bitwise_the_sequential_version(cuda, B):
+    """K3 (sum and min) and K5 on the CSR-streaming body: bitwise the
+    sequential plain version, K3-min also bitwise the scatter plain
+    version, two runs bitwise equal, K5 the same bits for every `bm`, with
+    the table built by the wrappers or passed in."""
+    indptr, gather, ev, words, indices, c = _stream_case(
+        np.random.default_rng(B), 7001, B, cuda)
+    assert int((indptr[1:] - indptr[:-1]).max()) > csr_tiles.TILE_ENTRIES
+    tiles = torch.from_numpy(csr_tiles.tile_rows(indptr.cpu().numpy())).to(cuda)
+    red = (ev, words, gather, indptr)
+    for op, ident in (("sum", 0.0), ("min", float("inf"))):
+        want = sr_ref.segment_reduce_seq(*red, op, ident)
+        for t in (None, tiles):
+            got = sr.segment_reduce(*red, op, ident, tiles=t)
+            assert torch.equal(_bits(got), _bits(want)), (op, t is None)
+        if op == "min":
+            assert torch.equal(_bits(got), _bits(sr_ref.segment_reduce(*red, op, ident)))
+        assert torch.equal(_bits(sr.segment_reduce(*red, op, ident, tiles=tiles)),
+                           _bits(got))
+    want = spmv_ref.spmv_csr_seq(indptr, indices, c)
+    for bm in (1, 8, 128, 256):
+        got = spmv_k.spmv_csr(indptr, indices, c, bm=bm, tiles=tiles)
+        assert torch.equal(_bits(got), _bits(want)), bm
+    assert torch.equal(_bits(spmv_k.spmv_csr(indptr, indices, c)), _bits(want))
+    got = spmv_ops.spmv_csr_rows(indptr, indices, c, indptr.numel() - 1)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("backend", ["fused", "spmv"])
+def test_power_law_session_matches_oracle(cuda, backend):
+    """A Chung-Lu power-law graph (gamma 2.1, n about 20,000) with rows of
+    up to ~6,000 entries (long tiles) and empty rows, on either route:
+    pagerank within rtol 1e-5, sssp (fused) and degree (spmv) bitwise."""
+    n = divisible_n(20_000, 4, 2)
+    g = graphs.power_law(n, 2.1, seed=3)
+    assert int(np.diff(g.csr.indptr).max()) > csr_tiles.TILE_ENTRIES
+    eng = engine.compile(algo.pagerank(), g, er_allocation(n, 4, 2),
+                         backend=backend, device=cuda)
+    kernel = "segment_reduce" if backend == "fused" else "spmv_csr"
+    _build.LAUNCHES.clear()
+    res = eng.run(10)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == 10
+    np.testing.assert_allclose(res.state.cpu().numpy(),
+                               algo.reference_run(algo.pagerank(), g, 10),
+                               rtol=1e-5, atol=0)
+    other = algo.sssp(0) if backend == "fused" else algo.degree_count()
+    got = eng.with_program(other).run(10 if backend == "fused" else 1)
+    want = algo.reference_run(other, g, 10 if backend == "fused" else 1)
+    np.testing.assert_array_equal(got.state.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
 
 
 @pytest.mark.parametrize("bm", [1, 8, 128, 256])
@@ -281,12 +405,53 @@ def test_ssd_matches_sequential_oracle_on_the_card(cuda, G, L, P, N, chunk):
     torch.testing.assert_close(h, h_ref, rtol=5e-4, atol=5e-4)
 
 
-def test_ssd_chunk_refuses_what_a_block_cannot_hold(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,P,N", [(128, 64, 128), (180, 64, 128),
+                                   (256, 64, 128), (400, 64, 128),
+                                   (256, 256, 256)])
+def test_ssd_chunk_large_chunks_one_shot_and_in_parts(cuda, Q, P, N, dtype):
+    """Chunks up to 400 tokens at K6's gates, one launch each: one shot
+    where a chunk fits a block (bf16 up to Q = 356 at Mamba2's P = 64,
+    N = 128), else staged in parts (float32 from Q = 180, with a ragged
+    last part of 4 tokens there; bf16 at Q = 400 and at P = N = 256)."""
+    args = _chunk_inputs(np.random.default_rng(Q + P), 4, 2, Q, P, N, cuda,
+                         dtype, 2)
+    _build.LAUNCHES.clear()
+    got = ssd_k.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    for g, w in zip(got, ssd_ref.ssd_chunk(*args)):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def test_ssd_chunk_past_one_block_and_past_the_limit(cuda):
+    """A 256 x 256 x 256 chunk, once refused, runs staged in parts; a shape
+    where not even 16 tokens fit a block is refused."""
     for dtype in (torch.float32, torch.bfloat16):
         args = _chunk_inputs(np.random.default_rng(0), 1, 1, 256, 256, 256,
                              cuda, dtype)
+        assert ssd_k.part_tokens(256, 256, 256, dtype) < 256
+        _hold_chunk(args)
+        wide = _chunk_inputs(np.random.default_rng(0), 1, 1, 16, 4096, 4096,
+                             cuda, dtype)
         with pytest.raises(ValueError, match="shared memory"):
-            ssd_k.ssd_chunk(*args)
+            ssd_k.ssd_chunk(*wide)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_at_chunk_256_on_the_card(cuda, dtype):
+    rng = np.random.default_rng(256)
+    G, L, P, N = 2, 512, 64, 128
+    x, B, C = (torch.from_numpy(rng.standard_normal(s)).to(cuda, dtype)
+               for s in ((G, L, P), (G, L, N), (G, L, N)))
+    dt, A, D = (torch.from_numpy(a).to(cuda, torch.float32) for a in (
+        rng.uniform(0.01, 0.2, (G, L)), -rng.uniform(0.5, 2.0, G),
+        rng.standard_normal(G)))
+    y, hT = ssd_ops.ssd(x, dt, A, B, C, D, chunk=256)
+    y_ref, h_ref = ssd_ref.ssd_scan_batched(x, dt, A, B, C, D)
+    torch.testing.assert_close(y, y_ref, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(hT, h_ref, rtol=5e-4, atol=5e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

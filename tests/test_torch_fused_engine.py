@@ -226,6 +226,38 @@ def test_packing_refuses_what_the_book_cannot_name(table):
         pack_schedule(bad, tg.csr.nnz)
 
 
+@pytest.mark.parametrize("K,r", [(34, 33), (64, 64)])
+def test_sessions_past_32_segments(K, r):
+    """r > 32 (K <= 64): zero-width segments (mask 0, shift clipped to 31)
+    are codes of a book of r + 2 <= 66 pairs. Delivered words bitwise
+    `execute_coded_sparse`, sssp bitwise `reference_run`, pagerank within
+    rtol 1e-5, exact bits."""
+    n = divisible_n(2 * K, K, r)
+    g = r_graphs.erdos_renyi(n, 0.1, seed=K)
+    alloc = er_allocation(n, K, r)
+    tg, ta = _port(g, alloc)
+    rplan = r_compile(g.csr, alloc)
+    ev = np.random.default_rng(r).standard_normal(g.csr.nnz).astype(np.float32)
+    want = rplan.execute_coded_sparse(ev, rplan.edge_tables(g.csr, alloc))
+    eng = t_engine.compile(t_algo.sssp(0), tg, ta, device="cpu")
+    assert eng.fused.packed.book.shape == (2, r + 2)
+    assert (eng.fused.packed.book[1][:r] == 0).any()    # zero-width segments
+    got = eng.fused.execute(ev)
+    np.testing.assert_array_equal(floats_to_words(got.values),
+                                  floats_to_words(want.values))
+    assert got.bits_sent == want.bits_sent
+    res = eng.run(10)
+    oracle = r_algo.reference_run(r_algo.sssp(0), g, 10, path="sparse")
+    np.testing.assert_array_equal(res.state.numpy().view(np.uint32),
+                                  oracle.view(np.uint32))
+    pr = eng.with_program(t_algo.pagerank()).run(10)
+    np.testing.assert_allclose(
+        pr.state.numpy(), r_algo.reference_run(r_algo.pagerank(), g, 10,
+                                               path="sparse"),
+        rtol=SUM_RTOL, atol=0)
+    assert res.shuffle_bits == 10 * (rplan.coded_bits + rplan.leftover_bits)
+
+
 def _check_run(model, prog, B, iters=10):
     g, alloc = _case(model)
     tg, ta = _port(g, alloc)

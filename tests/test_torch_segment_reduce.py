@@ -6,6 +6,13 @@ per CSR row. `min` must be bitwise equal to `np.minimum.reduceat`; `sum`
 within rtol 1e-5, because `np.add.reduceat` does not add sequentially
 while the port's kernel (and `index_add_` on the CPU) does. Empty rows get
 the identity; B > 1 payload columns reduce independently.
+
+The sequential plain version (`ref.csr_reduce_seq`, what the card's K3 and
+K5 are held bitwise against) is held against the same oracle: min
+bitwise (NaN payloads and ties of +-0, where NumPy's vectorised reduction
+picks in no fixed order, against a loop of NumPy's rule), sums bitwise
+equal to a float32 loop over each row in CSR order and, on values whose
+partial sums are exact, within rtol 1e-5 of the oracle.
 """
 import numpy as np
 import pytest
@@ -15,6 +22,7 @@ from repro.core.algorithms import segment_reduce as r_segment_reduce
 from repro_torch.core import algorithms as t_algo
 from repro_torch.core.bitcodec import floats_to_words
 from repro_torch.kernels.segment_reduce import ops as t_ops
+from repro_torch.kernels.segment_reduce import ref as t_ref
 
 SUM_RTOL = 1e-5
 
@@ -77,3 +85,69 @@ def test_program_reduce_ops_match_reference_identities():
     for prog in (t_algo.sssp(0), t_algo.connected_components(),
                  t_algo.multi_sssp([0, 1])):
         assert prog.reduce_op == "min" and prog.identity == np.inf
+
+
+def _seq_loop(vals, indptr, combine):
+    """Each row from its first value, combined one value at a time."""
+    out = np.zeros((indptr.size - 1,) + vals.shape[1:], np.float32)
+    for i in range(indptr.size - 1):
+        row = vals[indptr[i]:indptr[i + 1]]
+        if row.shape[0]:
+            acc = row[0].copy()
+            for v in row[1:]:
+                acc = combine(acc, v)
+            out[i] = acc
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("seed,n,avg_deg,M", [(6, 50, 4, 30), (7, 400, 40, 700),
+                                              (8, 7, 0, 5), (9, 12, 1500, 90)])
+def test_sequential_plain_version_matches_oracle(seed, n, avg_deg, M, B):
+    gathered, indptr, args = _case(seed, n, avg_deg, M, B)
+    want = r_segment_reduce(np.minimum, gathered, indptr, np.inf)
+    got = t_ref.segment_reduce_seq(*args, "min", np.inf).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    finite = np.where(np.isfinite(gathered), gathered, 0).astype(np.float32)
+    ev = torch.where(torch.isfinite(args[0]), args[0], 0)
+    got = t_ref.segment_reduce_seq(ev, *args[1:], "sum", 0.0).numpy()
+    # Sequential: bitwise a float32 loop over each row in CSR order.
+    seq = _seq_loop(finite, indptr, lambda a, v: (a + v).astype(np.float32))
+    np.testing.assert_array_equal(got.view(np.uint32), seq.view(np.uint32))
+    # Against the oracle on values of a 2^-10 grid, whose partial sums are
+    # exact in any order (rows of 1,500 standard-normal values cancel, and
+    # their order alone moves a sum by ~1e-5).
+    grid = np.round(finite * 1024) / 1024
+    got = t_ref.csr_reduce_seq(torch.from_numpy(grid), torch.from_numpy(indptr),
+                               "sum", 0.0).numpy()
+    np.testing.assert_allclose(
+        got, r_segment_reduce(np.add, grid, indptr, 0.0), rtol=SUM_RTOL,
+        atol=1e-6)
+
+
+def test_sequential_min_rule_on_nans_and_signed_zeros():
+    """NumPy's minimum keeps the accumulator when it is <= the value or
+    NaN. Canonical NaNs and infinities come out bitwise the oracle's; on
+    ties of +-0 and among NaN payloads NumPy's vectorised reduction picks
+    in no fixed order, so there the rule is held against a loop."""
+    vals = np.array([2.0, np.nan, 1.0, -np.inf, 3.0, np.nan, np.inf, 1.0,
+                     -1.0, np.inf], np.float32)
+    indptr = np.array([0, 3, 5, 5, 8, 10])
+    got = t_ref.csr_reduce_seq(torch.from_numpy(vals), torch.from_numpy(indptr),
+                               "min", np.inf).numpy()
+    want = r_segment_reduce(np.minimum, vals, indptr, np.inf)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    vals = np.array([0.0, -0.0, 1.0, -0.0, 0.0, np.nan, 2.0, np.nan, -1.0,
+                     3.0, -np.inf, 5.0], np.float32)
+    vals.view(np.uint32)[7] = 0x7fc00001                  # another payload
+    indptr = np.array([0, 3, 5, 9, 9, 12])
+    got = t_ref.csr_reduce_seq(torch.from_numpy(vals), torch.from_numpy(indptr),
+                               "min", np.inf).numpy()
+    want = _seq_loop(vals, indptr,
+                     lambda a, v: a if (a <= v or np.isnan(a)) else v)
+    want[np.diff(indptr) == 0] = np.inf
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert got.view(np.uint32)[:3].tolist() == [0, 0x80000000, 0x7fc00000]
+    with pytest.raises(ValueError, match="unknown reduce op"):
+        t_ref.csr_reduce_seq(torch.from_numpy(vals), torch.from_numpy(indptr),
+                             "max", 0.0)

@@ -18,7 +18,7 @@ from repro import graphs as r_graphs
 from repro.core import algorithms as r_algo
 from repro.core import graph_models as r_gm
 from repro.kernels.spmv import ops as r_ops
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, csr_tiles
 from repro_torch.kernels.spmv import ops, ref
 from repro_torch.kernels.spmv import spmv as wrappers
 
@@ -97,6 +97,29 @@ def test_spmv_csr_rows_matches_reference(n, bm):
     empty = np.diff(indptr) == 0
     if empty.any():
         assert (got.numpy()[empty] == 0).all()
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("n", [37, 200])
+def test_spmv_csr_sequential_plain_version_matches_reference(n, B):
+    """K5's sequential plain version (what the card's K5 is held bitwise
+    against) within rtol 1e-5 of the reference's `spmv_csr_rows` on
+    positive values, column by column, and with `tiles` passed through
+    `ops.spmv_csr_rows` unchanged in result."""
+    g = r_graphs.erdos_renyi(n, 0.08, seed=n + B)
+    indptr, indices = g.csr.indptr, g.csr.indices
+    c = RNG.random((n, B) if B > 1 else n).astype(np.float32) + 0.01
+    got = ref.spmv_csr_seq(*(torch.from_numpy(a.astype(np.int32))
+                             for a in (indptr, indices)), torch.from_numpy(c))
+    for b in range(B):
+        col = c if B == 1 else c[:, b]
+        want = r_ops.spmv_csr_rows(indptr, indices, col, n, rows=g.csr.rows)
+        np.testing.assert_allclose(got.numpy() if B == 1 else got[:, b].numpy(),
+                                   want, rtol=1e-5, atol=0)
+    tiles = csr_tiles.tile_rows(indptr, 16)
+    np.testing.assert_allclose(
+        ops.spmv_csr_rows(indptr, indices, c, n, tiles=tiles).numpy(),
+        got.numpy(), rtol=1e-5, atol=0)
 
 
 def test_spmv_csr_empty_rows_and_one_long_row():

@@ -92,6 +92,38 @@ def test_ssd_chunk_bf16_and_shared_bc_match_pallas_interpret(G, Ch, Q, P, N, h,
         _close(g, w, rtol=1e-5, atol_rel=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_past_one_block_matches_pallas_interpret(dtype):
+    """Chunk 256 with Mamba2's P = 64 and N = 128, the reference's working
+    set: staged in parts on the card in float32; the wrapper takes it on
+    every device and its result agrees with `ssd_chunk_pallas`."""
+    x, dt, dta, b, c = _chunk_inputs(np.random.default_rng(256), 2, 1, 256,
+                                     64, 128)
+    xt, bt, ct = (torch.from_numpy(a).to(dtype) for a in (x, b, c))
+    want = ssd_chunk_pallas(*map(jnp.asarray, (
+        xt.float().numpy(), dt, dta, bt.float().numpy(), ct.float().numpy())),
+        interpret=True)
+    got = k.ssd_chunk(xt, *_t(dt, dta), bt, ct)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32
+        _close(g, w, rtol=1e-5, atol_rel=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_at_chunk_256_matches_reference(dtype):
+    """`ops.ssd` at chunk 256, P = 64, N = 128 against the reference's
+    `ops.ssd` on the same values, at its 5e-4."""
+    x, dt, A, B, C, D = _ssd_inputs(np.random.default_rng(12), 2, 512, 64, 128)
+    xt, Bt, Ct = (torch.from_numpy(a).to(dtype) for a in (x, B, C))
+    y, hT = ops.ssd(xt, *_t(dt, A), Bt, Ct, *_t(D), chunk=256)
+    y_jk, h_jk = jops.ssd(*map(jnp.asarray, (
+        xt.float().numpy(), dt, A, Bt.float().numpy(), Ct.float().numpy(), D)),
+        chunk=256)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jk), rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_jk), rtol=5e-4,
+                               atol=5e-4)
+
+
 def test_ssd_chunk_masks_the_upper_triangle():
     """A token's y_intra reads no later token: changing x at t = 5 leaves
     y_intra[:5] bitwise unchanged."""
@@ -263,12 +295,26 @@ def test_chunk_rule_and_wrapper_checks():
     assert k.chunk_smem_bytes(64, 64, 128, torch.float32) == 82736
     assert k.chunk_smem_bytes(128, 128, 128, torch.float32) == 198192
     assert k.chunk_smem_bytes(1, 4, 4, torch.bfloat16) == 48 + 16 + 16 * 3
+    # A chunk past one block's shared memory is staged in parts of the
+    # largest multiple of 16 tokens that fits; only a shape where not even
+    # 16 tokens fit is refused, naming the limit.
+    assert k.part_tokens(64, 64, 128, torch.bfloat16) == 64       # one shot
+    assert k.part_tokens(256, 64, 128, torch.float32) == 176
+    assert k.part_tokens(256, 256, 256, torch.float32) == 64
+    assert k.part_tokens(256, 256, 256, torch.bfloat16) == 144
+    assert k.chunk_smem_bytes(256, 64, 128, torch.float32, 176) <= k.MAX_SMEM
     for dtype in (torch.float32, torch.bfloat16):
         big = [t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(
             _t(*_chunk_inputs(np.random.default_rng(9), 1, 1, 256, 256, 256)))]
         assert k.chunk_smem_bytes(256, 256, 256, dtype) > k.MAX_SMEM
-        with pytest.raises(ValueError, match="shared memory"):
-            k.ssd_chunk(*big)
+        got = k.ssd_chunk(*big)
+        for g, w in zip(got, ref.ssd_chunk(*big)):
+            assert torch.equal(g, w)
+        wide = [t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(
+            _t(*_chunk_inputs(np.random.default_rng(9), 1, 1, 32, 4096, 4096)))]
+        assert k.part_tokens(32, 4096, 4096, dtype) == 0
+        with pytest.raises(ValueError, match=f"shared memory.*<= {k.MAX_SMEM}"):
+            k.ssd_chunk(*wide)
     G, S = torch.ones((2, 3)), torch.zeros((2, 3, 4, 5))
     with pytest.raises(ValueError, match="shape"):
         k.ssd_state_scan(G, S, torch.zeros((2, 5, 4)))

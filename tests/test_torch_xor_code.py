@@ -198,7 +198,7 @@ def _to_t(a):
 
 @pytest.mark.parametrize("r,B,swap", [(1, 1, True), (2, 1, True),
                                       (3, 2, False), (4, 3, True),
-                                      (5, 2, True)])
+                                      (5, 2, True), (33, 1, True)])
 def test_gather_encode_decode_plain_versions(r, B, swap):
     """The plain versions of K1's general form and of the packed K1/K2
     (what the card kernels are held to) agree with a scalar loop over
@@ -225,6 +225,23 @@ def test_gather_encode_decode_plain_versions(r, B, swap):
     np.testing.assert_array_equal(t_words_to_np(buf).reshape(want_buf.shape),
                                   want_buf)
     np.testing.assert_array_equal(t_words_to_np(out).reshape(want.shape), want)
+
+
+def test_packed_kernels_refuse_r_past_64_on_every_device():
+    """The packed K1/K2 take 1 <= r <= 64 (a book of r + 2 <= 66 codes);
+    the limit is checked before the device branch, so the CPU refuses
+    r = 65 with the card's message (tests/test_torch_cuda.py)."""
+    src, p, W = _random_packed(65, 1)
+    pt, s = {k: _to_t(v) for k, v in p.items()}, np_words_to_t(src)
+    msg = r"^r = 65: the packed kernels take 1 <= r <= 64$"
+    with pytest.raises(ValueError, match=msg):
+        t_xc.xor_encode_packed(s, pt["enc_e"], pt["enc_code"], pt["book"])
+    buf = torch.zeros((3, W + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match=msg):
+        t_xc.xor_decode_packed(s, buf, pt["dec_pos"], pt["dec_code"],
+                               pt["strip_e"], pt["strip_code"], pt["book"],
+                               pt["ptr"])
+    assert t_xc.MAX_R == 64
 
 
 _GENERAL = ("src", "loc_e", "enc_l", "enc_shift", "enc_mask")
