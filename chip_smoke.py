@@ -39,7 +39,26 @@ non-zero before its last line:
      an ER graph with n = 16,384, p = 0.01, seed 5, in float32 and in
      float16, within rtol 1e-5 of the oracle. Each path's launch counts
      are reset just before it and read just after;
-  6. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
+  6. modes: the reference's default engine, backend="numpy" (the plan
+     executors on the card, K1's dense form folding the coded route's
+     slot words, K3 reducing), on the er-76k graph and plan: pagerank,
+     sssp(0), connected_components, degree, multi_sssp (B = 4) and
+     personalized pagerank (B = 4) in modes single / uncoded / coded /
+     coded-fast for 10 iterations (the two pageranks within rtol 1e-5 of
+     the sparse NumPy oracle, the others bitwise,
+     exact bits; delivered words of each plan mode bitwise the NumPy
+     executor; K1's dense form and K3 launched on that run, counts reset
+     just before it); the three XOR routes ("numpy", "xor-kernel",
+     "xor-ref") bitwise the NumPy executor at the er-76k and scale shapes;
+     at scale, pagerank in uncoded / coded / coded-fast for 10 iterations
+     with steady ms/iter, device busy and per-phase spans beside the fused
+     route's; the dense path on the dense phase's graph (padded to
+     n = 16,392 for K = 4, r = 2): pagerank and sssp in the four modes for
+     3 iterations against the dense NumPy oracle, with the peak device
+     memory; mode coded-ref on ER n = 2,000 (padded to 2,004), p = 0.02,
+     seed 5, for 2 iterations: its delivered dict equal to mode coded's
+     on the dense path, sssp bitwise the dense coded state;
+  7. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
      `ssd_state_scan` (bitwise) against their plain versions at the
      `tests/test_kernels.py` ssd shapes, K6 at ragged shapes in float32
      and bf16, both at the serve shape (G = 128 groups, 32 chunks of 64,
@@ -66,7 +85,8 @@ their plain versions. The serve phase also holds K6 at chunks of 128 to
 block: float32 from Q = 180, bf16 at Q = 400) and `ops.ssd` at chunk 256,
 and times K6 at Q = 128 and 256. Prints the `kernels` JSON line
 (K1-K3 and K5 timed at the er-76k shapes with launches from their er-76k
-paths, K3 and K5 also at B = 4 and with their L2 sector traffic in the
+paths, K1's dense form at the slot words of the er-76k coded route with
+launches from the modes phase's er-76k run, K3 and K5 also at B = 4 and with their L2 sector traffic in the
 full records, K4 at 16,384^2 float32 with launches from the dense path; K1 and K2
 are the packed kernels the session runs, their bounds counted on the
 packed tables, with the count on the unpacked layout and K1's general form
@@ -117,6 +137,7 @@ F32_RATE = 67e12          # flop/s
 BF16_TC_RATE = 989e12     # flop/s
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
+    "xor_encode_dense": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
     "segment_reduce": "src/repro/core/engine.py:166",
     "spmv_dense": "src/repro/kernels/spmv/spmv.py:29",
@@ -126,6 +147,7 @@ REPLACES = {
 }
 SOURCES = {
     "xor_encode": "src/repro_torch/csrc/xor_code.cu",
+    "xor_encode_dense": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode": "src/repro_torch/csrc/xor_code.cu",
     "segment_reduce": "src/repro_torch/csrc/segment_reduce.cu",
     "spmv_dense": "src/repro_torch/csrc/spmv.cu",
@@ -1130,6 +1152,312 @@ def dense_phase(torch, dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# modes phase: backend="numpy" (the plan executors on the card), the dense
+# path and coded-ref, with K1's dense form on the coded route
+# ---------------------------------------------------------------------------
+
+
+def check_state(got, want, name: str, what: str) -> float | None:
+    """Float-sum programs (pagerank, personalized pagerank) within rtol
+    1e-5 (returns the max relative error); every other program bitwise."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: state shape {got.shape}, want "
+                             f"{want.shape}")
+    if name in ("pagerank", "ppr"):
+        return check_pagerank(got, want, what)
+    if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"{what}: not bitwise equal to the oracle")
+    return None
+
+
+def same_delivered(got: dict, want: dict, what: str) -> None:
+    """Two dict deliveries hold the same keys and the same float32 bits."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: servers differ")
+    for k in want:
+        if got[k].keys() != want[k].keys():
+            raise AssertionError(f"{what}: server {k} got other values")
+        for key, v in want[k].items():
+            if (np.float32(got[k][key]).view(np.uint32)
+                    != np.float32(v).view(np.uint32)):
+                raise AssertionError(f"{what}: server {k} value {key} differs")
+
+
+def hold_xor_routes(torch, eng, ev, what: str) -> None:
+    """The plan executor's three XOR routes on the card: delivered words of
+    one coded Shuffle of the [nnz] edge values `ev` bitwise the NumPy
+    executor's."""
+    from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+
+    ev_np = ev.cpu().numpy()
+    want = floats_to_words(eng.plan.execute_coded_sparse(ev_np, eng.tables).values)
+    for backend in ("numpy", "xor-kernel", "xor-ref"):
+        got = t_words_to_np(eng.dplan.words(ev, "coded", backend=backend))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: coded words on the {backend} route "
+                                 "differ from execute_coded_sparse")
+
+
+def xor_dense_record(torch, eng, ev) -> dict:
+    """K1's dense form at the shape the coded route hands it: the slot
+    words [C, r] of one Shuffle of `ev`, as rows [r, C, 1]. Bitwise its
+    plain version; bound: the [r, C] words read and the [C] written."""
+    from repro_torch.kernels.xor_code import ref as xref
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    slotw = eng.dplan._slot_words(ev[eng.dplan._idx["sparse"][0]])
+    rows = slotw.t().contiguous()[..., None]
+    valid = torch.ones(rows.shape[:2], dtype=torch.bool, device=rows.device)
+    got, want = xc.xor_encode_dense(rows, valid), xref.xor_encode(rows, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K1 xor_encode_dense not bitwise its plain version")
+    r, C = rows.shape[:2]
+    rec = kernel_record(torch, "xor_encode_dense",
+                        lambda: xc.xor_encode_dense(rows, valid),
+                        lambda: xref.xor_encode(rows, valid), None,
+                        word_err(torch, got, want), 4 * r * C + 4 * C, r * C)
+    rec.update(C=C, r=r)
+    return rec
+
+
+def modes_er76k(torch, dev, er: tuple) -> tuple[dict, dict]:
+    """backend="numpy" on the er-76k graph and plan: six programs x four
+    modes, 10 iterations each, against the sparse NumPy oracle, delivered
+    words bitwise the NumPy executor per mode and XOR route; the launch
+    counts of that run (cleared just before it) for K1's dense form and
+    K3. Returns K1's dense-form record and the info."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+    from repro_torch.kernels import _build
+
+    g, alloc, plan, _ = er
+    roots = [0, g.n // 7, g.n // 2, g.n - 1]
+    progs = {"pagerank": algo.pagerank(), "sssp": algo.sssp(0),
+             "cc": algo.connected_components(), "degree": algo.degree_count(),
+             "multi_sssp": algo.multi_sssp(roots),
+             "ppr": algo.personalized_pagerank(algo.uniform_prefs(g.n, 4))}
+    t0 = time.perf_counter()
+    sessions = {mode: engine.compile(algo.pagerank(), g, alloc, mode,
+                                     path="auto", backend="numpy", plan=plan,
+                                     device=dev) for mode in SPMV_MODES}
+    info = {"session_s": time.perf_counter() - t0}
+    pr = algo.pagerank()
+    ev = pr.map_edge_values_t(g.device_view(dev), torch.as_tensor(
+        pr.init(g), device=dev)).contiguous()
+    ev_np = ev.cpu().numpy()
+    for mode in SPMV_MODES[1:]:
+        want = floats_to_words(plan.execute_sparse(ev_np, mode,
+                                                   sessions[mode].tables).values)
+        if not np.array_equal(t_words_to_np(sessions[mode].dplan.words(ev, mode)),
+                              want):
+            raise AssertionError(f"numpy backend {mode}: delivered words "
+                                 "differ from the NumPy executor")
+    hold_xor_routes(torch, sessions["coded"], ev, "er-76k")
+
+    # The path: reset the counts, run every program in every mode, read.
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = {(mode, name): sessions[mode].with_program(prog).run(10)
+            for mode in SPMV_MODES for name, prog in progs.items()}
+    torch.cuda.synchronize()
+    info["run_s"] = time.perf_counter() - t0
+    launches = info["launches"] = dict(_build.LAUNCHES)
+    for name in ("xor_encode_dense", "segment_reduce"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the er-76k "
+                                 "numpy-backend path")
+    oracle = {name: algo.reference_run(prog, g, 10, path="sparse")
+              for name, prog in progs.items()}
+    for (mode, name), res in runs.items():
+        err = check_state(res.state.cpu().numpy(), oracle[name], name,
+                          f"numpy backend {mode} {name}")
+        if err is not None:
+            info[f"{mode}_{name}_max_rel_err"] = err
+        bits = 0 if mode == "single" else engine._plan_bits(plan, mode)
+        if res.shuffle_bits != bits * res.batch * 10:
+            raise AssertionError(f"numpy backend {mode} {name}: shuffle bits "
+                                 "are not exact")
+    for mode in SPMV_MODES[1:]:
+        info[mode] = iteration_profile(torch, sessions[mode])
+    rec = xor_dense_record(torch, sessions["coded"], ev)
+    rec["launches"] = launches["xor_encode_dense"]
+    return rec, info
+
+
+def modes_scale(torch, dev, scale: tuple, fused: dict) -> tuple[dict, dict]:
+    """Pagerank in uncoded / coded / coded-fast under backend="numpy" at
+    scale, 10 iterations, with the fused route's numbers beside: the
+    paper's coded-against-uncoded comparison on the card. The three XOR
+    routes bitwise the NumPy executor there; K1's dense-form record at
+    these shapes with the coded run's launches."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+
+    g, alloc, plan, want = scale
+    keys = ("steady_s_per_iter", "host_enqueue_s_per_iter",
+            "device_busy_s_per_iter", "device_idle_share", "phase_s_per_iter",
+            "pagerank_s_per_iter")
+    info = {"fused": {k: fused[k] for k in keys}}
+    for mode in SPMV_MODES[1:]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = engine.compile(algo.pagerank(), g, alloc, mode, path="auto",
+                             backend="numpy", plan=plan, device=dev)
+        m = info[mode] = {"session_s": time.perf_counter() - t0,
+                          "bits_per_iter": engine._plan_bits(plan, mode)}
+        eng.run(1)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = eng.run(10)
+        torch.cuda.synchronize()
+        m["pagerank_s_per_iter"] = (time.perf_counter() - t0) / 10
+        m["launches"] = launches = dict(_build.LAUNCHES)
+        m["pagerank_max_rel_err"] = check_pagerank(
+            res.state.cpu().numpy(), want, f"numpy backend {mode} at scale")
+        if res.shuffle_bits != engine._plan_bits(plan, mode) * 10:
+            raise AssertionError(f"numpy backend {mode} at scale: shuffle "
+                                 "bits are not exact")
+        m.update(iteration_profile(torch, eng))
+        m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        if mode == "coded":
+            if launches.get("xor_encode_dense", 0) <= 0:
+                raise AssertionError("K1's dense form never launched on the "
+                                     "scale numpy-backend coded path")
+            pr = algo.pagerank()
+            ev = pr.map_edge_values_t(eng._dg, torch.as_tensor(
+                pr.init(g), device=dev)).contiguous()
+            hold_xor_routes(torch, eng, ev, "scale")
+            rec = xor_dense_record(torch, eng, ev)
+            rec["launches"] = launches["xor_encode_dense"]
+        del eng
+    return rec, info
+
+
+def modes_dense(torch, dev) -> dict:
+    """The dense path on the dense phase's graph (ER, n = 16,384, p = 0.01,
+    seed 5, padded to 16,392 for K = 4, r = 2): pagerank and sssp in every
+    mode, 3 iterations, against the dense NumPy oracle; the peak device
+    memory of these runs."""
+    from repro_torch import graphs
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.allocation import divisible_n, er_allocation
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+
+    g = graphs.erdos_renyi(DENSE_N, 0.01, seed=5)
+    n = divisible_n(g.n, 4, 2)
+    g = g.padded(n)
+    alloc = er_allocation(n, 4, 2)
+    plan = compile_plan_csr(g.csr, alloc)
+    info = {"n": n, "nnz": g.csr.nnz, "M": int(plan.all_k.size)}
+    t0 = time.perf_counter()
+    progs = {"pagerank": algo.pagerank(), "sssp": algo.sssp(0)}
+    oracle = {name: algo.reference_run(p, g, 3, path="dense")
+              for name, p in progs.items()}
+    info["oracle_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for mode in SPMV_MODES:
+        eng = engine.compile(algo.pagerank(), g, alloc, mode, path="dense",
+                             backend="numpy", plan=plan, device=dev)
+        for name, prog in progs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.with_program(prog).run(3)
+            torch.cuda.synchronize()
+            info[f"{mode}_{name}_s_per_iter"] = (time.perf_counter() - t0) / 3
+            err = check_state(res.state.cpu().numpy(), oracle[name], name,
+                              f"dense path {mode} {name}")
+            if err is not None:
+                info[f"{mode}_{name}_max_rel_err"] = err
+            bits = 0 if mode == "single" else engine._plan_bits(plan, mode)
+            if res.shuffle_bits != bits * 3:
+                raise AssertionError(f"dense path {mode} {name}: shuffle "
+                                     "bits are not exact")
+        del eng
+    info["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    info["mem_before_bytes"] = int(base)
+    return info
+
+
+def modes_coded_ref(torch, dev) -> dict:
+    """Mode coded-ref (the literal per-group reference, on the host, with
+    the Map and Reduce on the card) on ER n = 2,000 (padded to 2,004),
+    p = 0.02, seed 5, K = 4, r = 2, for 2 iterations: its delivered dict
+    equal to mode coded's on the dense path, its sssp state bitwise the
+    dense coded state, both against the dense NumPy oracle."""
+    from repro_torch import graphs
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.allocation import divisible_n, er_allocation
+    from repro_torch.core.coded_shuffle import run_coded
+
+    g = graphs.erdos_renyi(2_000, 0.02, seed=5)
+    n = divisible_n(g.n, 4, 2)
+    g = g.padded(n)
+    alloc = er_allocation(n, 4, 2)
+    info = {"n": n, "nnz": g.csr.nnz}
+    dense = engine.compile(algo.pagerank(), g, alloc, "coded", path="dense",
+                           backend="numpy", device=dev)
+    pr = algo.pagerank()
+    values = pr.map_values_t(g.dense_device_view(dev),
+                             torch.as_tensor(pr.init(g), device=dev))
+    host = values.contiguous().cpu().numpy()
+    ref = run_coded(g.adj, host, alloc)
+    bits = ref.bits_sent + engine._unicast_leftovers(g, alloc, host,
+                                                     ref.delivered)
+    res = dense.dplan.execute(values, "coded")
+    same_delivered(res.delivered, ref.delivered, "coded-ref vs dense coded")
+    if bits != res.bits_sent:
+        raise AssertionError("coded-ref bits differ from the dense coded bits")
+    cref = engine.compile(algo.pagerank(), g, alloc, "coded-ref", path="auto",
+                          backend="numpy", device=dev)
+    for name, prog in (("pagerank", pr), ("sssp", algo.sssp(0))):
+        t0 = time.perf_counter()
+        got = cref.with_program(prog).run(2)
+        torch.cuda.synchronize()
+        info[f"{name}_s_per_iter"] = (time.perf_counter() - t0) / 2
+        want = dense.with_program(prog).run(2)
+        oracle = algo.reference_run(prog, g, 2, path="dense")
+        for r_, what in ((got, "coded-ref"), (want, "dense coded")):
+            err = check_state(r_.state.cpu().numpy(), oracle, name,
+                              f"{what} {name}")
+            if err is not None:
+                info[f"{what}_{name}_max_rel_err"] = err
+        if name == "sssp" and not torch.equal(got.state.view(torch.int32),
+                                              want.state.view(torch.int32)):
+            raise AssertionError("coded-ref sssp not bitwise the dense coded")
+        if got.shuffle_bits != want.shuffle_bits:
+            raise AssertionError("coded-ref shuffle bits differ from coded")
+    return info
+
+
+def modes_phase(torch, dev, er: tuple, scale: tuple,
+                fused_scale: dict) -> tuple[dict, dict, dict]:
+    """The reference's default engine (backend="numpy") on the card: the
+    er-76k and scale sessions' graphs and plans (passed as `plan=`), the
+    dense path and coded-ref. Returns K1's dense-form records at the
+    er-76k and scale shapes and the info."""
+    rec_er, info_er = modes_er76k(torch, dev, er)
+    log(f"modes phase, er-76k ok: {json.dumps(info_er)}")
+    rec_scale, info_scale = modes_scale(torch, dev, scale, fused_scale)
+    log(f"modes phase, scale ok: {json.dumps(info_scale)}")
+    info_dense = modes_dense(torch, dev)
+    log(f"modes phase, dense path ok: {json.dumps(info_dense)}")
+    info_ref = modes_coded_ref(torch, dev)
+    log(f"modes phase, coded-ref ok: {json.dumps(info_ref)}")
+    return rec_er, rec_scale, {"er76k": info_er, "scale": info_scale,
+                               "dense": info_dense, "coded_ref": info_ref}
+
+
+# ---------------------------------------------------------------------------
 # serve phase: K6 / K7 and mamba2-370m at full width
 # ---------------------------------------------------------------------------
 
@@ -1561,11 +1889,13 @@ def main() -> int:
     records, result["slice"], er = slice_phase(torch, dev, SLICE_N)
     scale_records, result["scale"], scale = scale_phase(torch, dev, SCALE_N)
     k5_er, k5_scale, result["spmv"] = spmv_phase(torch, dev, er, scale)
+    k1d_er, k1d_scale, result["modes"] = modes_phase(torch, dev, er, scale,
+                                                     result["scale"])
     del er, scale
     k4, result["dense"] = dense_phase(torch, dev)
     k6, k7, result["serve"] = serve_phase(torch, dev, smi)
-    records += [k4, k5_er, k6, k7]
-    scale_records.append(k5_scale)
+    records += [k1d_er, k4, k5_er, k6, k7]
+    scale_records += [k5_scale, k1d_scale]
     result["kernels_scale"] = scale_records
     log("kernels at the scale shapes: " + json.dumps(scale_records))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,37 +1,55 @@
 """Coded MapReduce-on-graph engine on one card (paper §II-B execution model).
 
-Port of the reference package's `core/engine.py` for two of its sparse
-routes. A session compiles the coded multicast schedule once on the host
-(`compile_plan_csr`) and keeps the state on the device across iterations.
+Port of the reference package's `core/engine.py` (all of `CompiledEngine`
+but faults and topology). A session compiles the coded multicast schedule
+once on the host (`compile_plan_csr`) and keeps the state on the device
+across iterations. Three backends, the reference's names:
 
-backend="fused" (mode "coded"): the session partitions the plan per
-virtual server and uploads the tables (`FusedSparseShuffle`); every
-iteration then runs:
+backend="numpy" (the reference's default; every mode and path): the
+reference runs the plan's NumPy executors; here the same executors run on
+the session's device (`device_plan.DevicePlan`, uploaded once):
 
-  1. Map: the program's device form turns the state into [nnz] edge values
-     in CSR order (plain tensor code, bitwise the NumPy Map).
-  2. Shuffle: K1 encodes every server's coded buffer, K2 decodes every
-     receiver's deliveries (`fused_shuffle`).
-  3. Reduce: K3 gathers each CSR entry's value from the Map output or its
-     delivery slot (the plan's `edge_tables().gather`) and segment-reduces
-     the rows in canonical CSR entry order; the finalize is tensor code.
+  * sparse path (path="auto" for every built-in program, or "sparse"):
+    Map the [nnz] (or [nnz, B]) edge values (`map_edge_values_t`); move
+    the deliveries of mode "uncoded" / "coded-fast" with one gather, or
+    run the coded Shuffle (slot words, the XOR fold through K1's dense
+    form, strip, decode); then Reduce with K3 (`kernels/segment_reduce`)
+    over the Map output and the delivered codec-order words, in canonical
+    CSR entry order, and finalize. Mode "single" reduces the Map output
+    alone.
+  * dense path (path="dense", and mode "coded-ref"): Map the [n, n] values
+    (`map_values_t`), move the plan's deliveries with the dense executors,
+    and let each server reduce its own rows over its locally Mapped
+    columns plus its deliveries (`reduce_t`, tensor code); mode "single"
+    reduces everything at once. Mode "coded-ref" moves the [n, n] values
+    to the host for the literal per-group reference
+    (`coded_shuffle.run_coded` plus the leftover unicast) and reduces its
+    dict deliveries on the device.
+
+backend="fused" (mode "coded", sparse): the session partitions the plan per
+virtual server and uploads packed tables (`FusedSparseShuffle`); every
+iteration encodes every server's coded buffer with K1's packed form,
+decodes every receiver's deliveries with K2, and Reduces with K3 as above.
 
 backend="spmv" (modes "single", "uncoded", "coded", "coded-fast"; linear
-programs only): the plan's edge tables are built once as the coverage
-check, and nothing of the Shuffle is uploaded. Each iteration maps the
-state to per-source values (`map_source_t`), sums them over the CSR rows
-with K5 (`kernels/spmv`, one launch for [n, B] payloads) and finalizes.
-The Shuffle's bits are schedule-only, summed once when the session is
-built: 0 for single, `uncoded_bits`, `coded_bits + leftover_bits` or
-`coded_bits` per payload column and iteration.
+programs only, sparse): the plan's edge tables are built once as the
+coverage check, and nothing of the Shuffle is uploaded. Each iteration maps
+the state to per-source values (`map_source_t`), sums them over the CSR
+rows with K5 (`kernels/spmv`, one launch for [n, B] payloads) and
+finalizes.
 
-Min programs are bitwise equal to the sparse NumPy oracle
-(`algorithms.reference_run`); float sums agree within a stated tolerance
-(the kernels' sums against `np.add.reduceat`). `shuffle_bits` is exact.
+The Shuffle's bits are schedule-only: 0 for single, `uncoded_bits`,
+`coded_bits + leftover_bits` or `coded_bits` per payload column and
+iteration (coded-ref: what the literal reference sends, the same total).
+Delivered words are bitwise the NumPy executors'; min and integer programs
+are bitwise equal to the NumPy oracle of their path
+(`algorithms.reference_run`), float sums agree within a stated tolerance
+(the device's sums against NumPy's); `shuffle_bits` is exact.
 
-What the reference offers beyond these routes raises `NotImplementedError`
-naming the ROADMAP item that will bring it; what the reference rejects
-raises its `ValueError`.
+The port's defaults stay backend="fused", path="sparse". What the
+reference offers beyond these routes (faults, checkpoints, topology)
+raises `NotImplementedError` naming the ROADMAP item that will bring it;
+what the reference rejects raises its `ValueError`, in its order.
 """
 from __future__ import annotations
 
@@ -48,19 +66,20 @@ from ..obs import get_tracer
 from .algorithms import VertexProgram
 from .allocation import Allocation
 from .bitcodec import T_BITS
+from .coded_shuffle import run_coded
+from .device_plan import DevicePlan
 from .fused_shuffle import FusedSparseShuffle, _i32
 from .graph_models import Graph
 from .shuffle_plan import ShufflePlan, compile_plan_csr
+from .uncoded_shuffle import missing_pairs
 
 PLAN_MODES = ("uncoded", "coded", "coded-fast")
 MODES = ("single",) + PLAN_MODES + ("coded-ref",)
 # Per-backend accepted options (inline or `backend_opts=`), validated up
 # front as the reference does.
-_BACKEND_OPTS = {"fused": frozenset(), "spmv": frozenset({"bm"})}
+_BACKEND_OPTS = {"numpy": frozenset(), "fused": frozenset(),
+                 "spmv": frozenset({"bm"})}
 _NOT_PORTED = {
-    "dense": "ROADMAP Queue 1 #13 (path='dense')",
-    "numpy": "ROADMAP Queue 1 #13 (backend='numpy'; the NumPy executor is "
-             "ShufflePlan.execute_coded_sparse)",
     "topology": "ROADMAP Queue 1 #8 (two-level topology exchange)",
     "faults": "ROADMAP Queue 1 #9 (elastic and dynamic sessions)",
 }
@@ -79,15 +98,26 @@ def _plan_bits(plan: ShufflePlan, mode: str) -> int:
     return plan.uncoded_bits
 
 
-def _check_options(program: VertexProgram, mode: str, path: str,
-                   backend: str, topology, opts: dict) -> None:
-    """The reference's validation, in its order, for the ported routes."""
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
+def _use_sparse(program: VertexProgram, mode: str, path: str) -> bool:
     if path not in ("auto", "sparse", "dense"):
         raise ValueError(f"unknown path {path!r}")
-    if backend == "numpy":
-        raise _not_ported("backend='numpy'", "numpy")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "coded-ref":
+        if path == "sparse":
+            raise ValueError("coded-ref is the dense dict-delivery reference")
+        return False
+    if path == "sparse" and not program.supports_sparse:
+        raise ValueError(f"{program.name} has no edge-value (sparse) form")
+    return path != "dense" and program.supports_sparse
+
+
+def _check_options(program: VertexProgram, mode: str, path: str,
+                   backend: str, topology, opts: dict,
+                   alloc: Allocation | None) -> bool:
+    """The reference's validation, in its order; returns whether the
+    session runs the sparse path."""
+    sparse = _use_sparse(program, mode, path)
     if backend not in _BACKEND_OPTS:
         raise ValueError(f"unknown backend {backend!r}")
     unknown = sorted(set(opts) - _BACKEND_OPTS[backend])
@@ -99,21 +129,23 @@ def _check_options(program: VertexProgram, mode: str, path: str,
     if topology is not None:
         raise _not_ported("topology=", "topology")
     if backend == "spmv":
-        if path == "dense" or mode == "coded-ref":
-            raise ValueError("backend='spmv' requires the sparse path "
-                             f"(got mode={mode!r}, path={path!r})")
+        if not sparse:
+            raise ValueError("backend='spmv' requires the sparse path")
         if program.map_source_t is None:
             raise ValueError(
                 f"{program.name} is not linear (no map_source/finalize); "
                 "backend='spmv' needs a per-source Map and a sum Reduce")
         check_bm(opts.get("bm", 128))
-        return
-    if path == "dense":
-        raise _not_ported("path='dense'", "dense")
-    if mode != "coded":
-        raise ValueError(
-            "backend='fused' executes the coded multicast schedule; "
-            f"use mode='coded' (got {mode!r})")
+    if backend == "fused":
+        if not sparse:
+            raise ValueError("backend='fused' requires the sparse path")
+        if mode != "coded":
+            raise ValueError(
+                "backend='fused' executes the coded multicast schedule; "
+                f"use mode='coded' (got {mode!r})")
+        if alloc is None:
+            raise ValueError("backend='fused' needs an allocation")
+    return sparse
 
 
 @dataclasses.dataclass
@@ -139,12 +171,15 @@ class EngineResult:
 class CompiledEngine:
     """Compile-once session bound to (graph, allocation) on one device.
 
-    Holds the `ShufflePlan` and its CSR edge tables, and the tile table
-    of K3 / K5 (`kernels/csr_tiles`); for backend="fused" also the
-    exchange with its uploaded tables and the device gather table, for
-    backend="spmv" the device CSR arrays. All of it is
-    program-independent, so `with_program` rebinds the vertex program for
-    free.
+    Holds the `ShufflePlan` and its CSR edge tables and, per route, what
+    it uploads once: the tile table of K3 / K5 (`kernels/csr_tiles`) and
+    the Map's device graph on the sparse path; the exchange with its
+    tables and the Reduce gather table for backend="fused"; the device
+    CSR for backend="spmv"; the plan executors' tables
+    (`device_plan.DevicePlan`) and the Reduce gather table for
+    backend="numpy"; the [n, n] device graph and each server's Reduce
+    rows on the dense path. All of it is program-independent, so
+    `with_program` rebinds the vertex program for free.
     """
 
     def __init__(self, program: VertexProgram, g: Graph,
@@ -154,41 +189,74 @@ class CompiledEngine:
                  device: str | torch.device | None = "cuda",
                  topology=None, backend_opts: dict | None = None, **opts):
         opts = {**(backend_opts or {}), **opts}
-        _check_options(program, mode, path, backend, topology, opts)
-        if backend == "fused" and alloc is None:
-            raise ValueError("the coded engine needs an allocation")
+        self.sparse = _check_options(program, mode, path, backend, topology,
+                                     opts, alloc)
         self.device = resolve_device(device)
         self.program = program
         self.g = g
         self.alloc = alloc
         self.mode = mode
-        self.path = path
+        self.path = path                      # as requested ("auto" kept)
         self.backend = backend
         self.backend_opts = opts
         self.distributed = mode != "single" and alloc is not None
-        if self.distributed and plan is None:
+        planned = self.distributed and mode in PLAN_MODES
+        if planned and plan is None:
+            # Uncoded only consumes the missing set; skip the column tables.
             with get_tracer().span("engine.compile", mode=mode,
                                    backend=backend, n=g.n, K=alloc.K):
                 plan = compile_plan_csr(g.csr, alloc,
                                         schedule=mode != "uncoded")
-        elif self.distributed:
+        elif planned:
             plan.check_alloc(alloc)
         self.plan = plan
         # Built for the coverage check even where nothing is uploaded.
-        self.tables = (plan.edge_tables(g.csr, alloc) if self.distributed
-                       else None)
-        self._bits = _plan_bits(plan, mode) if self.distributed else 0
+        self.tables = (plan.edge_tables(g.csr, alloc)
+                       if planned and self.sparse else None)
+        self._bits = _plan_bits(plan, mode) if planned else 0
+        if not self.sparse:
+            self._dense_session(planned)
+            return
         self._indptr = _i32(g.csr.indptr, self.device)
-        # K3's and K5's tile table: built once, for either route.
+        # K3's and K5's tile table: built once, for any sparse route.
         self._tiles = _i32(tile_rows(g.csr.indptr), self.device)
         self._dg = g.device_view(self.device)
+        if backend == "spmv":
+            self.bm = check_bm(opts.get("bm", 128))
+            self._indices = _i32(g.csr.indices, self.device)
+            return
         if backend == "fused":
             self.fused = FusedSparseShuffle(plan, g.csr, alloc,
                                             device=self.device)
-            self._gather = _i32(self.tables.gather, self.device)
-        else:
-            self.bm = check_bm(opts.get("bm", 128))
-            self._indices = _i32(g.csr.indices, self.device)
+        elif planned:
+            self.dplan = DevicePlan(plan, self.device, tables=self.tables)
+        self._gather = _i32(self.tables.gather if planned
+                            else np.arange(g.csr.nnz), self.device)
+
+    def _dense_session(self, planned: bool) -> None:
+        """The dense path's uploads: the [n, n] device graph, the plan's
+        dense tables and, per server, its Reduce rows, its Map columns and
+        where each of its deliveries lands in its [rows, n] value block."""
+        g, alloc, dev = self.g, self.alloc, self.device
+        self._dd = g.dense_device_view(dev)
+        if planned:
+            self.dplan = DevicePlan(self.plan, dev, dense=True)
+        self._servers = []
+        if not self.distributed:
+            return
+        for k in range(alloc.K):
+            rows = np.flatnonzero(alloc.reduce_owner == k)
+            local = np.zeros(g.n, dtype=np.int64)
+            local[rows] = np.arange(rows.size)
+            land = None
+            if planned:
+                a, b = int(self.plan.ptr[k]), int(self.plan.ptr[k + 1])
+                land = (torch.from_numpy(local[self.plan.all_i[a:b]] * g.n
+                                         + self.plan.all_j[a:b]).to(dev),
+                        a, b)
+            self._servers.append((
+                torch.from_numpy(rows).to(dev),
+                torch.from_numpy(alloc.map_sets[k]).to(dev), local, land))
 
     @property
     def schedule_bits(self) -> int:
@@ -200,7 +268,7 @@ class CompiledEngine:
         """Rebind the vertex program on the same compiled artifacts (plan,
         edge tables, uploaded exchange and reduce tables carry over)."""
         _check_options(program, self.mode, self.path, self.backend, None,
-                       self.backend_opts)
+                       self.backend_opts, self.alloc)
         eng = object.__new__(CompiledEngine)
         eng.__dict__.update(self.__dict__)
         eng.program = program
@@ -212,32 +280,108 @@ class CompiledEngine:
     def update(self, delta):
         raise _not_ported("CompiledEngine.update", "faults")
 
-    def _step(self, state: torch.Tensor) -> torch.Tensor:
-        """One Map -> Shuffle -> Reduce round on the device."""
+    def _sync(self, tr) -> None:
+        if tr.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _step(self, state: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """One Map -> Shuffle -> Reduce round on the device; returns
+        (state', bits sent)."""
+        if not self.sparse:
+            return self._step_dense(state)
         program, tr = self.program, get_tracer()
+        B = 1 if state.dim() == 1 else int(state.shape[1])
         if self.backend == "spmv":
             # Coverage was checked when `tables` was built, so each row
             # sums its full CSR slice; the Shuffle only adds its bits.
             with tr.span("phase.map", n=self.g.n):
                 c = program.map_source_t(self._dg, state).contiguous()
+                self._sync(tr)
             with tr.span("phase.reduce", nnz=self.g.csr.nnz):
                 acc = spmv_csr(self._indptr, self._indices, c, bm=self.bm,
                                tiles=self._tiles)
                 state = program.finalize_t(acc, state, self._dg)
-                if tr.enabled and self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-            return state
+                self._sync(tr)
+            return state, self._bits * B
         with tr.span("phase.map", nnz=self.g.csr.nnz):
             edge_vals = program.map_edge_values_t(self._dg, state).contiguous()
-        words = self.fused.exchange(edge_vals)
+            self._sync(tr)
+        # The exchange emits phase.encode / .exchange / .decode spans.
+        if self.backend == "fused":
+            words = self.fused.exchange(edge_vals)
+        elif self.distributed:
+            words = self.dplan.words(edge_vals, self.mode)
+        else:
+            words = torch.zeros((0,) + tuple(edge_vals.shape[1:]),
+                                dtype=torch.int32, device=self.device)
         with tr.span("phase.reduce", nnz=self.g.csr.nnz):
             acc = segment_reduce(edge_vals, words, self._gather, self._indptr,
                                  program.reduce_op, program.identity,
                                  tiles=self._tiles)
             state = program.finalize_t(acc, state, self._dg)
-            if tr.enabled and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        return state
+            self._sync(tr)
+        return state, self._bits * B
+
+    def _step_dense(self, state: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """The paper-literal [n, n] round: Map every value, move the plan's
+        deliveries (or the literal per-group reference's, mode coded-ref)
+        and let each server reduce its own rows."""
+        program, dd, tr = self.program, self._dd, get_tracer()
+        with tr.span("phase.map"):
+            values = program.map_values_t(dd, state)
+            self._sync(tr)
+        if not self.distributed:
+            with tr.span("phase.reduce"):
+                state = program.reduce_t(values, dd.adj, state, dd)
+                self._sync(tr)
+            return state, 0
+        if self.mode in PLAN_MODES:
+            res = self.dplan.execute(values, self.mode)
+            land = [(idx, res.values[a:b]) for _, _, _, (idx, a, b)
+                    in self._servers]
+            bits = res.bits_sent
+        else:                                           # coded-ref
+            with tr.span("phase.exchange", mode=self.mode) as sp:
+                host = values.contiguous().cpu().numpy()
+                ref = run_coded(self.g.adj, host, self.alloc)
+                bits = ref.bits_sent + _unicast_leftovers(
+                    self.g, self.alloc, host, ref.delivered)
+                sp.set(bits=bits)
+            land = self._land_delivered(ref.delivered)
+        with tr.span("phase.reduce"):
+            new = torch.empty_like(state)
+            for (rows, cols, _, _), (idx, vals) in zip(self._servers, land):
+                # Locally Mapped columns, the identity elsewhere, then the
+                # deliveries; reduce_t is row-wise, so the rows suffice.
+                vk = torch.where(cols, values[rows], program.identity)
+                vk.view(-1)[idx] = vals
+                new[rows] = program.reduce_t(vk, dd.adj[rows], state[rows], dd)
+            self._sync(tr)
+        return new, bits
+
+    def _land_delivered(self, delivered: dict) -> list:
+        """Dict deliveries (coded-ref) as each server's landing positions
+        and values on the device, after the reference's check that every
+        server now holds each value it needs (catches schedule bugs)."""
+        n, land = self.g.n, []
+        for k, (rows, cols, local, _) in enumerate(self._servers):
+            keys = [ij for ij in delivered[k]
+                    if self.alloc.reduce_owner[ij[0]] == k]
+            ij = np.array(keys, dtype=np.int64).reshape(-1, 2)
+            idx = torch.from_numpy(local[ij[:, 0]] * n + ij[:, 1]).to(self.device)
+            vals = torch.from_numpy(np.array(
+                [delivered[k][key] for key in keys], dtype=np.float32)
+            ).to(self.device)
+            have = cols.expand(rows.numel(), n).clone()
+            have.view(-1)[idx] = True
+            miss = torch.nonzero(self._dd.adj[rows] & ~have)
+            if miss.numel():
+                miss = miss[:5].cpu().numpy()
+                miss[:, 0] = rows.cpu().numpy()[miss[:, 0]]
+                raise RuntimeError(
+                    f"server {k} missing values, e.g. {miss.tolist()}")
+            land.append((idx, vals))
+        return land
 
     def run(self, iters: int, state=None, *, fault_schedule=None,
             checkpoint=None) -> EngineResult:
@@ -250,15 +394,16 @@ class CompiledEngine:
         state = torch.as_tensor(state, dtype=torch.float32,
                                 device=self.device).contiguous()
         B = 1 if state.dim() == 1 else int(state.shape[1])
-        bits = self.schedule_bits * B
-        with get_tracer().span("engine.run", mode=self.mode,
-                               backend=self.backend, iters=iters, B=B) as sp:
+        tr, total = get_tracer(), 0
+        with tr.span("engine.run", mode=self.mode, backend=self.backend,
+                     iters=iters, B=B) as sp:
             for it in range(iters):
-                with get_tracer().span("engine.iteration", iteration=it,
-                                       bits=bits):
-                    state = self._step(state)
-            sp.set(shuffle_bits=bits * iters)
-        return EngineResult(state, iters, bits * iters, self.mode)
+                with tr.span("engine.iteration", iteration=it) as it_sp:
+                    state, bits = self._step(state)
+                    it_sp.set(bits=bits)
+                total += bits
+            sp.set(shuffle_bits=total)
+        return EngineResult(state, iters, total, self.mode)
 
     def run_batch(self, states, iters: int) -> EngineResult:
         """Run B queries on ONE Shuffle exchange per iteration.
@@ -266,6 +411,10 @@ class CompiledEngine:
         `states` is [n, B] (or a sequence of B [n] columns, stacked here);
         `shuffle_bits` is exactly B x the single-query schedule bits.
         """
+        if not self.sparse:
+            raise ValueError(
+                "run_batch needs the sparse path (dense [n, n] value "
+                "matrices have no query axis)")
         if isinstance(states, (list, tuple)):
             st = np.stack([np.asarray(s, dtype=np.float32) for s in states],
                           axis=1)
@@ -314,3 +463,16 @@ def run(program: VertexProgram, g: Graph, alloc: Allocation | None,
 
 def restore(*_args, **_kwargs):
     raise _not_ported("engine.restore", "faults")
+
+
+def _unicast_leftovers(g: Graph, alloc: Allocation, values: np.ndarray,
+                       delivered: dict[int, dict[tuple[int, int], float]]) -> int:
+    """Unicast whatever the coded groups did not cover (e.g. the phase-III
+    spill Reducers of the bi-partite allocation, Appendix A)."""
+    bits = 0
+    for k in range(alloc.K):
+        for i, j in missing_pairs(g.adj, alloc, k):
+            if (int(i), int(j)) not in delivered[k]:
+                delivered[k][(int(i), int(j))] = float(values[i, j])
+                bits += T_BITS
+    return bits

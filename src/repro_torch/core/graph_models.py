@@ -22,7 +22,9 @@ of the sparse path.
 
 `Graph.device_view(device)` uploads the tensors the device Map needs once
 per device (column indices, clamped degrees, SSSP edge weights) and caches
-them on the graph.
+them on the graph; `Graph.dense_device_view(device)` does the same for the
+dense [n, n] path (adjacency, and the SSSP weight matrix on first use),
+under the same `dense_limit` guard as `adj`.
 """
 from __future__ import annotations
 
@@ -88,6 +90,33 @@ class DeviceGraph:
     edge_weights: torch.Tensor   # [nnz] float64 (SSSP weights, CSR order)
 
 
+class DenseDeviceGraph:
+    """The [n, n] tensors the dense device Map and Reduce read, built on
+    the device from the CSR view (never through a host [n, n] buffer)."""
+
+    def __init__(self, g: "Graph", device: torch.device):
+        csr = g.csr
+        self.n = g.n
+        self.device = device
+        self._rows = torch.from_numpy(csr.rows.astype(np.int64)).to(device)
+        self._cols = torch.from_numpy(csr.indices.astype(np.int64)).to(device)
+        self._edge_weights = g.edge_weights
+        self.adj = torch.zeros((g.n, g.n), dtype=torch.bool, device=device)
+        self.adj[self._rows, self._cols] = True
+        self.deg = torch.from_numpy(
+            np.maximum(g.degrees(), 1).astype(np.float32)).to(device)
+
+    @functools.cached_property
+    def weights(self) -> torch.Tensor:
+        """[n, n] float64 SSSP weights, +inf on non-edges (`Graph.weights`
+        on the device)."""
+        w = torch.full((self.n, self.n), float("inf"), dtype=torch.float64,
+                       device=self.device)
+        w[self._rows, self._cols] = torch.from_numpy(
+            np.ascontiguousarray(self._edge_weights())).to(self.device)
+        return w
+
+
 class Graph:
     """An undirected graph realization plus the model metadata.
 
@@ -104,6 +133,7 @@ class Graph:
         self.model = model
         self.params = {} if params is None else params
         self.dense_limit = int(dense_limit)
+        self._dense_built = adj is not None
         if adj is not None:
             adj = np.asarray(adj)
             self._adj = adj if adj.dtype == bool else adj.astype(bool)
@@ -231,6 +261,35 @@ class Graph:
             w = w_upper[np.searchsorted(ukey[upper], ukey)]
             self.__dict__[key] = w
         return w
+
+    def weights(self, low: float = 0.5, high: float = 1.5) -> np.ndarray:
+        """Dense [n, n] scatter of `edge_weights()`; +inf on non-edges.
+
+        Cached per (low, high) and guarded like `adj` on CSR-native graphs
+        (this float64 view is 8x the bool adjacency). Only the dense NumPy
+        oracle calls this - the sparse path consumes `edge_weights()`.
+        """
+        key = ("_weights", float(low), float(high))
+        w = self.__dict__.get(key)
+        if w is None:
+            if not self._dense_built:
+                self._check_dense("weights()")
+            w = np.full((self._n, self._n), np.inf)
+            w[self.csr.rows, self.csr.indices] = self.edge_weights(low, high)
+            self.__dict__[key] = w
+        return w
+
+    def dense_device_view(self, device: torch.device) -> DenseDeviceGraph:
+        """The dense path's [n, n] tensors on `device`, built once and
+        cached; guarded by `dense_limit` like `adj` on CSR-native graphs."""
+        device = torch.device(device)
+        cache = self.__dict__.setdefault("_dense_device_views", {})
+        dd = cache.get(device)
+        if dd is None:
+            if not self._dense_built:
+                self._check_dense("the dense device view")
+            dd = cache[device] = DenseDeviceGraph(self, device)
+        return dd
 
     def device_view(self, device: torch.device) -> DeviceGraph:
         """The device Map's tensors on `device`, uploaded once and cached."""

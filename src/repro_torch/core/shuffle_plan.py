@@ -1,11 +1,15 @@
 """Compile-once / execute-many coded Shuffle plan (paper §IV-A), NumPy host side.
 
-A copy of the parts of the reference package's `core/shuffle_plan.py` that
-the coded PageRank session needs: the CSR compiler (`compile_plan_csr`),
-the plan's exact bit accounting, its CSR bindings (`edge_tables`) and the
-NumPy sparse executor (`execute_coded_sparse`), which is the oracle the
-device exchange is held to. Every array it emits is bitwise equal to the
-reference's for the same (graph, allocation).
+A copy of the flat parts of the reference package's `core/shuffle_plan.py`:
+the compilers (`compile_plan` from a dense adjacency, `compile_plan_csr`
+from a CSR view), the plan's exact bit accounting, its CSR bindings
+(`edge_tables`) and the NumPy executors of every plan mode, dense
+(`execute`, `execute_coded` / `execute_fast` / `execute_uncoded`) and
+sparse (`execute_sparse` and its three forms). The NumPy executors are the
+oracle that the device executors (`device_plan.DevicePlan`, the engine's
+`backend="numpy"`) and the fused exchange are held to. Every array it
+emits is bitwise equal to the reference's for the same (graph,
+allocation).
 
 The multicast schedule of the coded scheme is fixed by the graph realization
 and the allocation alone - it never depends on the Map values - so
@@ -31,12 +35,15 @@ bits-on-the-wire, depend only on the schedule and are summed at compile time.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
 
 from ..obs import get_tracer
 from .allocation import Allocation
-from .bitcodec import (T_BITS, floats_to_words, segment_bounds, segment_words,
+from .bitcodec import (T_BITS, floats_to_words, np_words_to_t,
+                       segment_bounds, segment_words, t_words_to_np,
                        words_to_floats)
 from .graph_models import CSR
 
@@ -50,6 +57,11 @@ def _batch_width(vals: np.ndarray) -> int:
 class PlanShuffleResult:
     """One executed Shuffle: delivery arrays (sorted by receiver) + load.
 
+    Array-form counterpart of `uncoded_shuffle.ShuffleResult`; `delivered`
+    materializes the legacy dict layout lazily for compatibility/tests.
+    `values` is a NumPy array from the host executors and a device tensor
+    from `device_plan.DevicePlan` (the index arrays stay on the host).
+
     Batched execution (values [M, B]) delivers B independent query payloads
     through the one schedule; `bits_sent` then counts all B payload columns
     (B x the single-query schedule bits - the schedule itself never grows).
@@ -58,7 +70,7 @@ class PlanShuffleResult:
     k: np.ndarray                # [M] int32 receiving server, ascending
     i: np.ndarray                # [M] int32 row index of the value
     j: np.ndarray                # [M] int32 column index of the value
-    values: np.ndarray           # [M] (or [M, B]) float32 recovered values
+    values: np.ndarray | torch.Tensor  # [M] (or [M, B]) float32 recovered values
     ptr: np.ndarray              # [K+1] CSR offsets into the arrays per server
     bits_sent: int
     n: int
@@ -72,6 +84,22 @@ class PlanShuffleResult:
     def normalized_load(self) -> float:
         """Definition 2, per query: bits / (B n^2 T)."""
         return self.bits_sent / (self.batch * self.n * self.n * T_BITS)
+
+    @functools.cached_property
+    def delivered(self) -> dict[int, dict[tuple[int, int], float]]:
+        """Legacy per-value dict layout, built once on the host and cached
+        (tests and the coded-ref comparison path access it repeatedly)."""
+        values = self.values
+        if isinstance(values, torch.Tensor):
+            values = values.detach().cpu().numpy()
+        if values.ndim != 1:
+            raise ValueError("delivered dict layout is single-query only; "
+                             "index a batched result's values [M, B] instead")
+        out: dict[int, dict[tuple[int, int], float]] = {
+            k: {} for k in range(len(self.ptr) - 1)}
+        for k, i, j, v in zip(self.k, self.i, self.j, values):
+            out[int(k)][(int(i), int(j))] = float(v)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,8 +240,25 @@ class ShufflePlan:
         return ((words[self.slot_pair] << self.slot_shift[..., None])
                 & self.slot_mask[..., None])
 
-    def _coded_result(self, pair_vals: np.ndarray,
-                      left_vals: np.ndarray) -> PlanShuffleResult:
+    def execute_coded(self, values: np.ndarray, *,
+                      backend: str = "numpy") -> PlanShuffleResult:
+        """One bit-exact coded Shuffle (multicast groups + unicast leftovers).
+
+        backend:
+          "numpy"      - vectorized uint32 XOR (fast path).
+          "xor-kernel" - column XOR-reduce through `kernels/xor_code`'s
+                         column routes (K1's dense form on CUDA tensors, its
+                         plain version on these host ones).
+          "xor-ref"    - the same route through the plain version (the
+                         kernel oracle).
+        """
+        self._require_schedule()
+        return self._coded_result(values[self.pair_i, self.pair_j],
+                                  values[self.left_i, self.left_j],
+                                  backend=backend)
+
+    def _coded_result(self, pair_vals: np.ndarray, left_vals: np.ndarray, *,
+                      backend: str = "numpy") -> PlanShuffleResult:
         """Coded encode/decode from already-gathered scheduled values.
 
         Batched pair_vals [P, B] / left_vals [L, B] ride the identical
@@ -225,13 +270,24 @@ class ShufflePlan:
         batched = pair_vals.ndim == 2
         tr = get_tracer()
         B = int(pair_vals.shape[1]) if batched else 1
-        with tr.span("phase.encode", backend="numpy", B=B,
+        with tr.span("phase.encode", backend=backend, B=B,
                      words=int(self.col_width.size)):
             slotw = self._slot_words(pair_vals)
-            coded = np.bitwise_xor.reduce(slotw, axis=1)
-            # Receiver's strip = XOR of the other slots (locally
-            # recomputable: it Mapped those batches).
-            strip = coded[:, None] ^ slotw
+            if backend == "numpy":
+                coded = np.bitwise_xor.reduce(slotw, axis=1)
+                # Receiver's strip = XOR of the other slots (locally
+                # recomputable: it Mapped those batches).
+                strip = coded[:, None] ^ slotw
+            elif backend in ("xor-kernel", "xor-ref"):
+                from ..kernels.xor_code import ops as xor_ops
+                use_kernel = backend == "xor-kernel"
+                sw = np_words_to_t(slotw)
+                coded = t_words_to_np(xor_ops.xor_encode_columns(
+                    sw, use_kernel=use_kernel))
+                strip = t_words_to_np(xor_ops.xor_strip_columns(
+                    sw, use_kernel=use_kernel))
+            else:
+                raise ValueError(f"unknown backend {backend!r}")
         bits = (self.coded_bits + self.leftover_bits) * B
         # In-process execution moves no real bytes, so the exchange span is
         # an instant stamp carrying the schedule's bits-on-the-wire; the
@@ -253,6 +309,35 @@ class ShufflePlan:
             out[self.pos_left] = left_vals
         return PlanShuffleResult(self.all_k, self.all_i, self.all_j, out,
                                  self.ptr, bits, self.n)
+
+    def _direct_result(self, vals: np.ndarray, bits: int) -> PlanShuffleResult:
+        out = np.ascontiguousarray(vals, np.float32)
+        total = bits * _batch_width(out)
+        with get_tracer().span("phase.exchange", bits=total,
+                               B=_batch_width(out), values=int(out.shape[0])):
+            pass
+        return PlanShuffleResult(self.all_k, self.all_i, self.all_j, out,
+                                 self.ptr, total, self.n)
+
+    def execute_fast(self, values: np.ndarray) -> PlanShuffleResult:
+        """Coded loads with direct value movement (legacy "coded-fast")."""
+        self._require_schedule()
+        return self._direct_result(values[self.all_i, self.all_j],
+                                   self.coded_bits)
+
+    def execute_uncoded(self, values: np.ndarray) -> PlanShuffleResult:
+        """Baseline unicast Shuffle off the same compiled missing set."""
+        return self._direct_result(values[self.all_i, self.all_j],
+                                   self.uncoded_bits)
+
+    def execute(self, values: np.ndarray, mode: str) -> PlanShuffleResult:
+        if mode == "coded":
+            return self.execute_coded(values)
+        if mode == "coded-fast":
+            return self.execute_fast(values)
+        if mode == "uncoded":
+            return self.execute_uncoded(values)
+        raise ValueError(f"unknown plan mode {mode!r}")
 
     # ---- sparse (O(edges)) executors ----
 
@@ -299,14 +384,34 @@ class ShufflePlan:
         return tables
 
     def execute_coded_sparse(self, edge_vals: np.ndarray,
-                             tables: PlanEdgeTables) -> PlanShuffleResult:
-        """Coded Shuffle from a [nnz] edge-value vector (NumPy, the oracle
-        of the device exchange). Batched edge_vals [nnz, B] carry B query
-        payloads through the one schedule (values [M, B] out, bits = B x
-        schedule bits)."""
+                             tables: PlanEdgeTables, *,
+                             backend: str = "numpy") -> PlanShuffleResult:
+        """Coded Shuffle from a [nnz] edge-value vector; bit-exact against
+        `execute_coded` on the dense scatter of the same values. Batched
+        edge_vals [nnz, B] carry B query payloads through the one schedule
+        (values [M, B] out, bits = B x schedule bits)."""
         self._require_schedule()
         return self._coded_result(edge_vals[tables.pair_e],
-                                  edge_vals[tables.left_e])
+                                  edge_vals[tables.left_e], backend=backend)
+
+    def execute_fast_sparse(self, edge_vals: np.ndarray,
+                            tables: PlanEdgeTables) -> PlanShuffleResult:
+        self._require_schedule()
+        return self._direct_result(edge_vals[tables.all_e], self.coded_bits)
+
+    def execute_uncoded_sparse(self, edge_vals: np.ndarray,
+                               tables: PlanEdgeTables) -> PlanShuffleResult:
+        return self._direct_result(edge_vals[tables.all_e], self.uncoded_bits)
+
+    def execute_sparse(self, edge_vals: np.ndarray, mode: str,
+                       tables: PlanEdgeTables) -> PlanShuffleResult:
+        if mode == "coded":
+            return self.execute_coded_sparse(edge_vals, tables)
+        if mode == "coded-fast":
+            return self.execute_fast_sparse(edge_vals, tables)
+        if mode == "uncoded":
+            return self.execute_uncoded_sparse(edge_vals, tables)
+        raise ValueError(f"unknown plan mode {mode!r}")
 
 
 def _run_ranks(*keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -323,6 +428,27 @@ def _run_ranks(*keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     counts = np.diff(np.append(starts, m))
     rank = np.arange(m) - np.repeat(starts, counts)
     return run, rank
+
+
+def compile_plan(adj: np.ndarray, alloc: Allocation,
+                 validate: bool = True,
+                 schedule: bool = True) -> ShufflePlan:
+    """Compile the full coded-Shuffle schedule of (adj, alloc); see module doc.
+
+    `schedule=False` compiles only the missing set + per-server CSR (all the
+    uncoded executor needs), skipping the column/slot table construction;
+    the coded executors and load accounting then raise on use.
+    `compile_plan_csr` compiles the *identical* plan from a CSR view:
+    `np.nonzero(adj)` order is exactly the canonical CSR entry order.
+    """
+    with get_tracer().span("plan.compile", entry="dense", n=alloc.n,
+                           K=alloc.K, r=alloc.r) as sp:
+        ii, jj = np.nonzero(adj)
+        plan = _compile_edges(ii, jj, alloc, schedule)
+        if validate:
+            _validate(plan, adj, alloc)
+        _stamp_plan(sp, plan, int(ii.size))
+    return plan
 
 
 def compile_plan_csr(csr: CSR, alloc: Allocation,
@@ -488,6 +614,22 @@ def _compile_missing(ii: np.ndarray, jj: np.ndarray, kk: np.ndarray,
         all_k=all_k, all_i=all_i, all_j=all_j,
         pos_covered=inv[:P], pos_left=inv[P:], ptr=ptr)
 
+
+
+def _validate(plan: ShufflePlan, adj: np.ndarray, alloc: Allocation) -> None:
+    """Compile-time schedule check (replaces the per-iteration engine scan):
+    the plan's delivery set must be exactly what each Reducer is missing."""
+    from .uncoded_shuffle import missing_pairs
+
+    for k in range(alloc.K):
+        need = missing_pairs(adj, alloc, k)          # (i, j)-sorted
+        a, b = int(plan.ptr[k]), int(plan.ptr[k + 1])
+        got = np.column_stack([plan.all_i[a:b], plan.all_j[a:b]])
+        if got.shape != need.shape or not (got == need).all():
+            raise AssertionError(
+                f"server {k}: plan delivers {b - a} values, "
+                f"Reducer misses {len(need)} (or sets differ)")
+    _validate_slots(plan)
 
 
 def _validate_csr(plan: ShufflePlan, csr: CSR, alloc: Allocation) -> None:

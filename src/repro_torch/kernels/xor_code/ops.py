@@ -4,13 +4,16 @@ Same contracts as `repro.kernels.xor_code.ops` (words are int32 tensors
 holding the uint32 bits). On CUDA tensors they launch the hand-written
 kernels of `xor_code.py`; on CPU tensors those wrappers run the plain
 versions in `ref.py`. The reference's 128-lane TPU tile fold has no
-counterpart: the CUDA kernels take the columns as they are.
+counterpart: the CUDA kernels take the columns as they are. The column
+routes (`xor_encode_columns`, `xor_strip_columns`) are what the plan
+executors of `core/device_plan.py` fold their [C, r(, B)] slot words with.
 """
 from __future__ import annotations
 
 import torch
 
-from .xor_code import xor_encode_dense, xor_encode_gather
+from . import ref
+from .xor_code import MAX_R, xor_encode_dense, xor_encode_gather
 
 
 def xor_encode(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -24,28 +27,51 @@ def xor_decode(coded: torch.Tensor, known_rows: torch.Tensor,
     return coded ^ xor_encode(known_rows, known_valid)
 
 
-def xor_encode_columns(slot_words: torch.Tensor) -> torch.Tensor:
+def _check_columns(slot_words: torch.Tensor) -> None:
+    """The column routes' shapes, refused alike on every device."""
+    if slot_words.dim() not in (2, 3):
+        raise ValueError("slot words must be [C, r] or [C, r, B], got "
+                         f"{tuple(slot_words.shape)}")
+    r = slot_words.shape[1]
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"r = {r} slots: the column routes take "
+                         f"1 <= r <= {MAX_R}")
+
+
+def xor_encode_columns(slot_words: torch.Tensor, *,
+                       use_kernel: bool = True) -> torch.Tensor:
     """[C, r] slot words -> [C] coded columns; [C, r, B] -> [C, B].
 
-    Invalid slots are zero words, so every slot is valid to the kernel.
+    The plan executors' route to K1's dense form: rows [r, C, W] with W = 1
+    or B. Invalid slots are zero words, so every slot is valid to the
+    kernel. C = 0 (an empty schedule) returns an empty tensor without a
+    launch. `use_kernel=False` runs the plain version on any device (the
+    reference's "xor-ref" oracle route).
     """
+    _check_columns(slot_words)
+    C, r = slot_words.shape[:2]
+    if C == 0:                     # empty schedule: nothing to multicast
+        return slot_words.new_zeros((0,) + tuple(slot_words.shape[2:]))
     if slot_words.dim() == 3:                      # [C, r, B] payloads
         rows = slot_words.permute(1, 0, 2).contiguous()       # [r, C, B]
     else:
         rows = slot_words.t().contiguous()[..., None]         # [r, C, 1]
-    valid = torch.ones(rows.shape[:2], dtype=torch.bool, device=rows.device)
-    out = xor_encode(rows, valid)
+    valid = torch.ones((r, C), dtype=torch.bool, device=rows.device)
+    out = (xor_encode(rows, valid) if use_kernel
+           else ref.xor_encode(rows, valid))
     return out if slot_words.dim() == 3 else out[:, 0]
 
 
-def xor_strip_columns(slot_words: torch.Tensor) -> torch.Tensor:
+def xor_strip_columns(slot_words: torch.Tensor, *,
+                      use_kernel: bool = True) -> torch.Tensor:
     """Per-slot strip words: strip[:, t] = XOR of the OTHER slots ([C, r]
-    or [C, r, B] in, same shape out)."""
+    or [C, r, B] in, same shape out); one column encode per slot."""
+    _check_columns(slot_words)
     cols = []
     for t in range(slot_words.shape[1]):
         others = slot_words.clone()
         others[:, t] = 0
-        cols.append(xor_encode_columns(others))
+        cols.append(xor_encode_columns(others, use_kernel=use_kernel))
     return torch.stack(cols, dim=1)
 
 

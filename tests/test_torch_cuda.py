@@ -15,9 +15,12 @@ scatter plain version, both bitwise repeatable and K5 the same for every
 `bm`; K4 at float32 rtol 1e-4 / atol 1e-5 and float16 2e-3; K6 within
 rtol 1e-4 and atol 1e-4 * max|plain|, in float32 and on the serve path's
 bf16 inputs with B / C shared by the heads, one shot and staged in parts
-up to Q = 256, K7 bitwise), small coded and spmv sessions (ER, a power-law
-graph with a row longer than a tile, r = 33 and 64) against the NumPy
-oracle, and the reduced mamba2-370m served on the card (the kernel prefill
+up to Q = 256, K7 bitwise; K1's dense form through the column routes at
+C = 0, r = 64 and r = 65, refused), small coded and spmv sessions (ER, a
+power-law graph with a row longer than a tile, r = 33 and 64) and
+`backend="numpy"` sessions in every mode and path against the NumPy
+oracle, the plan executor's coded words with every codec word's top bit
+set bitwise the NumPy executor's on every XOR route, and the reduced mamba2-370m served on the card (the kernel prefill
 against the plain chunked prefill and the decode loop). Whether a card
 exists is decided inside the `cuda` fixture, never at import time.
 """
@@ -162,6 +165,94 @@ def test_session_matches_oracle_and_launches_kernels(cuda):
     want = algo.reference_run(algo.sssp(0), g, 10)
     np.testing.assert_array_equal(sssp.state.cpu().numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+@pytest.mark.parametrize("mode,path", [
+    ("single", "auto"), ("uncoded", "auto"), ("coded", "auto"),
+    ("coded-fast", "auto"), ("single", "dense"), ("uncoded", "dense"),
+    ("coded", "dense"), ("coded-fast", "dense"), ("coded-ref", "dense")])
+def test_numpy_backend_modes_on_the_card(cuda, mode, path):
+    """backend="numpy" (the plan executors on the card) against the NumPy
+    oracle of its path: sssp bitwise, pagerank within rtol 1e-5, exact
+    bits; the coded route launches K1's dense form every iteration and
+    the sparse path K3."""
+    n = divisible_n(400, 4, 2)
+    g = graphs.erdos_renyi(n, 0.03, seed=3)
+    alloc = er_allocation(n, 4, 2)
+    eng = engine.compile(algo.pagerank(), g, alloc, mode, path=path,
+                         backend="numpy", device=cuda)
+    _build.LAUNCHES.clear()
+    res = eng.run(5)
+    sssp = eng.with_program(algo.sssp(0)).run(5)
+    torch.cuda.synchronize()
+    oracle = "dense" if path == "dense" else "sparse"
+    np.testing.assert_allclose(
+        res.state.cpu().numpy(),
+        algo.reference_run(algo.pagerank(), g, 5, path=oracle),
+        rtol=1e-5, atol=0)
+    want = algo.reference_run(algo.sssp(0), g, 5, path=oracle)
+    np.testing.assert_array_equal(sssp.state.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    if mode in ("coded", "coded-fast", "uncoded"):
+        assert res.shuffle_bits == 5 * engine._plan_bits(eng.plan, mode)
+    if mode == "coded":
+        assert _build.LAUNCHES["xor_encode_dense"] == 10
+    if path == "auto":
+        assert _build.LAUNCHES["segment_reduce"] == 10
+
+
+def test_plan_executor_words_with_the_top_bit_set(cuda):
+    """Every value's codec word has its top bit set (the float's low byte
+    has bit 7 set), so an arithmetic shift in the decode would show: the
+    card's coded words, on every XOR route, bitwise the NumPy executor."""
+    from repro_torch.core.device_plan import DevicePlan
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+
+    n = divisible_n(600, 4, 2)
+    g = graphs.erdos_renyi(n, 0.02, seed=4)
+    alloc = er_allocation(n, 4, 2)
+    plan = compile_plan_csr(g.csr, alloc)
+    tables = plan.edge_tables(g.csr, alloc)
+    rng = np.random.default_rng(0)
+    for B in (1, 3):
+        shape = (g.csr.nnz, B) if B > 1 else (g.csr.nnz,)
+        bits = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+        bits |= np.uint32(0x80)
+        bits[(bits & 0x7F800000) == 0x7F800000] ^= np.uint32(0x40000000)
+        ev = bits.view(np.float32)
+        want = plan.execute_coded_sparse(ev, tables).values
+        dp = DevicePlan(plan, cuda, tables=tables)
+        for backend in ("numpy", "xor-kernel", "xor-ref"):
+            got = dp.execute_sparse(torch.from_numpy(ev).to(cuda), "coded",
+                                    backend=backend).values.cpu().numpy()
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+
+
+def test_column_routes_at_c0_and_r64(cuda):
+    """K1's dense form through the column routes: C = 0 returns without a
+    launch; r = 64, with and without a payload axis, bitwise its plain
+    version; r = 65 refused with the CPU's message."""
+    from repro_torch.kernels.xor_code import ops as xops
+
+    _build.LAUNCHES.clear()
+    empty = xops.xor_encode_columns(torch.zeros((0, 3), dtype=torch.int32,
+                                                device=cuda))
+    assert empty.shape == (0,) and _build.LAUNCHES["xor_encode_dense"] == 0
+    rng = np.random.default_rng(64)
+    for shape in ((1000, 64), (300, 64, 3)):
+        w = torch.from_numpy(rng.integers(0, 2 ** 32, size=shape,
+                                          dtype=np.uint32).view(np.int32))
+        for fn in (xops.xor_encode_columns, xops.xor_strip_columns):
+            got = fn(w.to(cuda))
+            assert torch.equal(got.cpu(), fn(w))
+            assert torch.equal(got.cpu(), fn(w.to(cuda), use_kernel=False).cpu())
+    assert _build.LAUNCHES["xor_encode_dense"] == 2 * 65
+    msg = r"^r = 65 slots: the column routes take 1 <= r <= 64$"
+    for dev in (cuda, "cpu"):
+        with pytest.raises(ValueError, match=msg):
+            xops.xor_encode_columns(torch.zeros((4, 65), dtype=torch.int32,
+                                                device=dev))
 
 
 def test_launch_errors_raise(cuda):

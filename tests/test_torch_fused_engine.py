@@ -328,17 +328,23 @@ def test_no_fallback_without_cuda(monkeypatch):
             t_engine.run(t_algo.pagerank(), tg, ta, 1, device=device)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mode="uncoded", backend="numpy"), "Queue 1 #13"),
-    (dict(path="dense"), "Queue 1 #13"),
-    (dict(backend="numpy"), "Queue 1 #13"),
-    (dict(topology=object()), "Queue 1 #8"),
-])
-def test_unported_options_name_their_roadmap_item(kw, match):
+@pytest.mark.parametrize("call,match", [
+    (lambda eng: eng.run(1, fault_schedule=object()), "Queue 1 #9"),
+    (lambda eng: eng.run(1, checkpoint=object()), "Queue 1 #9"),
+    (lambda eng: eng.fail((0,)), "Queue 1 #9"),
+    (lambda eng: eng.update(object()), "Queue 1 #9"),
+    (lambda eng: t_engine.restore("ckpt", eng.program, eng.g), "Queue 1 #9"),
+    (lambda eng: t_engine.compile(eng.program, eng.g, eng.alloc,
+                                  device="cpu", topology=object()),
+     "Queue 1 #8"),
+], ids=["fault_schedule", "checkpoint", "fail", "update", "restore",
+        "topology"])
+def test_unported_options_name_their_roadmap_item(call, match):
     g, alloc = _case("er")
     tg, ta = _port(g, alloc)
+    eng = t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu", **kw)
+        call(eng)
 
 
 def test_fused_backend_outside_mode_coded_raises_as_the_reference():

@@ -171,7 +171,7 @@ def test_spmv_with_program_and_run_batch():
     (dict(backend="spmv", prog="sssp"), "not linear"),
     (dict(backend="spmv", prog="cc"), "not linear"),
     (dict(backend="spmv", path="dense"), "sparse"),
-    (dict(backend="spmv", mode="coded-ref"), "sparse"),
+    (dict(backend="spmv", mode="coded-ref", path="auto"), "sparse"),
     (dict(backend="spmv", mesh=None), r"accepted: \['bm'\]"),
     (dict(backend="spmv", backend_opts={"interpret": True}),
      r"accepted: \['bm'\]"),
