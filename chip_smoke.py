@@ -40,22 +40,32 @@ non-zero before its last line:
      float16, within rtol 1e-5 of the oracle. Each path's launch counts
      are reset just before it and read just after;
   6. modes: the reference's default engine, backend="numpy" (the plan
-     executors on the card, K1's dense form folding the coded route's
-     slot words, K3 reducing), on the er-76k graph and plan: pagerank,
+     executors on the card: the coded route's encode and decode as the
+     plan kernels `xor_encode_plan` / `xor_decode_plan`, the packed K1
+     and K2 on the plan's tables composed for one server and one
+     receiver, K3 reducing), on the er-76k graph and plan: pagerank,
      sssp(0), connected_components, degree, multi_sssp (B = 4) and
      personalized pagerank (B = 4) in modes single / uncoded / coded /
      coded-fast for 10 iterations (the two pageranks within rtol 1e-5 of
      the sparse NumPy oracle, the others bitwise,
      exact bits; delivered words of each plan mode bitwise the NumPy
-     executor; K1's dense form and K3 launched on that run, counts reset
-     just before it); the three XOR routes ("numpy", "xor-kernel",
-     "xor-ref") bitwise the NumPy executor at the er-76k and scale shapes;
-     at scale, pagerank in uncoded / coded / coded-fast for 10 iterations
-     with steady ms/iter, device busy and per-phase spans beside the fused
-     route's; the dense path on the dense phase's graph (padded to
-     n = 16,392 for K = 4, r = 2): pagerank and sssp in the four modes for
-     3 iterations against the dense NumPy oracle, with the peak device
-     memory; mode coded-ref on ER n = 2,000 (padded to 2,004), p = 0.02,
+     executor; both plan kernels and K3 launched on that run, counts reset
+     just before it); both plan kernels bitwise their plain versions at
+     the er-76k and scale shapes, B = 1 and 4; the three XOR routes
+     ("numpy", "xor-kernel", "xor-ref") bitwise the NumPy executor at the
+     er-76k and scale shapes, K1's dense form launched on the
+     "xor-kernel" route's run; at scale, pagerank in uncoded / coded /
+     coded-fast for 10 iterations with steady ms/iter, device busy,
+     per-phase spans and peak memory beside the fused route's; the dense
+     path on the dense phase's graph (padded to n = 16,392 for K = 4,
+     r = 2): pagerank and sssp in the four modes for 3 iterations against
+     the dense NumPy oracle (both plan kernels launched on the coded
+     runs), with the peak device memory, then both plan kernels bitwise
+     their plain versions on pagerank's (broadcast) and sssp's
+     (transposed) [n, n] Map output in the layout the Map hands over;
+     at scale also each mode's session build (the coded session
+     composes its coded tables there) and first iteration; mode coded-ref
+     on ER n = 2,000 (padded to 2,004), p = 0.02,
      seed 5, for 2 iterations: its delivered dict equal to mode coded's
      on the dense path, sssp bitwise the dense coded state;
   7. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
@@ -85,8 +95,10 @@ their plain versions. The serve phase also holds K6 at chunks of 128 to
 block: float32 from Q = 180, bf16 at Q = 400) and `ops.ssd` at chunk 256,
 and times K6 at Q = 128 and 256. Prints the `kernels` JSON line
 (K1-K3 and K5 timed at the er-76k shapes with launches from their er-76k
-paths, K1's dense form at the slot words of the er-76k coded route with
-launches from the modes phase's er-76k run, K3 and K5 also at B = 4 and with their L2 sector traffic in the
+paths, the plan kernels on the er-76k plan's tables with launches from
+the modes phase's er-76k run, K1's dense form at the slot words of the
+er-76k coded route with launches from the "xor-kernel" route's run, K3
+and K5 also at B = 4 and with their L2 sector traffic in the
 full records, K4 at 16,384^2 float32 with launches from the dense path; K1 and K2
 are the packed kernels the session runs, their bounds counted on the
 packed tables, with the count on the unpacked layout and K1's general form
@@ -138,7 +150,9 @@ BF16_TC_RATE = 989e12     # flop/s
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_encode_dense": "src/repro/kernels/xor_code/xor_code.py:26",
+    "xor_encode_plan": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
+    "xor_decode_plan": "src/repro/core/shuffle_plan.py:295",
     "segment_reduce": "src/repro/core/engine.py:166",
     "spmv_dense": "src/repro/kernels/spmv/spmv.py:29",
     "spmv_csr": "src/repro/kernels/spmv/spmv.py:29",
@@ -148,7 +162,9 @@ REPLACES = {
 SOURCES = {
     "xor_encode": "src/repro_torch/csrc/xor_code.cu",
     "xor_encode_dense": "src/repro_torch/csrc/xor_code.cu",
+    "xor_encode_plan": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode": "src/repro_torch/csrc/xor_code.cu",
+    "xor_decode_plan": "src/repro_torch/csrc/xor_code.cu",
     "segment_reduce": "src/repro_torch/csrc/segment_reduce.cu",
     "spmv_dense": "src/repro_torch/csrc/spmv.cu",
     "spmv_csr": "src/repro_torch/csrc/spmv.cu",
@@ -1183,29 +1199,43 @@ def same_delivered(got: dict, want: dict, what: str) -> None:
                 raise AssertionError(f"{what}: server {k} value {key} differs")
 
 
-def hold_xor_routes(torch, eng, ev, what: str) -> None:
+def hold_xor_routes(torch, eng, ev, what: str) -> dict:
     """The plan executor's three XOR routes on the card: delivered words of
     one coded Shuffle of the [nnz] edge values `ev` bitwise the NumPy
-    executor's."""
+    executor's. Returns the launch counts of the "xor-kernel" route's run
+    (cleared just before it): K1's dense form's path."""
     from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+    from repro_torch.kernels import _build
 
     ev_np = ev.cpu().numpy()
     want = floats_to_words(eng.plan.execute_coded_sparse(ev_np, eng.tables).values)
+    launches = {}
     for backend in ("numpy", "xor-kernel", "xor-ref"):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
         got = t_words_to_np(eng.dplan.words(ev, "coded", backend=backend))
+        if backend == "xor-kernel":
+            launches = dict(_build.LAUNCHES)
         if not np.array_equal(got, want):
             raise AssertionError(f"{what}: coded words on the {backend} route "
                                  "differ from execute_coded_sparse")
+    if launches.get("xor_encode_dense", 0) <= 0:
+        raise AssertionError(f"{what}: K1's dense form never launched on the "
+                             "xor-kernel route")
+    return launches
 
 
-def xor_dense_record(torch, eng, ev) -> dict:
-    """K1's dense form at the shape the coded route hands it: the slot
-    words [C, r] of one Shuffle of `ev`, as rows [r, C, 1]. Bitwise its
-    plain version; bound: the [r, C] words read and the [C] written."""
+def xor_dense_record(torch, eng, ev, launches: dict) -> dict:
+    """K1's dense form at the shape the "xor-kernel" route hands it: the
+    slot words [C, r] of one Shuffle of `ev`, as rows [r, C, 1]. Bitwise
+    its plain version; bound: the [r, C] words read and the [C] written;
+    launches from that route's run (`hold_xor_routes`)."""
     from repro_torch.kernels.xor_code import ref as xref
     from repro_torch.kernels.xor_code import xor_code as xc
 
-    slotw = eng.dplan._slot_words(ev[eng.dplan._idx["sparse"][0]])
+    dp = eng.dplan
+    src, t = dp.coded_source(ev)
+    slotw = xref.plan_slot_words(src, t.slot_e, t.slot_code, dp.book)
     rows = slotw.t().contiguous()[..., None]
     valid = torch.ones(rows.shape[:2], dtype=torch.bool, device=rows.device)
     got, want = xc.xor_encode_dense(rows, valid), xref.xor_encode(rows, valid)
@@ -1217,16 +1247,109 @@ def xor_dense_record(torch, eng, ev) -> dict:
                         lambda: xc.xor_encode_dense(rows, valid),
                         lambda: xref.xor_encode(rows, valid), None,
                         word_err(torch, got, want), 4 * r * C + 4 * C, r * C)
-    rec.update(C=C, r=r)
+    rec.update(C=C, r=r, launches=launches["xor_encode_dense"])
     return rec
+
+
+def plan_bytes(dp, t, n_src: int) -> dict:
+    """Bytes the plan encode and decode must move on the coded tables `t`
+    of a source of n_src entries, as `packed_bytes` counts the packed K1
+    and K2 (B weighs the words): each table read once, the book, each
+    distinct source word a live slot reads (mask kept, not the sentinel),
+    each distinct coded word a live segment reads, each output written
+    once. Encode: slot_e, slot_code, the slots' source words, the
+    [C + L + 1, B] buffer (its zero column too). Decode: dec_pos,
+    dec_code, strip_e, strip_code, the coded words, the strips' source
+    words, [M, B] out."""
+    book = dp.book.cpu().numpy().view(np.uint32)
+    kept = lambda code: book[1][np.minimum(code, book.shape[1] - 1)] != 0  # noqa: E731
+    slot_e, slot_code, pos, pos_code, strip_e, strip_code = (
+        x.cpu().numpy() for x in (t.slot_e, t.slot_code, t.dec_pos,
+                                  t.dec_code, t.strip_e, t.strip_code))
+    enc_fixed = slot_e.nbytes + slot_code.nbytes + book.nbytes
+    dec_fixed = (pos.nbytes + pos_code.nbytes + strip_e.nbytes
+                 + strip_code.nbytes + book.nbytes)
+    return {"enc_fixed": enc_fixed,
+            "enc_words": (np.unique(slot_e[kept(slot_code) & (slot_e < n_src)]).size
+                          + slot_e.shape[0] + 1),
+            "dec_fixed": dec_fixed,
+            "dec_words": (np.unique(pos[kept(pos_code)]).size
+                          + np.unique(strip_e[kept(strip_code)
+                                              & (strip_e < n_src)]).size
+                          + pos.shape[0])}
+
+
+def hold_plan_kernels(torch, dp, values, what: str, dense: bool = False):
+    """Both plan kernels bitwise their plain versions on the Map output
+    `values` ([nnz(, B)] edge values, or the [n, n] matrix as the dense
+    Map hands it over when `dense`), through the session's coded tables
+    for its layout. Returns the source, the tables, both kernels'
+    outputs and their max abs word errors."""
+    from repro_torch.kernels.xor_code import ref as xref
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    src, t = dp.coded_source(values, dense=dense)
+    enc = (src, t.slot_e, t.slot_code, dp.book)
+    dec = (t.dec_pos, t.dec_code, t.strip_e, t.strip_code, dp.book)
+    coded, coded0 = xc.xor_encode_plan(*enc), xref.xor_encode_plan(*enc)
+    words = xc.xor_decode_plan(src, coded, *dec)
+    words0 = xref.xor_decode_plan(src, coded, *dec)
+    torch.cuda.synchronize()
+    if not torch.equal(coded, coded0):
+        raise AssertionError(f"xor_encode_plan not bitwise its plain version "
+                             f"at {what}")
+    if not torch.equal(words, words0):
+        raise AssertionError(f"xor_decode_plan not bitwise its plain version "
+                             f"at {what}")
+    return src, t, enc, dec, coded, (word_err(torch, coded, coded0),
+                                     word_err(torch, words, words0))
+
+
+def plan_records(torch, eng, ev, ev4, what: str) -> list[dict]:
+    """The plan encode and decode on the session's composed tables, on the
+    Map output `ev` [nnz] and `ev4` [nnz, 4]: each bitwise its plain
+    version (the decode on the kernel's coded columns); timed at B = 1 and,
+    under "b4", at B = 4, with bounds from `plan_bytes`."""
+    from repro_torch.kernels.xor_code import ref as xref
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    dp = eng.dplan
+    out, cost = {}, None
+    for B, values in ((4, ev4), (1, ev)):
+        src, t, enc, dec, coded, err = hold_plan_kernels(
+            torch, dp, values, f"{what}, B = {B}")
+        cost = cost or plan_bytes(dp, t, src.shape[0])
+        enc_b = cost["enc_fixed"] + 4 * B * cost["enc_words"]
+        dec_b = cost["dec_fixed"] + 4 * B * cost["dec_words"]
+        out[B] = [
+            kernel_record(torch, "xor_encode_plan",
+                          lambda: xc.xor_encode_plan(*enc),
+                          lambda: xref.xor_encode_plan(*enc), None, err[0],
+                          enc_b, 0),
+            kernel_record(torch, "xor_decode_plan",
+                          lambda: xc.xor_decode_plan(src, coded, *dec),
+                          lambda: xref.xor_decode_plan(src, coded, *dec),
+                          None, err[1], dec_b, 0)]
+    plan = dp.plan
+    for rec, rec4 in zip(out[1], out[4]):
+        rec.update(C=int(plan.slot_pair.shape[0]), r=plan.r,
+                   P=int(plan.pos_covered.size), L=int(plan.pos_left.size),
+                   b4={k: rec4[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bytes", "max_abs_err")})
+    return out[1]
+
+
+PLAN_KERNELS = ("xor_encode_plan", "xor_decode_plan")
 
 
 def modes_er76k(torch, dev, er: tuple) -> tuple[dict, dict]:
     """backend="numpy" on the er-76k graph and plan: six programs x four
     modes, 10 iterations each, against the sparse NumPy oracle, delivered
     words bitwise the NumPy executor per mode and XOR route; the launch
-    counts of that run (cleared just before it) for K1's dense form and
-    K3. Returns K1's dense-form record and the info."""
+    counts of that run (cleared just before it) for the plan encode and
+    decode and K3. Returns the plan kernels' records (bitwise their plain
+    versions at B = 1 and 4) and K1's dense form's (on the "xor-kernel"
+    route, launches from that route's run), and the info."""
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
@@ -1254,7 +1377,7 @@ def modes_er76k(torch, dev, er: tuple) -> tuple[dict, dict]:
                               want):
             raise AssertionError(f"numpy backend {mode}: delivered words "
                                  "differ from the NumPy executor")
-    hold_xor_routes(torch, sessions["coded"], ev, "er-76k")
+    k1d_launches = hold_xor_routes(torch, sessions["coded"], ev, "er-76k")
 
     # The path: reset the counts, run every program in every mode, read.
     _build.LAUNCHES.clear()
@@ -1265,7 +1388,7 @@ def modes_er76k(torch, dev, er: tuple) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     info["run_s"] = time.perf_counter() - t0
     launches = info["launches"] = dict(_build.LAUNCHES)
-    for name in ("xor_encode_dense", "segment_reduce"):
+    for name in PLAN_KERNELS + ("segment_reduce",):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the er-76k "
                                  "numpy-backend path")
@@ -1282,25 +1405,33 @@ def modes_er76k(torch, dev, er: tuple) -> tuple[dict, dict]:
                                  "are not exact")
     for mode in SPMV_MODES[1:]:
         info[mode] = iteration_profile(torch, sessions[mode])
-    rec = xor_dense_record(torch, sessions["coded"], ev)
-    rec["launches"] = launches["xor_encode_dense"]
-    return rec, info
+    coded = sessions["coded"]
+    ev4 = progs["ppr"].map_edge_values_t(coded._dg, torch.as_tensor(
+        progs["ppr"].init(g), device=dev)).contiguous()
+    recs = plan_records(torch, coded, ev, ev4, "er-76k")
+    record_launches(recs, launches, "the er-76k numpy-backend coded path")
+    info["xor_kernel_route_launches"] = k1d_launches
+    return recs + [xor_dense_record(torch, coded, ev, k1d_launches)], info
 
 
 def modes_scale(torch, dev, scale: tuple, fused: dict) -> tuple[dict, dict]:
     """Pagerank in uncoded / coded / coded-fast under backend="numpy" at
     scale, 10 iterations, with the fused route's numbers beside: the
-    paper's coded-against-uncoded comparison on the card. The three XOR
-    routes bitwise the NumPy executor there; K1's dense-form record at
-    these shapes with the coded run's launches."""
+    paper's coded-against-uncoded comparison on the card, each mode's
+    steady time, device busy, spans and peak memory logged beside the
+    fused route's. The plan kernels' records at these shapes (bitwise
+    their plain versions at B = 1 and 4) with the coded run's launches;
+    the three XOR routes bitwise the NumPy executor there, and K1's
+    dense-form record with the "xor-kernel" route's launches."""
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.kernels import _build
 
     g, alloc, plan, want = scale
+    smi = nvidia_smi()
     keys = ("steady_s_per_iter", "host_enqueue_s_per_iter",
             "device_busy_s_per_iter", "device_idle_share", "phase_s_per_iter",
-            "pagerank_s_per_iter")
+            "pagerank_s_per_iter", "peak_mem_bytes")
     info = {"fused": {k: fused[k] for k in keys}}
     for mode in SPMV_MODES[1:]:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1309,8 +1440,10 @@ def modes_scale(torch, dev, scale: tuple, fused: dict) -> tuple[dict, dict]:
                              backend="numpy", plan=plan, device=dev)
         m = info[mode] = {"session_s": time.perf_counter() - t0,
                           "bits_per_iter": engine._plan_bits(plan, mode)}
+        t0 = time.perf_counter()
         eng.run(1)
         torch.cuda.synchronize()
+        m["first_iter_s"] = time.perf_counter() - t0
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = eng.run(10)
@@ -1324,30 +1457,49 @@ def modes_scale(torch, dev, scale: tuple, fused: dict) -> tuple[dict, dict]:
                                  "bits are not exact")
         m.update(iteration_profile(torch, eng))
         m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        log(f"modes phase, scale, numpy {mode}: steady "
+            f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
+            f"{(m['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, spans "
+            f"{json.dumps({k: v * 1e3 for k, v in m['phase_s_per_iter'].items()})}"
+            f" ms, peak {m['peak_mem_bytes']} B, session {m['session_s']:.4f} s,"
+            f" first iteration {m['first_iter_s']:.4f} s | {smi}")
         if mode == "coded":
-            if launches.get("xor_encode_dense", 0) <= 0:
-                raise AssertionError("K1's dense form never launched on the "
-                                     "scale numpy-backend coded path")
             pr = algo.pagerank()
             ev = pr.map_edge_values_t(eng._dg, torch.as_tensor(
                 pr.init(g), device=dev)).contiguous()
-            hold_xor_routes(torch, eng, ev, "scale")
-            rec = xor_dense_record(torch, eng, ev)
-            rec["launches"] = launches["xor_encode_dense"]
+            state4 = torch.from_numpy(np.random.default_rng(4).random(
+                (g.n, 4), dtype=np.float32)).to(dev)
+            ev4 = pr.map_edge_values_t(eng._dg, state4).contiguous()
+            recs = plan_records(torch, eng, ev, ev4, "scale")
+            record_launches(recs, launches,
+                            "the scale numpy-backend coded path")
+            k1d_launches = hold_xor_routes(torch, eng, ev, "scale")
+            m["xor_kernel_route_launches"] = k1d_launches
+            recs.append(xor_dense_record(torch, eng, ev, k1d_launches))
+            del ev, ev4, state4        # out of coded-fast's peak memory
         del eng
-    return rec, info
+    log(f"modes phase, scale, fused: steady "
+        f"{fused['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
+        f"{(fused['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, peak "
+        f"{fused['peak_mem_bytes']} B | {smi}")
+    return recs, info
 
 
 def modes_dense(torch, dev) -> dict:
     """The dense path on the dense phase's graph (ER, n = 16,384, p = 0.01,
     seed 5, padded to 16,392 for K = 4, r = 2): pagerank and sssp in every
-    mode, 3 iterations, against the dense NumPy oracle; the peak device
-    memory of these runs."""
+    mode, 3 iterations, against the dense NumPy oracle (the coded runs
+    launch both plan kernels on tables into the [n, n] values' storage);
+    the peak device memory of these runs. Then both plan kernels bitwise
+    their plain versions on each program's Map output as the Map hands it
+    over (pagerank's a broadcast row, sssp's a transposed matrix, indices
+    near 2**28), through the coded session's tables for that layout."""
     from repro_torch import graphs
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.allocation import divisible_n, er_allocation
     from repro_torch.core.shuffle_plan import compile_plan_csr
+    from repro_torch.kernels import _build
 
     g = graphs.erdos_renyi(DENSE_N, 0.01, seed=5)
     n = divisible_n(g.n, 4, 2)
@@ -1369,9 +1521,15 @@ def modes_dense(torch, dev) -> dict:
                              backend="numpy", plan=plan, device=dev)
         for name, prog in progs.items():
             torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
             t0 = time.perf_counter()
             res = eng.with_program(prog).run(3)
             torch.cuda.synchronize()
+            if mode == "coded":
+                info[f"coded_{name}_launches"] = record_launches(
+                    [{"name": k} for k in PLAN_KERNELS], dict(_build.LAUNCHES),
+                    f"the dense coded {name} path")
+                coded = eng
             info[f"{mode}_{name}_s_per_iter"] = (time.perf_counter() - t0) / 3
             err = check_state(res.state.cpu().numpy(), oracle[name], name,
                               f"dense path {mode} {name}")
@@ -1384,6 +1542,17 @@ def modes_dense(torch, dev) -> dict:
         del eng
     info["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
     info["mem_before_bytes"] = int(base)
+    for name, prog in progs.items():
+        values = prog.map_values_t(coded._dd, torch.as_tensor(prog.init(g),
+                                                             device=dev))
+        src, t, *_, err = hold_plan_kernels(torch, coded.dplan, values,
+                                            f"the dense {name} layout",
+                                            dense=True)
+        info[f"coded_{name}_held"] = {
+            "strides": list(values.stride()), "n_src": int(src.shape[0]),
+            "max_entry": int(t.slot_e[t.slot_e < src.shape[0]].max()),
+            "max_abs_err": list(err)}
+        del values, src, t
     return info
 
 
@@ -1443,8 +1612,8 @@ def modes_phase(torch, dev, er: tuple, scale: tuple,
                 fused_scale: dict) -> tuple[dict, dict, dict]:
     """The reference's default engine (backend="numpy") on the card: the
     er-76k and scale sessions' graphs and plans (passed as `plan=`), the
-    dense path and coded-ref. Returns K1's dense-form records at the
-    er-76k and scale shapes and the info."""
+    dense path and coded-ref. Returns the plan kernels' and K1's
+    dense-form records at the er-76k and scale shapes and the info."""
     rec_er, info_er = modes_er76k(torch, dev, er)
     log(f"modes phase, er-76k ok: {json.dumps(info_er)}")
     rec_scale, info_scale = modes_scale(torch, dev, scale, fused_scale)
@@ -1885,17 +2054,29 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain spmv
     result = {"card": smi, "build_s": built}
-    kernel_phase(torch, dev)
-    records, result["slice"], er = slice_phase(torch, dev, SLICE_N)
-    scale_records, result["scale"], scale = scale_phase(torch, dev, SCALE_N)
-    k5_er, k5_scale, result["spmv"] = spmv_phase(torch, dev, er, scale)
-    k1d_er, k1d_scale, result["modes"] = modes_phase(torch, dev, er, scale,
-                                                     result["scale"])
+    wall = result["phase_wall_s"] = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    timed("kernels", kernel_phase, torch, dev)
+    records, result["slice"], er = timed("slice", slice_phase, torch, dev,
+                                         SLICE_N)
+    scale_records, result["scale"], scale = timed("scale", scale_phase, torch,
+                                                  dev, SCALE_N)
+    k5_er, k5_scale, result["spmv"] = timed("spmv", spmv_phase, torch, dev,
+                                            er, scale)
+    plan_er, plan_scale, result["modes"] = timed(
+        "modes", modes_phase, torch, dev, er, scale, result["scale"])
     del er, scale
-    k4, result["dense"] = dense_phase(torch, dev)
-    k6, k7, result["serve"] = serve_phase(torch, dev, smi)
-    records += [k1d_er, k4, k5_er, k6, k7]
-    scale_records += [k5_scale, k1d_scale]
+    k4, result["dense"] = timed("dense", dense_phase, torch, dev)
+    k6, k7, result["serve"] = timed("serve", serve_phase, torch, dev, smi)
+    log(f"phase wall times (s): {json.dumps(wall)}")
+    records += plan_er + [k4, k5_er, k6, k7]
+    scale_records += [k5_scale] + plan_scale
     result["kernels_scale"] = scale_records
     log("kernels at the scale shapes: " + json.dumps(scale_records))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

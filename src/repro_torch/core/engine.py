@@ -12,11 +12,11 @@ the session's device (`device_plan.DevicePlan`, uploaded once):
   * sparse path (path="auto" for every built-in program, or "sparse"):
     Map the [nnz] (or [nnz, B]) edge values (`map_edge_values_t`); move
     the deliveries of mode "uncoded" / "coded-fast" with one gather, or
-    run the coded Shuffle (slot words, the XOR fold through K1's dense
-    form, strip, decode); then Reduce with K3 (`kernels/segment_reduce`)
-    over the Map output and the delivered codec-order words, in canonical
-    CSR entry order, and finalize. Mode "single" reduces the Map output
-    alone.
+    run the coded Shuffle (the plan encode and decode, one hand kernel
+    each, `kernels/xor_code` `xor_encode_plan` / `xor_decode_plan`); then
+    Reduce with K3 (`kernels/segment_reduce`) over the Map output and the
+    delivered codec-order words, in canonical CSR entry order, and
+    finalize. Mode "single" reduces the Map output alone.
   * dense path (path="dense", and mode "coded-ref"): Map the [n, n] values
     (`map_values_t`), move the plan's deliveries with the dense executors,
     and let each server reduce its own rows over its locally Mapped
@@ -229,7 +229,8 @@ class CompiledEngine:
             self.fused = FusedSparseShuffle(plan, g.csr, alloc,
                                             device=self.device)
         elif planned:
-            self.dplan = DevicePlan(plan, self.device, tables=self.tables)
+            self.dplan = DevicePlan(plan, self.device, tables=self.tables,
+                                    coded=mode == "coded")
         self._gather = _i32(self.tables.gather if planned
                             else np.arange(g.csr.nnz), self.device)
 
@@ -240,7 +241,8 @@ class CompiledEngine:
         g, alloc, dev = self.g, self.alloc, self.device
         self._dd = g.dense_device_view(dev)
         if planned:
-            self.dplan = DevicePlan(self.plan, dev, dense=True)
+            self.dplan = DevicePlan(self.plan, dev, dense=True,
+                                    coded=self.mode == "coded")
         self._servers = []
         if not self.distributed:
             return

@@ -48,11 +48,25 @@
 // codes, and the zero-width segments of r > 32 (mask 0, shift clipped to 31,
 // `bitcodec.segment_words`) are slots whose loads are skipped.
 //
+// The plan executors (core/device_plan.py, backend="numpy", the reference's
+// default engine) launch the same two kernels on the plan's own tables,
+// composed once in their layout (K = 1): one buffer of C + L columns (the
+// C coded columns, then each unicast leftover as a single-slot full-word
+// column, as `pack_schedule` does), and the plan's M deliveries in
+// position order, each a segment per slot with its column and the column's
+// other slots to strip; a null ptr names that single receiver. So the
+// plan route's encode (`xor_encode_plan`, K1's dense form `xor_encode_pallas`
+// redesigned as the whole encode, slot words included) and decode
+// (`xor_decode_plan`, the reference's `_coded_result`,
+// core/shuffle_plan.py:295-306) replace a chain of about 25 int64 tensor
+// passes over [C, r] around one dense-K1 launch with one launch each.
+//
 // K1's general form `xor_encode_gather` (any shift and mask words per slot,
 // local indices through an optional Map slice `loc_e`) stays behind
 // `ops.xor_encode_slots`; `xor_encode_dense` is the Pallas kernel's own dense
 // form (masked XOR over r rows), so the port can be held against
-// `xor_encode_pallas` directly.
+// `xor_encode_pallas` directly; it serves the plan executors' "xor-kernel"
+// route (`ops.xor_encode_columns`) and `ops.xor_encode`.
 #include <cstring>
 
 #include "common.cuh"
@@ -275,8 +289,9 @@ __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
   constexpr int kItems = items_per_thread<R>();
   const int r = R > 0 ? R : r_rt;
   const int k = blockIdx.y;
-  const int start = ptr[k];
-  const int count = min(max(ptr[k + 1] - start, 0), Dmax);
+  // A null ptr is one receiver of Dmax deliveries (the plan executors').
+  const int start = ptr ? ptr[k] : 0;
+  const int count = ptr ? min(max(ptr[k + 1] - start, 0), Dmax) : Dmax;
   const int per = count * B;                   // items of receiver k
   const int first = blockIdx.x * (kThreads * kItems) + threadIdx.x;
   if (first >= per) return;

@@ -6,14 +6,21 @@ kernels of `xor_code.py`; on CPU tensors those wrappers run the plain
 versions in `ref.py`. The reference's 128-lane TPU tile fold has no
 counterpart: the CUDA kernels take the columns as they are. The column
 routes (`xor_encode_columns`, `xor_strip_columns`) are what the plan
-executors of `core/device_plan.py` fold their [C, r(, B)] slot words with.
+executors of `core/device_plan.py` fold their [C, r(, B)] slot words with
+on the "xor-kernel" route; `xor_encode_plan` / `xor_decode_plan` are their
+default route, on the plan's own tables.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .xor_code import MAX_R, xor_encode_dense, xor_encode_gather
+from .xor_code import (MAX_R, xor_decode_plan, xor_encode_dense,
+                       xor_encode_gather, xor_encode_plan)
+
+__all__ = ["xor_encode", "xor_decode", "xor_encode_columns",
+           "xor_strip_columns", "xor_encode_slots", "xor_encode_plan",
+           "xor_decode_plan"]
 
 
 def xor_encode(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,10 @@
 Sources: `src/repro_torch/csrc/xor_code.cu` (what each kernel replaces and
 what bounds it is noted there). The coded Shuffle runs K1 and K2 on packed
 session tables (`xor_encode_packed`, `xor_decode_packed`, counted as
-"xor_encode" and "xor_decode"); `xor_encode_gather` is K1's general form,
+"xor_encode" and "xor_decode"); the plan executors run them on the plan's
+own tables, composed in the packed layout for one receiver
+(`xor_encode_plan`, `xor_decode_plan`, counted under their names);
+`xor_encode_gather` is K1's general form,
 any shift and mask words per slot, behind `ops.xor_encode_slots` (counted
 as "xor_encode_gather"). Each wrapper checks device, dtype, shape and
 contiguity, allocates its output with `torch.empty`, launches on PyTorch's
@@ -126,21 +129,11 @@ def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
     return out if src.dim() == 2 else out[..., 0]
 
 
-def xor_encode_packed(src: torch.Tensor, enc_e: torch.Tensor,
-                      enc_code: torch.Tensor, book: torch.Tensor, *,
-                      swap: bool = True) -> torch.Tensor:
-    """K1 on packed tables: every server's coded buffer, [K, W + 1(, B)]
-    int32, column W zero.
-
-    src [n_src(, B)] int32 value bits (float32 bits when `swap`, codec-order
-    words otherwise); enc_e [K, W, r] int32 entry of src (n_src = zero);
-    enc_code [K, W, r] uint8 into book [2, r + 2] int32 (shifts, masks).
-    """
+def _encode_packed(src, enc_e, enc_code, book, swap: bool,
+                   counter: str) -> torch.Tensor:
+    """Launch K1 on packed tables [K, W, r]: buffers [K, W + 1, B]."""
     K, W, r = enc_e.shape
     B = _batch(src)
-    _check_limits(K, r, (W + 1) * B)
-    if not _build.on_cuda(src, enc_e, enc_code, book):
-        return ref.xor_encode_packed(src, enc_e, enc_code, book, swap=swap)
     _build.check_tensor(src, "src", torch.int32)
     _build.check_tensor(enc_e, "enc_e", torch.int32)
     _build.check_tensor(enc_code, "enc_code", torch.uint8, (K, W, r))
@@ -154,7 +147,60 @@ def xor_encode_packed(src: torch.Tensor, enc_e: torch.Tensor,
             book.data_ptr(), out.data_ptr(), K, W, r, B, int(swap),
             _build.stream_of(src))
     _build.check(lib, "xor_encode_packed", code)
-    _build.LAUNCHES["xor_encode"] += 1
+    _build.LAUNCHES[counter] += 1
+    return out
+
+
+def _decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
+                   ptr, M: int, swap: bool, counter: str) -> torch.Tensor:
+    """Launch K2 on packed tables [K, Dmax, r(, r - 1)]: words [M, B].
+    ptr None: one receiver (K = 1) of its Dmax = M deliveries."""
+    K, Dmax, r = dec_pos.shape
+    B = _batch(src)
+    _build.check_tensor(src, "src", torch.int32)
+    if buf.dim() != src.dim() + 1 or buf.shape[0] != K:
+        raise ValueError(f"buf must be [K={K}, W + 1{', B' if B > 1 else ''}], "
+                         f"got {tuple(buf.shape)}")
+    _build.check_tensor(buf, "buf", torch.int32, (K, buf.shape[1])
+                        + ((B,) if src.dim() == 2 else ()))
+    _build.check_tensor(dec_pos, "dec_pos", torch.int32)
+    _build.check_tensor(dec_code, "dec_code", torch.uint8, (K, Dmax, r))
+    _build.check_tensor(strip_e, "strip_e", torch.int32, (K, Dmax, r, r - 1))
+    _build.check_tensor(strip_code, "strip_code", torch.uint8,
+                        (K, Dmax, r, r - 1))
+    if ptr is not None:
+        _build.check_tensor(ptr, "ptr", torch.int32, (K + 1,))
+    _check_packed(r, book, dec_pos, dec_code, strip_e, strip_code)
+    out = torch.empty((M, B), dtype=torch.int32, device=src.device)
+    _build.check_tensor(out, "out", torch.int32)
+    lib = _lib()
+    with torch.cuda.device(src.device):
+        code = lib.xor_decode_packed(
+            src.data_ptr(), src.shape[0], buf.data_ptr(), buf.shape[0] * buf.shape[1],
+            dec_pos.data_ptr(), dec_code.data_ptr(), strip_e.data_ptr(),
+            strip_code.data_ptr(), book.data_ptr(),
+            None if ptr is None else ptr.data_ptr(), out.data_ptr(), K, Dmax, r,
+            B, int(swap), _build.stream_of(src))
+    _build.check(lib, "xor_decode_packed", code)
+    _build.LAUNCHES[counter] += 1
+    return out
+
+
+def xor_encode_packed(src: torch.Tensor, enc_e: torch.Tensor,
+                      enc_code: torch.Tensor, book: torch.Tensor, *,
+                      swap: bool = True) -> torch.Tensor:
+    """K1 on packed tables: every server's coded buffer, [K, W + 1(, B)]
+    int32, column W zero.
+
+    src [n_src(, B)] int32 value bits (float32 bits when `swap`, codec-order
+    words otherwise); enc_e [K, W, r] int32 entry of src (n_src = zero);
+    enc_code [K, W, r] uint8 into book [2, r + 2] int32 (shifts, masks).
+    """
+    K, W, r = enc_e.shape
+    _check_limits(K, r, (W + 1) * _batch(src))
+    if not _build.on_cuda(src, enc_e, enc_code, book):
+        return ref.xor_encode_packed(src, enc_e, enc_code, book, swap=swap)
+    out = _encode_packed(src, enc_e, enc_code, book, swap, "xor_encode")
     return out if src.dim() == 2 else out[..., 0]
 
 
@@ -174,35 +220,74 @@ def xor_decode_packed(src: torch.Tensor, buf: torch.Tensor,
     reading ptr back).
     """
     K, Dmax, r = dec_pos.shape
-    B = _batch(src)
-    _check_limits(K, r, Dmax * B)
+    _check_limits(K, r, Dmax * _batch(src))
     if not _build.on_cuda(src, buf, dec_pos, dec_code, strip_e, strip_code,
                           book, ptr):
         return ref.xor_decode_packed(src, buf, dec_pos, dec_code, strip_e,
                                      strip_code, book, ptr, swap=swap)
-    _build.check_tensor(src, "src", torch.int32)
-    if buf.dim() != src.dim() + 1 or buf.shape[0] != K:
-        raise ValueError(f"buf must be [K={K}, W + 1{', B' if B > 1 else ''}], "
-                         f"got {tuple(buf.shape)}")
-    _build.check_tensor(buf, "buf", torch.int32, (K, buf.shape[1])
-                        + ((B,) if src.dim() == 2 else ()))
-    _build.check_tensor(dec_pos, "dec_pos", torch.int32)
-    _build.check_tensor(dec_code, "dec_code", torch.uint8, (K, Dmax, r))
-    _build.check_tensor(strip_e, "strip_e", torch.int32, (K, Dmax, r, r - 1))
-    _build.check_tensor(strip_code, "strip_code", torch.uint8,
-                        (K, Dmax, r, r - 1))
-    _build.check_tensor(ptr, "ptr", torch.int32, (K + 1,))
-    _check_packed(r, book, dec_pos, dec_code, strip_e, strip_code)
     M = int(ptr[-1]) if total is None else int(total)
-    out = torch.empty((M, B), dtype=torch.int32, device=src.device)
-    _build.check_tensor(out, "out", torch.int32)
-    lib = _lib()
-    with torch.cuda.device(src.device):
-        code = lib.xor_decode_packed(
-            src.data_ptr(), src.shape[0], buf.data_ptr(), buf.shape[0] * buf.shape[1],
-            dec_pos.data_ptr(), dec_code.data_ptr(), strip_e.data_ptr(),
-            strip_code.data_ptr(), book.data_ptr(), ptr.data_ptr(),
-            out.data_ptr(), K, Dmax, r, B, int(swap), _build.stream_of(src))
-    _build.check(lib, "xor_decode_packed", code)
-    _build.LAUNCHES["xor_decode"] += 1
+    out = _decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
+                         ptr, M, swap, "xor_decode")
+    return out if src.dim() == 2 else out[:, 0]
+
+
+def xor_encode_plan(src: torch.Tensor, slot_e: torch.Tensor,
+                    slot_code: torch.Tensor, book: torch.Tensor) -> torch.Tensor:
+    """K1 on the plan's tables: coded columns [C(, B)] int32,
+    XOR_t (bswap(src[slot_e[c, t]]) << shift) & mask under slot_code[c, t].
+
+    src [n_src(, B)] int32 float32 bits (entries >= n_src read zero);
+    slot_e [C, r] int32; slot_code [C, r] uint8 into book [2, r + 2]. One
+    launch of the packed K1 with one server (its zero column dropped);
+    C = 0 launches nothing.
+    """
+    if slot_e.dim() != 2 or tuple(slot_code.shape) != tuple(slot_e.shape):
+        raise ValueError(f"slot_e and slot_code must be [C, r], got "
+                         f"{tuple(slot_e.shape)}, {tuple(slot_code.shape)}")
+    C, r = slot_e.shape
+    B = _batch(src)
+    _check_limits(1, r, max(C * r, (C + 1) * B, src.shape[0] * B))
+    if not _build.on_cuda(src, slot_e, slot_code, book):
+        return ref.xor_encode_plan(src, slot_e, slot_code, book)
+    if C == 0:
+        out = torch.empty((0, B), dtype=torch.int32, device=src.device)
+    else:
+        out = _encode_packed(src, slot_e[None], slot_code[None], book, True,
+                             "xor_encode_plan")[0, :C]
+    return out if src.dim() == 2 else out[:, 0]
+
+
+def xor_decode_plan(src: torch.Tensor, coded: torch.Tensor,
+                    dec_pos: torch.Tensor, dec_code: torch.Tensor,
+                    strip_e: torch.Tensor, strip_code: torch.Tensor,
+                    book: torch.Tensor) -> torch.Tensor:
+    """K2 on the plan's tables: delivered codec words [M(, B)] int32, in
+    delivery order.
+
+    Delivery d's segment t is ((coded[dec_pos[d, t]] ^ strip) & mask) >>
+    shift under dec_code[d, t], strip being the XOR of the slots at
+    strip_e[d, t] [r - 1] under strip_code, recomputed from src; the word
+    is the OR of its r segments. coded [C(, B)] from `xor_encode_plan`
+    (positions >= C read zero); dec_pos [M, r] int32, dec_code [M, r]
+    uint8, strip_e [M, r, r - 1] int32, strip_code alike. One launch of the
+    packed K2 with one receiver; M = 0 launches nothing. Every index is
+    bounded on the card (positions by C, entries by n_src), and the output
+    is written in order, so no table can write outside it.
+    """
+    if dec_pos.dim() != 2:
+        raise ValueError(f"dec_pos must be [M, r], got {tuple(dec_pos.shape)}")
+    M, r = dec_pos.shape
+    B = _batch(src)
+    _check_limits(1, r, max(M * r * r, M * B, coded.shape[0] * B,
+                            src.shape[0] * B))
+    if not _build.on_cuda(src, coded, dec_pos, dec_code, strip_e, strip_code,
+                          book):
+        return ref.xor_decode_plan(src, coded, dec_pos, dec_code, strip_e,
+                                   strip_code, book)
+    if M == 0:
+        out = torch.empty((0, B), dtype=torch.int32, device=src.device)
+    else:
+        out = _decode_packed(src, coded[None], dec_pos[None], dec_code[None],
+                             strip_e[None], strip_code[None], book, None, M,
+                             True, "xor_decode_plan")
     return out if src.dim() == 2 else out[:, 0]

@@ -20,7 +20,11 @@ C = 0, r = 64 and r = 65, refused), small coded and spmv sessions (ER, a
 power-law graph with a row longer than a tile, r = 33 and 64) and
 `backend="numpy"` sessions in every mode and path against the NumPy
 oracle, the plan executor's coded words with every codec word's top bit
-set bitwise the NumPy executor's on every XOR route, and the reduced mamba2-370m served on the card (the kernel prefill
+set bitwise the NumPy executor's on every XOR route, the plan kernels
+(`xor_encode_plan` / `xor_decode_plan`) bitwise their plain versions on
+random tables and on plans' tables at r = 1..5, 33 and 64 with their
+launch counts and launch errors raising, and the reduced mamba2-370m
+served on the card (the kernel prefill
 against the plain chunked prefill and the decode loop). Whether a card
 exists is decided inside the `cuda` fixture, never at import time.
 """
@@ -174,8 +178,8 @@ def test_session_matches_oracle_and_launches_kernels(cuda):
 def test_numpy_backend_modes_on_the_card(cuda, mode, path):
     """backend="numpy" (the plan executors on the card) against the NumPy
     oracle of its path: sssp bitwise, pagerank within rtol 1e-5, exact
-    bits; the coded route launches K1's dense form every iteration and
-    the sparse path K3."""
+    bits; the coded route launches the plan encode and decode once each
+    per iteration and K1's dense form never, the sparse path K3."""
     n = divisible_n(400, 4, 2)
     g = graphs.erdos_renyi(n, 0.03, seed=3)
     alloc = er_allocation(n, 4, 2)
@@ -196,7 +200,9 @@ def test_numpy_backend_modes_on_the_card(cuda, mode, path):
     if mode in ("coded", "coded-fast", "uncoded"):
         assert res.shuffle_bits == 5 * engine._plan_bits(eng.plan, mode)
     if mode == "coded":
-        assert _build.LAUNCHES["xor_encode_dense"] == 10
+        assert _build.LAUNCHES["xor_encode_plan"] == 10
+        assert _build.LAUNCHES["xor_decode_plan"] == 10
+        assert _build.LAUNCHES["xor_encode_dense"] == 0
     if path == "auto":
         assert _build.LAUNCHES["segment_reduce"] == 10
 
@@ -227,6 +233,205 @@ def test_plan_executor_words_with_the_top_bit_set(cuda):
                                     backend=backend).values.cpu().numpy()
             np.testing.assert_array_equal(got.view(np.uint32),
                                           want.view(np.uint32))
+
+
+def test_xor_kernel_route_keeps_k1_dense_form(cuda):
+    """backend="xor-kernel" keeps the column route of the reference's
+    Pallas kernel: per Shuffle, K1's dense form once for the coded columns
+    and once per slot for the strips, and neither plan kernel."""
+    from repro_torch.core.device_plan import DevicePlan
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+
+    n = divisible_n(400, 4, 2)
+    g = graphs.erdos_renyi(n, 0.03, seed=3)
+    alloc = er_allocation(n, 4, 2)
+    plan = compile_plan_csr(g.csr, alloc)
+    tables = plan.edge_tables(g.csr, alloc)
+    dp = DevicePlan(plan, cuda, tables=tables)
+    ev = np.random.default_rng(1).standard_normal(g.csr.nnz).astype(np.float32)
+    want = plan.execute_coded_sparse(ev, tables).values.view(np.uint32)
+    evt = torch.from_numpy(ev).to(cuda)
+    _build.LAUNCHES.clear()
+    for _ in range(10):
+        got = dp.execute_sparse(evt, "coded", backend="xor-kernel")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.values.cpu().numpy().view(np.uint32),
+                                  want)
+    assert _build.LAUNCHES["xor_encode_dense"] == 10 * (1 + plan.r)
+    assert _build.LAUNCHES["xor_encode_plan"] == 0
+    assert _build.LAUNCHES["xor_decode_plan"] == 0
+
+
+def _random_plan_tables(rng, r, B, C=700, M=590, n_src=3000):
+    """Random tables of the plan kernels in the ranges they accept: entries
+    with the zero sentinel n_src, codes over the whole book and past it
+    (read as empty), segments' columns up to one past the coded buffer
+    (read as zero); src words with the codec word's top bit set in half of
+    them."""
+    from repro_torch.core.fused_shuffle import code_book
+
+    src = rng.integers(0, 2 ** 32, size=(n_src, B) if B > 1 else (n_src,),
+                       dtype=np.uint32)
+    src[::2] |= np.uint32(0x80)
+
+    def codes(shape):
+        code = rng.integers(0, r + 2, size=shape).astype(np.uint8)
+        code[rng.random(shape) < 0.02] = 255
+        return code
+
+    entries = lambda shape: rng.integers(0, n_src + 1, size=shape).astype(np.int32)  # noqa: E731
+    t = dict(src=src.view(np.int32), slot_e=entries((C, r)),
+             slot_code=codes((C, r)), book=code_book(r).view(np.int32),
+             dec_pos=rng.integers(0, C + 1, size=(M, r)).astype(np.int32),
+             dec_code=codes((M, r)), strip_e=entries((M, r, r - 1)),
+             strip_code=codes((M, r, r - 1)))
+    return t, _u32_coded(rng, C, B)
+
+
+def _u32_coded(rng, C, B):
+    """Random coded columns [C(, B)] as int32 words."""
+    return rng.integers(0, 2 ** 32, size=(C, B) if B > 1 else (C,),
+                        dtype=np.uint32).view(np.int32)
+
+
+ENC_PLAN = ("src", "slot_e", "slot_code", "book")
+DEC_PLAN = ("dec_pos", "dec_code", "strip_e", "strip_code", "book")
+
+
+def _hold_plan_kernels(t, coded):
+    """Both plan kernels bitwise their plain versions on tables `t` (device
+    tensors): the encode, the decode of the kernel's coded columns and of
+    `coded`. Returns the kernel's coded columns and delivered words."""
+    enc = tuple(t[k] for k in ENC_PLAN)
+    got = xc.xor_encode_plan(*enc)
+    assert torch.equal(got, xref.xor_encode_plan(*enc))
+    dec = tuple(t[k] for k in DEC_PLAN)
+    for c in (got, coded):
+        words = xc.xor_decode_plan(t["src"], c, *dec)
+        assert torch.equal(words, xref.xor_decode_plan(t["src"], c, *dec))
+    return got, xc.xor_decode_plan(t["src"], got, *dec)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 33, 64])
+def test_plan_kernels_match_plain_on_random_tables(cuda, r, B):
+    rng = np.random.default_rng(100 * r + B)
+    t, coded = _random_plan_tables(rng, r, B)
+    up = {k: torch.from_numpy(v).to(cuda) for k, v in t.items()}
+    _hold_plan_kernels(up, torch.from_numpy(coded).to(cuda))
+    # An empty schedule: nothing to launch for C = 0 and M = 0.
+    none = {k: v if k in ("src", "book") else v[:0] for k, v in up.items()}
+    _build.LAUNCHES.clear()
+    coded0, words0 = _hold_plan_kernels(none, torch.zeros(
+        (0, B) if B > 1 else (0,), dtype=torch.int32, device=cuda))
+    assert coded0.shape[0] == 0 and words0.shape[0] == 0
+    assert _build.LAUNCHES["xor_encode_plan"] == 0
+    assert _build.LAUNCHES["xor_decode_plan"] == 0
+
+
+@pytest.mark.parametrize("K,r", [(4, 1), (4, 2), (5, 3), (6, 4), (6, 5),
+                                 (34, 33), (64, 64)])
+def test_plan_kernels_on_session_tables(cuda, K, r):
+    """The plan kernels on a plan's composed tables, every codec word's top
+    bit set: bitwise their plain versions, and the delivered words bitwise
+    the NumPy executor, at B = 1 and 4."""
+    from repro_torch.core.device_plan import DevicePlan
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+
+    n = divisible_n(256, K, r)
+    g = graphs.erdos_renyi(n, 0.1, seed=r)
+    alloc = er_allocation(n, K, r)
+    plan = compile_plan_csr(g.csr, alloc)
+    tables = plan.edge_tables(g.csr, alloc)
+    dp = DevicePlan(plan, cuda, tables=tables)
+    rng = np.random.default_rng(r)
+    for B in (1, 4):
+        shape = (g.csr.nnz, B) if B > 1 else (g.csr.nnz,)
+        bits = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+        bits |= np.uint32(0x80)
+        bits[(bits & 0x7F800000) == 0x7F800000] ^= np.uint32(0x40000000)
+        src, ct = dp.coded_source(torch.from_numpy(bits.view(np.float32)).to(cuda))
+        t = dict(ct._asdict(), src=src, book=dp.book)
+        _, words = _hold_plan_kernels(t, torch.from_numpy(_u32_coded(
+            rng, ct.slot_e.shape[0], B)).to(cuda))
+        want = plan.execute_coded_sparse(bits.view(np.float32), tables).values
+        np.testing.assert_array_equal(words.cpu().numpy().view(np.uint32),
+                                      want.view(np.uint32).byteswap())
+
+
+def test_plan_kernels_on_leftovers_only(cuda):
+    """A plan whose every delivery is a unicast leftover (C = 0, P = 0):
+    the encode writes each leftover's own column, the decode reads them
+    back, bitwise the NumPy executor, one launch each."""
+    from repro_torch.core.allocation import bipartite_allocation
+    from repro_torch.core.device_plan import DevicePlan
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+
+    g = graphs.stochastic_block(48, 24, 0.25, 0.1, seed=5)
+    alloc = bipartite_allocation(48, 24, 4, 4)
+    plan = compile_plan_csr(g.csr, alloc)
+    assert plan.slot_pair.shape[0] == 0 and plan.left_k.size > 0
+    tables = plan.edge_tables(g.csr, alloc)
+    dp = DevicePlan(plan, cuda, tables=tables)
+    ev = np.random.default_rng(2).standard_normal(g.csr.nnz).astype(np.float32)
+    _build.LAUNCHES.clear()
+    got = dp.execute_sparse(torch.from_numpy(ev).to(cuda), "coded")
+    np.testing.assert_array_equal(
+        got.values.cpu().numpy().view(np.uint32),
+        plan.execute_coded_sparse(ev, tables).values.view(np.uint32))
+    assert _build.LAUNCHES["xor_encode_plan"] == 1
+    assert _build.LAUNCHES["xor_decode_plan"] == 1
+
+
+def test_plan_kernels_refuse_bad_inputs(cuda):
+    """What the plan wrappers refuse on the card, before any launch: a
+    float source (TypeError), a table that does not start 16-byte
+    aligned."""
+    from repro_torch.core.fused_shuffle import code_book
+
+    book = torch.from_numpy(code_book(2).view(np.int32)).to(cuda)
+    e = torch.zeros((9, 2), dtype=torch.int32, device=cuda)
+    c = torch.zeros((9, 2), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        xc.xor_encode_plan(torch.zeros(5, device=cuda), e[:8], c[:8], book)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        xc.xor_encode_plan(torch.zeros(5, dtype=torch.int32, device=cuda),
+                           e[1:], c[1:], book)
+    s = torch.zeros((9, 2, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        xc.xor_decode_plan(torch.zeros(5, dtype=torch.int32, device=cuda),
+                           torch.zeros(3, dtype=torch.int32, device=cuda),
+                           e[1:], c[1:], s[1:], s[1:].to(torch.uint8), book)
+
+
+def test_plan_launch_errors_raise(cuda, monkeypatch):
+    """A CUDA error code from a plan kernel's launch raises, and the launch
+    is not counted."""
+    from repro_torch.core.fused_shuffle import code_book
+
+    class FailingLaunch:
+        def xor_encode_packed(self, *args):
+            return 1
+
+        xor_decode_packed = xor_encode_packed
+
+        def repro_cuda_error_string(self, code):
+            return b"invalid argument"
+
+    book = torch.from_numpy(code_book(2).view(np.int32)).to(cuda)
+    src = torch.zeros(5, dtype=torch.int32, device=cuda)
+    e = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    c = torch.zeros((8, 2), dtype=torch.uint8, device=cuda)
+    s = torch.zeros((8, 2, 1), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(xc, "_lib", FailingLaunch)
+    _build.LAUNCHES.clear()
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        xc.xor_encode_plan(src, e, c, book)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        xc.xor_decode_plan(src, torch.zeros(8, dtype=torch.int32, device=cuda),
+                           e, c, s, s.to(torch.uint8), book)
+    assert _build.LAUNCHES["xor_encode_plan"] == 0
+    assert _build.LAUNCHES["xor_decode_plan"] == 0
 
 
 def test_column_routes_at_c0_and_r64(cuda):
