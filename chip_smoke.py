@@ -13,7 +13,8 @@ non-zero before its last line:
      the card, at random shapes (r in 1..5 and 33, r >= 5 the runtime-r
      instance, r = 33 with zero-width segments; B in 1 and 4; empty rows,
      empty slots and full-word leftover slots in the packed K1/K2 tables;
-     any shift and mask in K1's general form) and at each session's shapes
+     any shift and mask in K1's general form; K2 with direct words, entries
+     past the source included, at r = 1, 2, 5) and at each session's shapes
      (B = 1 and B = 4, where K1's general form on the unpacked tables must
      write the packed K1's buffers). K1/K2/K3-min must be bitwise equal,
      K3-sum within rtol 1e-5 of the scatter plain version (which sums with
@@ -68,7 +69,24 @@ non-zero before its last line:
      on ER n = 2,000 (padded to 2,004), p = 0.02,
      seed 5, for 2 iterations: its delivered dict equal to mode coded's
      on the dense path, sssp bitwise the dense coded state;
-  7. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
+  7. topology: the two-level (racks x servers) coded Shuffle through
+     `engine.compile(..., "coded", path="sparse", topology=Topology(R, S))`
+     on backend="fused" (K1 over the R rack buffers, K2 with its direct
+     words, "xor_decode_direct") and "numpy" (the plan kernels on the
+     rack-level plan). er-76k at K = 8, r = 2 (n = 80,024, 640,648
+     entries) on Topology(4, 2), (2, 4), (1, 8) and Topology.flat(8): the
+     host plans' per-level bits exactly the reference's (`TOPO_EXPECTED`),
+     one exchange's delivered words bitwise the flat plan's, pagerank,
+     sssp(0) and multi_sssp (B = 4) for 10 iterations against the flat
+     fused session (sssp and multi_sssp bitwise, pagerank within rtol
+     1e-5), exact bits, the kernels of both routes launched on that path
+     (counts reset just before it), Topology.flat(8) the flat session
+     with its tables; K2's direct form bitwise its plain version at the
+     4 x 2 and 2 x 4 shapes, B = 1 and 4. Then ER n ~ 1e6 (seed 7) at
+     K = 8 on Topology(4, 2) and flat, pagerank for 10 iterations on both
+     backends against the oracle: host compile and session build times,
+     steady ms per iteration, device busy and idle share, peak memory;
+  8. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
      `ssd_state_scan` (bitwise) against their plain versions at the
      `tests/test_kernels.py` ssd shapes, K6 at ragged shapes in float32
      and bf16, both at the serve shape (G = 128 groups, 32 chunks of 64,
@@ -95,7 +113,8 @@ their plain versions. The serve phase also holds K6 at chunks of 128 to
 block: float32 from Q = 180, bf16 at Q = 400) and `ops.ssd` at chunk 256,
 and times K6 at Q = 128 and 256. Prints the `kernels` JSON line
 (K1-K3 and K5 timed at the er-76k shapes with launches from their er-76k
-paths, the plan kernels on the er-76k plan's tables with launches from
+paths, K2's direct form at the er-76k 4 x 2 session's shapes with
+launches from the topology path and at n ~ 1e6 in `kernels_scale`, the plan kernels on the er-76k plan's tables with launches from
 the modes phase's er-76k run, K1's dense form at the slot words of the
 er-76k coded route with launches from the "xor-kernel" route's run, K3
 and K5 also at B = 4 and with their L2 sector traffic in the
@@ -140,18 +159,22 @@ BF16_BLOCK_TOL = 2.0 ** -6  # a bf16 block, kernel vs plain: share of max|y|
 STATE_TOL = 1e-3          # its float32 final state: share of max|h|
 CONSIST_TOL = 1e-3        # float32 decode steps vs the chunked prefill
 SPMV_MODES = ("single", "uncoded", "coded", "coded-fast")
-# The card the kernels are built for (sm_90a), its HBM3 rate, its float32
-# rate outside the tensor cores and its dense bf16 tensor-core rate
-# (NVIDIA H100 SXM data sheet).
-CARD = "H100 80GB HBM3"
-MEM_RATE = 3.35e12        # bytes/s
-F32_RATE = 67e12          # flop/s
-BF16_TC_RATE = 989e12     # flop/s
+TOPO_K = 8                # the two-level cells: K = 8, r = 2
+TOPO_SHAPES = ((4, 2), (2, 4), (1, 8))
+# What the reference's host plan gives er-76k at K = 8, r = 2 per topology
+# (rack redundancy, rack deliveries, rack leftovers, inter-rack bits,
+# intra-rack bits, the flat schedule's inter-rack bits): exact counts.
+TOPO_EXPECTED = {
+    (4, 2): (2, 342_674, 68_640, 6_603_824, 17_528_704, 7_742_624),
+    (2, 4): (1, 136_994, 0, 4_383_808, 13_163_232, 6_598_736),
+    (1, 8): (1, 0, 0, 0, 15_362_752, 0),
+}
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_encode_dense": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_encode_plan": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
+    "xor_decode_direct": "src/repro/core/fused_shuffle.py:700",
     "xor_decode_plan": "src/repro/core/shuffle_plan.py:295",
     "segment_reduce": "src/repro/core/engine.py:166",
     "spmv_dense": "src/repro/kernels/spmv/spmv.py:29",
@@ -164,6 +187,7 @@ SOURCES = {
     "xor_encode_dense": "src/repro_torch/csrc/xor_code.cu",
     "xor_encode_plan": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode": "src/repro_torch/csrc/xor_code.cu",
+    "xor_decode_direct": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode_plan": "src/repro_torch/csrc/xor_code.cu",
     "segment_reduce": "src/repro_torch/csrc/segment_reduce.cu",
     "spmv_dense": "src/repro_torch/csrc/spmv.cu",
@@ -187,15 +211,17 @@ def nvidia_smi() -> str:
 
 
 def bound(torch, nbytes: float, flops: float,
-          rate: float = F32_RATE) -> tuple[float, str]:
-    """Least time on the card (ms) for `nbytes` moved and `flops`
-    operations at `rate` (float32 by default), and which of the two bounds
-    it; raises for another card."""
-    name = torch.cuda.get_device_name(0)
-    if CARD not in name:
-        raise RuntimeError(f"no peak rates known for {name!r} "
-                           f"(bounds are computed for the {CARD})")
-    t_bytes, t_ops = nbytes / MEM_RATE, flops / rate
+          rate: str = "f32") -> tuple[float, str]:
+    """Least time on the card (ms) for `nbytes` moved over its HBM rate and
+    `flops` operations at its `rate` ("f32" outside the tensor cores,
+    "bf16" on them), and which of the two bounds it. The figures are
+    `launch/roofline.card_of`'s (NVIDIA's data sheet); another card than
+    those it knows raises."""
+    from repro_torch.launch.roofline import card_of
+
+    fig = card_of("cuda")
+    t_bytes = nbytes / fig.hbm_bw
+    t_ops = flops / (fig.f32_flops if rate == "f32" else fig.bf16_flops)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -360,6 +386,20 @@ def kernel_phase(torch, dev) -> None:
                                xref.xor_encode(rows, valid)):
                 raise AssertionError(f"dense xor_encode not bitwise at r={r}")
             cases += 1
+    for r in (1, 2, 5):
+        for B in (1, 4):
+            t = up(random_packed(rng, 3, 57, 300, 33, r, B))
+            direct = torch.from_numpy(rng.integers(
+                0, 303, size=(3, 33)).astype(np.int32)).to(dev)
+            buf, flat = run_packed(xc, t, ref=False)
+            dec = (t["src"], buf) + tuple(t[k] for k in DEC_PACKED)
+            got = xc.xor_decode_packed(*dec, direct_e=direct)
+            want = xc.ref.xor_decode_packed(*dec, direct_e=direct)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got | flat, got)):
+                raise AssertionError(f"K2 with direct words not bitwise its "
+                                     f"plain version at r={r} B={B}")
+            cases += 1
     for op in ("sum", "min"):
         for B in (1, 4):
             ev, words, gather, indptr = random_reduce(rng, 500, 4000, 900, B)
@@ -374,7 +414,8 @@ def kernel_phase(torch, dev) -> None:
     cases_stream = stream_kernel_checks(torch, dev, rng)
     log(f"kernel phase: {cases} random exchange cases (packed K1/K2, general "
         f"and dense K1; r = 33 the runtime-r instance with zero-width "
-        f"segments), the K3 sum/min cases, {cases_spmv} K4/K5 cases and "
+        f"segments; K2 with direct words at r = 1, 2, 5), the K3 sum/min "
+        f"cases, {cases_spmv} K4/K5 cases and "
         f"{cases_stream} K3/K5 cases bitwise the sequential plain version "
         f"(long tiles included) agree with the plain versions")
 
@@ -566,7 +607,9 @@ def packed_bytes(eng, B: int = 1) -> tuple[int, int]:
     """Bytes the packed K1 and K2 must move on this session's data: each
     packed table read once (K2: the rows of real deliveries), the book,
     each distinct src word and buffer word a slot with a nonzero mask
-    reads (sentinels excluded), each output written once."""
+    reads (sentinels excluded), each output written once. A two-level
+    session's K1 writes its R rack buffers, and its K2 also reads its
+    direct_e table and each distinct direct word."""
     fx = eng.fused
     p, nnz, M = fx.packed, fx.nnz, fx.M
     K, W, r = p.enc_e.shape
@@ -580,9 +623,12 @@ def packed_bytes(eng, B: int = 1) -> tuple[int, int]:
     se, sc = p.strip_e[rows], p.strip_code[rows]
     e2 = se[(se < nnz) & live(sc)]
     n = int(rows.sum())
-    k2 = (n * r * 5 + n * r * (r - 1) * 5 + 4 * (K + 1) + p.book.nbytes
-          + 4 * B * np.unique(got).size + 4 * B * np.unique(e2).size
-          + 4 * B * M)
+    k2 = (n * r * 5 + n * r * (r - 1) * 5 + 4 * (p.dec_pos.shape[0] + 1)
+          + p.book.nbytes + 4 * B * np.unique(got).size
+          + 4 * B * np.unique(e2).size + 4 * B * M)
+    if p.direct_e is not None:           # K2's direct form: its table and words
+        de = p.direct_e[rows]
+        k2 += 4 * n + 4 * B * np.unique(de[de < nnz]).size
     return int(k1), int(k2)
 
 
@@ -713,7 +759,7 @@ def segment_reduce_record(torch, eng, held) -> dict:
 
 
 def kernel_record(torch, name: str, kernel, plain, library, err: float,
-                  nbytes: float, flops: float, rate: float = F32_RATE) -> dict:
+                  nbytes: float, flops: float, rate: str = "f32") -> dict:
     """One kernel's line: device time (CUDA graph), plain and library call
     times (None where no single PyTorch call computes the same function),
     and its bound from this run's bytes and operations (at `rate`, float32
@@ -770,7 +816,8 @@ def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     plan = compile_plan_csr(g.csr, alloc)
     t_compile = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng = engine.compile(algo.pagerank(), g, alloc, plan=plan, device=dev)
+    eng = engine.compile(algo.pagerank(), g, alloc, plan=plan, path="sparse",
+                         backend="fused", device=dev)
     fx = eng.fused
     t_session = time.perf_counter() - t0
     s = fx.sched
@@ -924,7 +971,8 @@ def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     plan = compile_plan_csr(g.csr, alloc)
     t_compile = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng = engine.compile(algo.pagerank(), g, alloc, plan=plan, device=dev)
+    eng = engine.compile(algo.pagerank(), g, alloc, plan=plan, path="sparse",
+                         backend="fused", device=dev)
     fx = eng.fused
     t_session = time.perf_counter() - t0
     info = dict(n=g.n, nnz=g.csr.nnz, C=int(eng.plan.col_sender.size),
@@ -1627,6 +1675,258 @@ def modes_phase(torch, dev, er: tuple, scale: tuple,
 
 
 # ---------------------------------------------------------------------------
+# topology phase: the two-level (racks x servers) coded Shuffle
+# ---------------------------------------------------------------------------
+
+
+def check_topology_plan(hp, plan, alloc, shape) -> dict:
+    """The host plans' per-level numbers against `TOPO_EXPECTED` (the
+    reference's, exact), with the flat schedule's inter-rack bits from
+    `loads.empirical_loads(plan, alloc, topology=)`."""
+    from repro_torch.core.loads import empirical_loads
+    from repro_torch.launch.mesh import Topology
+
+    got = (hp.inter.r, int(hp.inter.all_k.size), int(hp.inter.left_k.size),
+           hp.inter_rack_bits, hp.intra_rack_bits,
+           int(empirical_loads(plan, alloc, topology=Topology(*shape))
+               ["inter_rack_bits"]))
+    if got != TOPO_EXPECTED[shape]:
+        raise AssertionError(f"topology {shape}: plan numbers {got}, the "
+                             f"reference's {TOPO_EXPECTED[shape]}")
+    keys = ("rack_redundancy", "rack_deliveries", "rack_leftovers",
+            "inter_rack_bits", "intra_rack_bits", "flat_inter_rack_bits")
+    return dict(zip(keys, got))
+
+
+def direct_record(torch, eng, ev, what: str) -> dict:
+    """K2's direct form at a two-level fused session's shapes on Map output
+    `ev` [nnz(, B)]: the rack-level K1 and K2 with direct words bitwise
+    their plain versions; timed (CUDA graph), its bound from the packed
+    tables' bytes (`packed_bytes`) over the card's HBM rate, and the
+    rack-level K1's time beside it (`rack_encode_ms`)."""
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    fx = eng.fused
+    t = dict(fx.tables, src=ev.view(torch.int32))
+    enc = tuple(t[k] for k in ENC_PACKED)
+    buf, buf0 = xc.xor_encode_packed(*enc), xc.ref.xor_encode_packed(*enc)
+    dec = (t["src"], buf) + tuple(t[k] for k in DEC_PACKED)
+    kernel = lambda: xc.xor_decode_packed(*dec, total=fx.M,  # noqa: E731
+                                          direct_e=t["direct_e"])
+    plain = lambda: xc.ref.xor_decode_packed(  # noqa: E731
+        *dec, direct_e=t["direct_e"])
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(buf, buf0) and torch.equal(got, want)):
+        raise AssertionError(f"rack-level K1 or K2 with direct words not "
+                             f"bitwise its plain version at {what}")
+    k1_bytes, k2_bytes = packed_bytes(eng, 1 if ev.dim() == 1 else ev.shape[1])
+    rec = kernel_record(torch, "xor_decode_direct", kernel, plain, None,
+                        word_err(torch, got, want), k2_bytes, 0)
+    rec["rack_encode_ms"] = time_ms_graph(torch, lambda: xc.xor_encode_packed(*enc))
+    rec["rack_encode_bound_ms"] = bound(torch, k1_bytes, 0)[0]
+    return rec
+
+
+def topology_er76k(torch, dev) -> tuple[dict, dict]:
+    """er-76k at K = 8, r = 2 on Topology(4, 2), (2, 4), (1, 8) and
+    Topology.flat(8), backend="fused" and "numpy": the host plans' numbers
+    exactly the reference's; one exchange's delivered words bitwise the
+    flat plan's (`execute_coded_sparse`); then the path (counts cleared
+    just before, read just after): pagerank, sssp(0) and multi_sssp
+    (B = 4), 10 iterations each, on every session; sssp and multi_sssp
+    bitwise the flat fused session's, pagerank within rtol 1e-5 of it,
+    exact bits; Topology.flat(8) the flat session, with its tables. Returns
+    K2's direct-form record (launches from that path) and the info."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+    from repro_torch.core.shuffle_plan import (compile_hierarchical,
+                                               compile_plan_csr)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Topology
+
+    g, alloc, t_graph = er_session(SLICE_N, 76, K=TOPO_K)
+    plan = compile_plan_csr(g.csr, alloc)
+    info = {"n": g.n, "nnz": g.csr.nnz, "M": int(plan.all_k.size),
+            "coded_bits": plan.coded_bits + plan.leftover_bits,
+            "uncoded_bits": plan.uncoded_bits, "graph_s": t_graph}
+    if (g.n, g.csr.nnz, info["M"], info["coded_bits"], info["uncoded_bits"]) \
+            != (80_024, 640_648, 480_086, 7_764_608, 15_362_752):
+        raise AssertionError(f"er-76k at K = 8 is not the reference's: {info}")
+    roots = [0, g.n // 7, g.n // 2, g.n - 1]
+    progs = {"pagerank": algo.pagerank(), "sssp": algo.sssp(0),
+             "multi_sssp": algo.multi_sssp(roots)}
+    flat = engine.compile(algo.pagerank(), g, alloc, "coded", path="sparse",
+                          backend="fused", plan=plan, device=dev)
+    base = {name: flat.with_program(p).run(10) for name, p in progs.items()}
+    for name, res in base.items():
+        check_state(res.state.cpu().numpy(),
+                    algo.reference_run(progs[name], g, 10), name,
+                    f"flat K = 8 {name}")
+    pr = algo.pagerank()
+    ev = pr.map_edge_values_t(flat._dg, torch.as_tensor(
+        pr.init(g), device=dev)).contiguous()
+    want = floats_to_words(plan.execute_coded_sparse(ev.cpu().numpy(),
+                                                     flat.tables).values)
+    sessions = {}
+    for shape in TOPO_SHAPES + ("flat",):
+        topo = Topology.flat(TOPO_K) if shape == "flat" else Topology(*shape)
+        key = "flat" if shape == "flat" else f"{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        hp = compile_hierarchical(g.csr, alloc, topo)
+        m = info[key] = {"compile_s": time.perf_counter() - t0}
+        if shape != "flat":
+            m.update(check_topology_plan(hp, plan, alloc, shape))
+        for backend in ("fused", "numpy"):
+            t0 = time.perf_counter()
+            eng = engine.compile(pr, g, alloc, "coded", path="sparse",
+                                 backend=backend, plan=hp, device=dev)
+            m[f"{backend}_session_s"] = time.perf_counter() - t0
+            if (eng.hplan is None) != (shape == "flat"):
+                raise AssertionError(f"{key} {backend}: wrong session kind")
+            got = (eng.fused.exchange(ev) if backend == "fused"
+                   else eng.dplan.words(ev, "coded"))
+            if not np.array_equal(t_words_to_np(got), want):
+                raise AssertionError(f"{key} {backend}: delivered words differ "
+                                     "from the flat plan's")
+            sessions[(key, backend)] = eng
+    tables = sessions[("flat", "fused")].fused.tables
+    if tables.keys() != flat.fused.tables.keys() or not all(
+            torch.equal(t, flat.fused.tables[k]) for k, t in tables.items()):
+        raise AssertionError("Topology.flat(8): its tables differ from the "
+                             "flat session's")
+
+    # The path: reset the counts, run every program on every session, read.
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    runs = {(key, backend, name): eng.with_program(p).run(10)
+            for (key, backend), eng in sessions.items()
+            for name, p in progs.items()}
+    torch.cuda.synchronize()
+    info["run_s"] = time.perf_counter() - t0
+    launches = info["launches"] = dict(_build.LAUNCHES)
+    for name in ("xor_encode", "xor_decode", "xor_decode_direct",
+                 "xor_encode_plan", "xor_decode_plan", "segment_reduce"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the er-76k "
+                                 "topology path")
+    for (key, backend, name), res in runs.items():
+        eng = sessions[(key, backend)]
+        what = f"topology {key} {backend} {name}"
+        err = check_state(res.state.cpu().numpy(), base[name].state.cpu().numpy(),
+                          name, what)
+        m = info[key].setdefault(backend, {})
+        if err is not None:
+            m[f"{name}_max_rel_err"] = err
+        m[f"{name}_bitwise_flat"] = bool(torch.equal(
+            res.state.view(torch.int32), base[name].state.view(torch.int32)))
+        per = (eng.hplan.inter_rack_bits + eng.hplan.intra_rack_bits
+               if eng.hplan is not None else info["coded_bits"])
+        if res.shuffle_bits != per * res.batch * 10:
+            raise AssertionError(f"{what}: shuffle bits are not exact")
+        if key == "flat" and backend == "fused" and not m[f"{name}_bitwise_flat"]:
+            raise AssertionError(f"{what}: not the flat session's state")
+    for key in ("4x2", "2x4"):
+        for backend in ("fused", "numpy"):
+            info[key][backend].update(iteration_profile(
+                torch, sessions[(key, backend)]))
+    rec = direct_record(torch, sessions[("4x2", "fused")], ev, "er-76k 4x2")
+    state4 = torch.from_numpy(np.random.default_rng(4).random(
+        (g.n, 4), dtype=np.float32)).to(dev)
+    ev4 = pr.map_edge_values_t(flat._dg, state4).contiguous()
+    for key in ("4x2", "2x4"):
+        for e in (ev, ev4):
+            direct_record(torch, sessions[(key, "fused")], e, f"er-76k {key}")
+    record_launches([rec], launches, "the er-76k topology path")
+    return rec, info
+
+
+def topology_scale(torch, dev, smi: str) -> tuple[dict, dict]:
+    """ER n ~ 1e6 (seed 7) at K = 8, r = 2 on Topology(4, 2) and flat,
+    pagerank for 10 iterations on backend="fused" and "numpy": host
+    compile and session build times, per-level bits, steady ms per
+    iteration, device busy and idle share, peak memory, pagerank within
+    rtol 1e-5 of the oracle, exact bits, each run's launch counts. Returns
+    K2's direct-form record at these shapes and the info."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.loads import empirical_loads
+    from repro_torch.core.shuffle_plan import (compile_hierarchical,
+                                               compile_plan_csr)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Topology
+
+    g, alloc, t_graph = er_session(SCALE_N, 7, K=TOPO_K)
+    info = {"n": g.n, "nnz": g.csr.nnz, "graph_s": t_graph}
+    t0 = time.perf_counter()
+    want = algo.reference_run(algo.pagerank(), g, 10)
+    info["oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = compile_plan_csr(g.csr, alloc)
+    info["flat_compile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hp = compile_hierarchical(g.csr, alloc, Topology(4, 2))
+    info["compile_hierarchical_s"] = time.perf_counter() - t0
+    info.update(M=int(plan.all_k.size), rack_redundancy=hp.inter.r,
+                inter_rack_bits=hp.inter_rack_bits,
+                intra_rack_bits=hp.intra_rack_bits,
+                flat_bits=plan.coded_bits + plan.leftover_bits,
+                flat_inter_rack_bits=int(empirical_loads(
+                    plan, alloc, topology=Topology(4, 2))["inter_rack_bits"]))
+    pr, rec = algo.pagerank(), None
+    for key, p in (("4x2", hp), ("flat", plan)):
+        bits = (hp.inter_rack_bits + hp.intra_rack_bits if key == "4x2"
+                else info["flat_bits"])
+        for backend in ("fused", "numpy"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            eng = engine.compile(pr, g, alloc, "coded", path="sparse",
+                                 backend=backend, plan=p, device=dev)
+            m = info[f"{key}_{backend}"] = {
+                "session_s": time.perf_counter() - t0}
+            eng.run(1)
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            res = eng.run(10)
+            torch.cuda.synchronize()
+            m["pagerank_s_per_iter"] = (time.perf_counter() - t0) / 10
+            m["launches"] = dict(_build.LAUNCHES)
+            m["pagerank_max_rel_err"] = check_pagerank(
+                res.state.cpu().numpy(), want, f"scale {key} {backend}")
+            if res.shuffle_bits != bits * 10:
+                raise AssertionError(f"scale {key} {backend}: shuffle bits "
+                                     "are not exact")
+            m.update(iteration_profile(torch, eng))
+            m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+            if key == "4x2" and backend == "fused":
+                ev = pr.map_edge_values_t(eng._dg, torch.as_tensor(
+                    pr.init(g), device=dev)).contiguous()
+                rec = direct_record(torch, eng, ev, "scale 4x2")
+                record_launches([rec], m["launches"], "the scale 4x2 path")
+                del ev
+            log(f"topology phase, scale, {key} {backend}: steady "
+                f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
+                f"{(m['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, "
+                f"idle {m['device_idle_share']}, peak {m['peak_mem_bytes']} B,"
+                f" session {m['session_s']:.4f} s | {smi}")
+            del eng, res
+    return rec, info
+
+
+def topology_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
+    rec_er, info_er = topology_er76k(torch, dev)
+    log(f"topology phase, er-76k ok: {json.dumps(info_er)}")
+    rec_scale, info_scale = topology_scale(torch, dev, smi)
+    log(f"topology phase, scale ok: {json.dumps(info_scale)}")
+    return rec_er, rec_scale, {"er76k": info_er, "scale": info_scale}
+
+
+# ---------------------------------------------------------------------------
 # serve phase: K6 / K7 and mamba2-370m at full width
 # ---------------------------------------------------------------------------
 
@@ -1793,7 +2093,7 @@ def ssd_kernel_checks(torch, dev, rng) -> tuple[dict, dict]:
     # record, as PR 13 reckoned it. K7: one multiply-add per state.
     rec6 = kernel_record(torch, "ssd_chunk", lambda: ssd_k.ssd_chunk(*args),
                          lambda: ssd_ref.ssd_chunk(*args), None, err6,
-                         *k6_cost(args), rate=BF16_TC_RATE)
+                         *k6_cost(args), rate="bf16")
     rec32 = kernel_record(torch, "ssd_chunk", lambda: ssd_k.ssd_chunk(*args32),
                           lambda: ssd_ref.ssd_chunk(*args32), None, err32,
                           *k6_cost(args32))
@@ -2072,11 +2372,13 @@ def main() -> int:
     plan_er, plan_scale, result["modes"] = timed(
         "modes", modes_phase, torch, dev, er, scale, result["scale"])
     del er, scale
+    k2d_er, k2d_scale, result["topology"] = timed("topology", topology_phase,
+                                                  torch, dev, smi)
     k4, result["dense"] = timed("dense", dense_phase, torch, dev)
     k6, k7, result["serve"] = timed("serve", serve_phase, torch, dev, smi)
     log(f"phase wall times (s): {json.dumps(wall)}")
-    records += plan_er + [k4, k5_er, k6, k7]
-    scale_records += [k5_scale] + plan_scale
+    records += plan_er + [k2d_er, k4, k5_er, k6, k7]
+    scale_records += [k5_scale] + plan_scale + [k2d_scale]
     result["kernels_scale"] = scale_records
     log("kernels at the scale shapes: " + json.dumps(scale_records))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

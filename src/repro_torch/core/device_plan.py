@@ -32,6 +32,14 @@ reference's Pallas kernel: the slot words [C + L, r(, B)], folded by K1's
 dense form through `ops.xor_encode_columns` and stripped by
 `xor_strip_columns`, then decoded by the plain `decode_plan`.
 
+`HierarchicalDevicePlan` is the device counterpart of
+`HierarchicalPlan.execute_coded_sparse` (the two-level coded Shuffle of
+backend "numpy"): a `DevicePlan` of the rack-level plan `inter`, bound by
+`inter.edge_tables(csr, rack_alloc)`, runs the plan encode and decode at
+the rack level; the Map output's words of the intra-rack deliveries are
+read at their CSR entries (`flat.all_e`), and one gather places them and
+the rack words (at `inter_pos`) in the flat delivery stream.
+
 Words are int32 tensors holding the uint32 bits. Delivered words are
 bitwise those of the host executors, and the bits on the wire are the same
 schedule constants. While the tracer is enabled each phase synchronises
@@ -48,8 +56,9 @@ from ..kernels.xor_code import ops as xor_ops
 from ..kernels.xor_code import ref as xor_ref
 from ..obs import get_tracer
 from .bitcodec import floats_to_words_t, words_to_floats_t
-from .fused_shuffle import _i32, _upload, code_book
-from .shuffle_plan import PlanEdgeTables, PlanShuffleResult, ShufflePlan
+from .fused_shuffle import _count_rack_bits, _i32, _upload, code_book
+from .shuffle_plan import (HierarchicalEdgeTables, HierarchicalPlan,
+                           PlanEdgeTables, PlanShuffleResult, ShufflePlan)
 
 BACKENDS = ("numpy", "xor-kernel", "xor-ref")
 
@@ -317,3 +326,48 @@ class DevicePlan:
         backend=)`) on an [n, n] value matrix: values on the device."""
         return self._result(self.words(values, mode, dense=True,
                                        backend=backend), mode)
+
+
+class HierarchicalDevicePlan:
+    """A compiled `HierarchicalPlan` uploaded once to `device`: the
+    two-level coded Shuffle of backend "numpy" from device edge values.
+
+    `tables` is the plan's `edge_tables(csr, alloc)`; the rack-level plan
+    runs as a coded `DevicePlan` on its own binding (`tables.inter`).
+    """
+
+    def __init__(self, hplan: HierarchicalPlan, device: torch.device,
+                 tables: HierarchicalEdgeTables):
+        self.hplan = hplan
+        self.device = device
+        self.inter = DevicePlan(hplan.inter, device, tables=tables.inter,
+                                coded=True)
+        # The intra-rack deliveries' CSR entries, and the source of each
+        # flat delivery in cat(rack words, intra-rack edge words).
+        cross = hplan.inter_pos >= 0
+        self._intra_e = _i32(tables.flat.all_e[~cross], device)
+        src = np.empty(cross.size, dtype=np.int64)
+        src[cross] = hplan.inter_pos[cross]
+        src[~cross] = hplan.inter.all_k.size + np.arange(int((~cross).sum()))
+        self._src = _i32(src, device)
+        # Summed once: `inter_rack_bits` sums the rack plan's columns.
+        self.rack_bits = (hplan.inter_rack_bits, hplan.intra_rack_bits)
+
+    def words(self, src: torch.Tensor, mode: str = "coded") -> torch.Tensor:
+        """Delivered codec-order words [M(, B)] int32 of one two-level
+        Shuffle in the flat (k, i, j) order, from [nnz(, B)] float32 edge
+        values, bitwise `HierarchicalPlan.execute_coded_sparse`'s."""
+        if mode != "coded":
+            raise ValueError("the two-level Shuffle runs mode 'coded' only, "
+                             f"got {mode!r}")
+        tr = get_tracer()
+        xw = self.inter.words(src, "coded")          # the rack level
+        B = 1 if src.dim() == 1 else int(src.shape[1])
+        inter, intra = (b * B for b in self.rack_bits)
+        with tr.span("phase.exchange", level="intra_rack", bits=intra, B=B,
+                     inter_rack_bits=inter, intra_rack_bits=intra):
+            direct = floats_to_words_t(src[self._intra_e])
+            out = torch.cat([xw, direct])[self._src]
+            self.inter._sync(tr)
+        _count_rack_bits(inter, intra)
+        return out

@@ -1,9 +1,11 @@
 """Coded MapReduce-on-graph engine on one card (paper §II-B execution model).
 
 Port of the reference package's `core/engine.py` (all of `CompiledEngine`
-but faults and topology). A session compiles the coded multicast schedule
-once on the host (`compile_plan_csr`) and keeps the state on the device
-across iterations. Three backends, the reference's names:
+but faults). A session compiles the coded multicast schedule once on the
+host (`compile_plan_csr`, or `compile_hierarchical` for a non-flat
+`topology=`) and keeps the state on the device across iterations. Three
+backends, the reference's names, and the reference's defaults
+(path="auto", backend="numpy"):
 
 backend="numpy" (the reference's default; every mode and path): the
 reference runs the plan's NumPy executors; here the same executors run on
@@ -31,6 +33,15 @@ virtual server and uploads packed tables (`FusedSparseShuffle`); every
 iteration encodes every server's coded buffer with K1's packed form,
 decodes every receiver's deliveries with K2, and Reduces with K3 as above.
 
+topology=Topology(R, S) (mode "coded", sparse path, backend "numpy" or
+"fused"): the two-level coded Shuffle of a `HierarchicalPlan`, coded
+across racks and plain within them. backend="numpy" runs the rack-level
+plan on `device_plan.HierarchicalDevicePlan`, backend="fused" K1 over the
+R rack buffers and K2 with its intra-rack words (`FusedSparseShuffle`).
+The delivered words are the flat plan's, bitwise, so the Reduce is the
+flat one; the bits are `inter_rack_bits + intra_rack_bits`.
+`Topology.flat(K)` is the flat session.
+
 backend="spmv" (modes "single", "uncoded", "coded", "coded-fast"; linear
 programs only, sparse): the plan's edge tables are built once as the
 coverage check, and nothing of the Shuffle is uploaded. Each iteration maps
@@ -40,14 +51,14 @@ finalizes.
 
 The Shuffle's bits are schedule-only: 0 for single, `uncoded_bits`,
 `coded_bits + leftover_bits` or `coded_bits` per payload column and
-iteration (coded-ref: what the literal reference sends, the same total).
+iteration (coded-ref: what the literal reference sends, the same total;
+a two-level session: `inter_rack_bits + intra_rack_bits`).
 Delivered words are bitwise the NumPy executors'; min and integer programs
 are bitwise equal to the NumPy oracle of their path
 (`algorithms.reference_run`), float sums agree within a stated tolerance
 (the device's sums against NumPy's); `shuffle_bits` is exact.
 
-The port's defaults stay backend="fused", path="sparse". What the
-reference offers beyond these routes (faults, checkpoints, topology)
+What the reference offers beyond these routes (faults, checkpoints)
 raises `NotImplementedError` naming the ROADMAP item that will bring it;
 what the reference rejects raises its `ValueError`, in its order.
 """
@@ -62,15 +73,17 @@ from ..device import resolve_device
 from ..kernels.csr_tiles import tile_rows
 from ..kernels.segment_reduce.ops import segment_reduce
 from ..kernels.spmv.spmv import check_bm, spmv_csr
+from ..launch.mesh import Topology
 from ..obs import get_tracer
 from .algorithms import VertexProgram
 from .allocation import Allocation
 from .bitcodec import T_BITS
 from .coded_shuffle import run_coded
-from .device_plan import DevicePlan
+from .device_plan import DevicePlan, HierarchicalDevicePlan
 from .fused_shuffle import FusedSparseShuffle, _i32
 from .graph_models import Graph
-from .shuffle_plan import ShufflePlan, compile_plan_csr
+from .shuffle_plan import (HierarchicalPlan, ShufflePlan,
+                           compile_hierarchical, compile_plan_csr)
 from .uncoded_shuffle import missing_pairs
 
 PLAN_MODES = ("uncoded", "coded", "coded-fast")
@@ -80,7 +93,6 @@ MODES = ("single",) + PLAN_MODES + ("coded-ref",)
 _BACKEND_OPTS = {"numpy": frozenset(), "fused": frozenset(),
                  "spmv": frozenset({"bm"})}
 _NOT_PORTED = {
-    "topology": "ROADMAP Queue 1 #8 (two-level topology exchange)",
     "faults": "ROADMAP Queue 1 #9 (elastic and dynamic sessions)",
 }
 
@@ -113,10 +125,13 @@ def _use_sparse(program: VertexProgram, mode: str, path: str) -> bool:
 
 
 def _check_options(program: VertexProgram, mode: str, path: str,
-                   backend: str, topology, opts: dict,
-                   alloc: Allocation | None) -> bool:
-    """The reference's validation, in its order; returns whether the
-    session runs the sparse path."""
+                   backend: str, topology: Topology | None, opts: dict,
+                   alloc: Allocation | None, plan=None):
+    """The reference's validation, in its order. Returns (whether the
+    session runs the sparse path, the flat plan or None, the
+    `HierarchicalPlan` of a two-level session or None, the topology): a
+    `HierarchicalPlan` brings its own topology, and a flat one
+    degenerates to its flat plan."""
     sparse = _use_sparse(program, mode, path)
     if backend not in _BACKEND_OPTS:
         raise ValueError(f"unknown backend {backend!r}")
@@ -126,8 +141,31 @@ def _check_options(program: VertexProgram, mode: str, path: str,
         raise ValueError(
             f"backend {backend!r} got unknown option(s) {unknown}; "
             f"accepted: {accepted if accepted else '(none)'}")
-    if topology is not None:
-        raise _not_ported("topology=", "topology")
+    hplan = None
+    if isinstance(plan, HierarchicalPlan):
+        if topology is not None and topology != plan.topology:
+            raise ValueError(
+                f"topology {topology} disagrees with the plan's "
+                f"{plan.topology}")
+        topology = plan.topology
+        if not topology.is_flat:
+            hplan = plan
+        plan = plan.flat
+    if topology is not None and not topology.is_flat:
+        # The two-level executors run the coded sparse Shuffle only; spmv
+        # never executes a Shuffle at all.
+        if mode != "coded" or not sparse:
+            raise ValueError(
+                "a non-flat topology runs the two-level coded Shuffle: "
+                f"mode='coded' on the sparse path required (got "
+                f"mode={mode!r}, path={path!r})")
+        if backend == "spmv":
+            raise ValueError(
+                "backend='spmv' skips the Shuffle; a non-flat topology "
+                "needs backend 'numpy' or 'fused'")
+        if alloc is None:
+            raise ValueError("a non-flat topology needs an allocation")
+        topology.check_K(alloc.K)
     if backend == "spmv":
         if not sparse:
             raise ValueError("backend='spmv' requires the sparse path")
@@ -145,7 +183,7 @@ def _check_options(program: VertexProgram, mode: str, path: str,
                 f"use mode='coded' (got {mode!r})")
         if alloc is None:
             raise ValueError("backend='fused' needs an allocation")
-    return sparse
+    return sparse, plan, hplan, topology
 
 
 @dataclasses.dataclass
@@ -171,7 +209,9 @@ class EngineResult:
 class CompiledEngine:
     """Compile-once session bound to (graph, allocation) on one device.
 
-    Holds the `ShufflePlan` and its CSR edge tables and, per route, what
+    Holds the `ShufflePlan` and its CSR edge tables (a two-level session
+    also its `HierarchicalPlan`, `hplan`, whose flat plan is `plan`) and,
+    per route, what
     it uploads once: the tile table of K3 / K5 (`kernels/csr_tiles`) and
     the Map's device graph on the sparse path; the exchange with its
     tables and the Reduce gather table for backend="fused"; the device
@@ -184,13 +224,16 @@ class CompiledEngine:
 
     def __init__(self, program: VertexProgram, g: Graph,
                  alloc: Allocation | None, mode: str = "coded", *,
-                 path: str = "sparse", backend: str = "fused",
-                 plan: ShufflePlan | None = None,
+                 path: str = "auto", backend: str = "numpy",
+                 plan: ShufflePlan | HierarchicalPlan | None = None,
                  device: str | torch.device | None = "cuda",
-                 topology=None, backend_opts: dict | None = None, **opts):
+                 topology: Topology | None = None,
+                 backend_opts: dict | None = None, **opts):
         opts = {**(backend_opts or {}), **opts}
-        self.sparse = _check_options(program, mode, path, backend, topology,
-                                     opts, alloc)
+        self.sparse, plan, self.hplan, topology = _check_options(
+            program, mode, path, backend, topology, opts, alloc, plan)
+        hier = topology is not None and not topology.is_flat
+        self.topology = topology
         self.device = resolve_device(device)
         self.program = program
         self.g = g
@@ -203,17 +246,29 @@ class CompiledEngine:
         planned = self.distributed and mode in PLAN_MODES
         if planned and plan is None:
             # Uncoded only consumes the missing set; skip the column tables.
-            with get_tracer().span("engine.compile", mode=mode,
-                                   backend=backend, n=g.n, K=alloc.K):
-                plan = compile_plan_csr(g.csr, alloc,
-                                        schedule=mode != "uncoded")
+            with get_tracer().span(
+                    "engine.compile", mode=mode, backend=backend, n=g.n,
+                    K=alloc.K,
+                    **({"racks": topology.racks,
+                        "servers_per_rack": topology.servers_per_rack}
+                       if hier else {})):
+                if hier:
+                    self.hplan = compile_hierarchical(g.csr, alloc, topology)
+                    plan = self.hplan.flat
+                else:
+                    plan = compile_plan_csr(g.csr, alloc,
+                                            schedule=mode != "uncoded")
         elif planned:
             plan.check_alloc(alloc)
         self.plan = plan
         # Built for the coverage check even where nothing is uploaded.
         self.tables = (plan.edge_tables(g.csr, alloc)
                        if planned and self.sparse else None)
-        self._bits = _plan_bits(plan, mode) if planned else 0
+        if self.hplan is not None:
+            self._bits = (self.hplan.inter_rack_bits
+                          + self.hplan.intra_rack_bits)
+        else:
+            self._bits = _plan_bits(plan, mode) if planned else 0
         if not self.sparse:
             self._dense_session(planned)
             return
@@ -226,8 +281,11 @@ class CompiledEngine:
             self._indices = _i32(g.csr.indices, self.device)
             return
         if backend == "fused":
-            self.fused = FusedSparseShuffle(plan, g.csr, alloc,
+            self.fused = FusedSparseShuffle(self.hplan or plan, g.csr, alloc,
                                             device=self.device)
+        elif self.hplan is not None:
+            self.dplan = HierarchicalDevicePlan(
+                self.hplan, self.device, self.hplan.edge_tables(g.csr, alloc))
         elif planned:
             self.dplan = DevicePlan(plan, self.device, tables=self.tables,
                                     coded=mode == "coded")
@@ -268,9 +326,11 @@ class CompiledEngine:
 
     def with_program(self, program: VertexProgram) -> "CompiledEngine":
         """Rebind the vertex program on the same compiled artifacts (plan,
-        edge tables, uploaded exchange and reduce tables carry over)."""
-        _check_options(program, self.mode, self.path, self.backend, None,
-                       self.backend_opts, self.alloc)
+        topology, edge tables, uploaded exchange and reduce tables carry
+        over)."""
+        _check_options(program, self.mode, self.path, self.backend,
+                       self.topology, self.backend_opts, self.alloc,
+                       self.hplan or self.plan)
         eng = object.__new__(CompiledEngine)
         eng.__dict__.update(self.__dict__)
         eng.program = program
@@ -436,30 +496,36 @@ class CompiledEngine:
             raise ValueError(
                 "loads() needs a compiled plan (a distributed plan mode)")
         from .loads import empirical_loads
-        return empirical_loads(self.plan, self.alloc)
+        return empirical_loads(self.hplan or self.plan, self.alloc,
+                               topology=self.topology)
 
 
 def compile(program: VertexProgram, g: Graph, alloc: Allocation | None,
-            mode: str = "coded", *, path: str = "sparse",
-            backend: str = "fused", plan: ShufflePlan | None = None,
-            device: str | torch.device | None = "cuda", topology=None,
+            mode: str = "coded", *, path: str = "auto",
+            backend: str = "numpy",
+            plan: ShufflePlan | HierarchicalPlan | None = None,
+            device: str | torch.device | None = "cuda",
+            topology: Topology | None = None,
             backend_opts: dict | None = None, **opts) -> CompiledEngine:
     """Compile a reusable session (see `CompiledEngine`); `device`
     defaults to the card and raises without one. Backend options go
-    inline (``backend="spmv", bm=32``) or in `backend_opts=`."""
+    inline (``backend="spmv", bm=32``) or in `backend_opts=`. A non-flat
+    `topology` compiles the two-level coded Shuffle
+    (`shuffle_plan.compile_hierarchical`)."""
     return CompiledEngine(program, g, alloc, mode, path=path, backend=backend,
                           plan=plan, device=device, topology=topology,
                           backend_opts=backend_opts, **opts)
 
 
 def run(program: VertexProgram, g: Graph, alloc: Allocation | None,
-        iters: int, mode: str = "coded", plan: ShufflePlan | None = None, *,
-        path: str = "sparse", backend: str = "fused",
-        backend_opts: dict | None = None,
+        iters: int, mode: str = "coded",
+        plan: ShufflePlan | HierarchicalPlan | None = None, *,
+        path: str = "auto", backend: str = "numpy",
+        backend_opts: dict | None = None, topology: Topology | None = None,
         device: str | torch.device | None = "cuda") -> EngineResult:
     """One-shot wrapper: `compile(...)` + `.run(iters)`."""
     return compile(program, g, alloc, mode, path=path, backend=backend,
-                   plan=plan, device=device,
+                   plan=plan, device=device, topology=topology,
                    backend_opts=backend_opts).run(iters)
 
 

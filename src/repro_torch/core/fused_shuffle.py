@@ -28,6 +28,18 @@ tensor whose column W is zero:
     codec-order words straight into the flat (k, i, j) delivery order of
     the plan.
 
+The two-level (racks x servers) exchange of the reference's
+`partition_hierarchical` / `FusedSparseShuffle` with a `HierarchicalPlan`
+runs on the same two kernels. The reference gathers each rack's Map words
+on the intra-rack axis (phase A), encodes one coded buffer per rack and
+gathers those on the inter-rack axis (phase B); each server decodes from
+the rack buffers and gathers its intra-rack deliveries from phase A's
+buffer. Here phase A moves nothing (`pack_hierarchical` composes every
+position of a rack's buffer into a CSR entry of the Map output), K1
+encodes the R rack buffers [R, Wx + 1(, B)], and K2 decodes every
+server's deliveries from them, ORing in the intra-rack words through its
+`direct_e` table.
+
 Nothing returns to the host between Map and Reduce. Delivered words are
 bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
 axis B rides the same tables (column b is bitwise the unbatched exchange
@@ -44,12 +56,14 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.xor_code.xor_code import xor_decode_packed, xor_encode_packed
-from ..obs import get_tracer
+from ..launch.mesh import Topology
+from ..obs import get_registry, get_tracer
 from .allocation import Allocation
 from .bitcodec import (floats_to_words, np_words_to_t, segment_words,
                        t_words_to_np, words_to_floats)
 from .graph_models import CSR
-from .shuffle_plan import PlanShuffleResult, ShufflePlan, _run_ranks
+from .shuffle_plan import (HierarchicalPlan, PlanShuffleResult, ShufflePlan,
+                           _rack_first_mapper, _run_ranks)
 
 FULL_MASK = np.uint32(0xFFFFFFFF)
 
@@ -245,6 +259,218 @@ def partition_plan(plan: ShufflePlan, csr: CSR,
 
 
 @dataclasses.dataclass(frozen=True)
+class FusedHierarchicalSchedule:
+    """Per-server partition of a `HierarchicalPlan` for the two-level path,
+    bitwise the reference's.
+
+    In the reference, phase A all_gathers each server's `loc` words on the
+    'servers' axis, so every server holds its rack's union buffer
+    ``rflat`` of ``S * (Lmax + 1)`` words (block s = server s of the rack,
+    word `Lmax` of block 0 a guaranteed zero - the sentinel `ZERO = Lmax`).
+    The rack encode tables (`enc_*`, one row per *rack*) index `rflat`;
+    phase B all_gathers the [Wx]-word rack buffers on the 'racks' axis.
+    Per-server decode reads coded segments from ``allbufs[dec_rk, dec_w]``
+    (rack column `Wx` = zero pad), strips the other slots from `rflat`,
+    and ORs in `direct_l`/`direct_mask` gathers for the intra-only
+    deliveries that never crossed a rack. On one card `pack_hierarchical`
+    composes every `rflat` index into a CSR entry of the Map output, so
+    phase A moves nothing.
+    """
+
+    K: int
+    R: int
+    S: int
+    rr: int                       # rack-level redundancy (inter.r)
+    Wx: int                       # per-rack buffer width (words)
+    Lmax: int                     # max local-value count over servers
+    Dmax: int                     # max delivery count over receivers
+    loc_e: np.ndarray             # [K, Lmax] int64 CSR entry (nnz = zero pad)
+    enc_l: np.ndarray             # [R, Wx, rr] int32 into rflat (ZERO = pad)
+    enc_shift: np.ndarray         # [R, Wx, rr] uint32
+    enc_mask: np.ndarray          # [R, Wx, rr] uint32
+    dec_rk: np.ndarray            # [K, Dmax, rr] int32 sending rack
+    dec_w: np.ndarray             # [K, Dmax, rr] int32 rack column (Wx = zero)
+    dec_mask: np.ndarray          # [K, Dmax, rr] uint32
+    dec_shift: np.ndarray         # [K, Dmax, rr] uint32
+    strip_f: np.ndarray           # [K, Dmax, rr, rr-1] int32 into rflat
+    strip_shift: np.ndarray       # [K, Dmax, rr, rr-1] uint32
+    strip_mask: np.ndarray        # [K, Dmax, rr, rr-1] uint32
+    direct_l: np.ndarray          # [K, Dmax] int32 into rflat (ZERO = pad)
+    direct_mask: np.ndarray       # [K, Dmax] uint32 (FULL for intra-only)
+
+
+def partition_hierarchical(hplan: HierarchicalPlan, csr: CSR,
+                           alloc: Allocation) -> FusedHierarchicalSchedule:
+    """Partition a `HierarchicalPlan` per device for the two-level exchange.
+
+    Same compile-time/no-data discipline as `partition_plan`, every array
+    bitwise the reference's `partition_hierarchical`; every value
+    read from a rack's phase-A buffer comes from the rack's *designated
+    source* (its lowest Mapping server - the same rule the plan's
+    `intra_rack_bits` accounting charges), and every coded segment decodes
+    bitwise like the NumPy hierarchical executor because identical floats
+    produce identical codec words on every holder.
+    """
+    flat, inter, topo = hplan.flat, hplan.inter, hplan.topology
+    R, S = topo.racks, topo.servers_per_rack
+    K, rr = flat.K, inter.r
+    nstrip = max(rr - 1, 0)
+    flat._require_schedule()
+    inter._require_schedule()
+    ft = flat.edge_tables(csr, alloc)           # locates + validates
+    xt = inter.edge_tables(csr, hplan.rack_alloc)
+    has = hplan.rack_alloc.map_sets             # [R, n] rack Mapped vertex
+    first, _ = _rack_first_mapper(alloc, R, S)
+
+    member = alloc.map_sets[:, csr.indices]     # [K, nnz]
+    Lmax = max(int(member.sum(axis=1).max()), 1)
+    loc_e = np.full((K, Lmax), csr.nnz, dtype=np.int64)
+    for k in range(K):
+        lset = np.flatnonzero(member[k])
+        loc_e[k, :lset.size] = lset
+    lpos_all = np.where(member, np.cumsum(member, axis=1) - 1, 0)
+    blk = Lmax + 1
+    ZERO = Lmax                                 # rflat[Lmax] == 0 pad word
+
+    def rfidx(rack, j, e):
+        """Phase-A buffer position of vertex j's value (CSR entry e) as
+        held by `rack`'s designated source server."""
+        if not has[rack, j].all():
+            raise RuntimeError("hierarchical schedule references a vertex "
+                               "its consuming rack never Mapped")
+        off = first[rack, j].astype(np.int64)
+        src = rack.astype(np.int64) * S + off
+        if not member[src, e].all():
+            raise RuntimeError("designated in-rack source did not Map its "
+                               "assigned value")
+        return (off * blk + lpos_all[src, e]).astype(np.int32)
+
+    # --- rack-level sender layout + encode tables (one row per rack) ---
+    colpos, ncols = _sender_layout(inter)
+    Px = inter.pair_k.size
+    Lx = inter.left_k.size
+    if Lx:
+        lsender = np.argmax(has[:, inter.left_j], axis=0)
+        if not has[lsender, inter.left_j].all():
+            raise RuntimeError("rack-level leftover has no Mapping rack")
+        lorder = np.argsort(lsender, kind="stable")
+        _, lrank = _run_ranks(lsender[lorder])
+        leftw = np.empty(Lx, dtype=np.int64)
+        leftw[lorder] = ncols[lsender[lorder]] + lrank
+        nleft = np.bincount(lsender, minlength=R)
+    else:
+        lsender = np.zeros(0, dtype=np.int64)
+        leftw = np.zeros(0, dtype=np.int64)
+        nleft = np.zeros(R, dtype=np.int64)
+    Wx = max(int((ncols + nleft).max()), 1)
+
+    enc_l = np.full((R, Wx, rr), ZERO, dtype=np.int32)
+    enc_shift = np.zeros((R, Wx, rr), dtype=np.uint32)
+    enc_mask = np.zeros((R, Wx, rr), dtype=np.uint32)
+    if inter.col_sender.size:
+        cs, sl = np.nonzero(inter.slot_pair < Px)
+        p = inter.slot_pair[cs, sl]
+        sr = inter.col_sender[cs]               # sending rack per slot
+        enc_l[sr, colpos[cs], sl] = rfidx(sr, inter.pair_j[p], xt.pair_e[p])
+        enc_shift[sr, colpos[cs], sl] = inter.slot_shift[cs, sl]
+        enc_mask[sr, colpos[cs], sl] = inter.slot_mask[cs, sl]
+    if Lx:
+        enc_l[lsender, leftw, 0] = rfidx(lsender, inter.left_j, xt.left_e)
+        enc_mask[lsender, leftw, 0] = FULL_MASK
+
+    # --- decode tables, first in flat (k, i, j) delivery order ---
+    M = flat.all_k.size
+    f_rk = np.zeros((M, rr), dtype=np.int32)
+    f_w = np.full((M, rr), Wx, dtype=np.int32)
+    f_mask = np.zeros((M, rr), dtype=np.uint32)
+    f_shift = np.zeros((M, rr), dtype=np.uint32)
+    f_sf = np.full((M, rr, nstrip), ZERO, dtype=np.int32)
+    f_ssh = np.zeros((M, rr, nstrip), dtype=np.uint32)
+    f_smk = np.zeros((M, rr, nstrip), dtype=np.uint32)
+    f_dl = np.full(M, ZERO, dtype=np.int32)
+    f_dm = np.zeros(M, dtype=np.uint32)
+
+    d_rho = hplan.rack_of[flat.all_k]
+    intra = hplan.inter_pos < 0
+    if intra.any():
+        f_dl[intra] = rfidx(d_rho[intra], flat.all_j[intra], ft.all_e[intra])
+        f_dm[intra] = FULL_MASK
+
+    # Inter deliveries: invert the inter plan's pos_covered/pos_left to
+    # find which covered pair / leftover each flat delivery resolves to.
+    Mx = inter.all_k.size
+    kind_left = np.zeros(Mx, dtype=bool)
+    kind_left[inter.pos_left] = True
+    idx_in = np.empty(Mx, dtype=np.int64)
+    idx_in[inter.pos_covered] = np.arange(Px, dtype=np.int64)
+    idx_in[inter.pos_left] = np.arange(Lx, dtype=np.int64)
+    ms = np.flatnonzero(~intra)
+    q = hplan.inter_pos[ms]
+    is_l = kind_left[q]
+    mc, pc = ms[~is_l], idx_in[q[~is_l]]
+    if mc.size:
+        c, slot = inter.pair_col[pc], inter.pair_slot[pc]   # [Pc, rr]
+        f_rk[mc] = inter.col_sender[c]
+        f_w[mc] = colpos[c]
+        f_mask[mc] = inter.slot_mask[c, slot]
+        f_shift[mc] = np.broadcast_to(inter.seg_shift[None, :],
+                                      (mc.size, rr))
+        if nstrip:
+            ar = np.broadcast_to(np.arange(rr)[None, None, :],
+                                 (mc.size, rr, rr))
+            others = ar[~(ar == slot[..., None])].reshape(mc.size, rr,
+                                                          nstrip)
+            c3 = np.broadcast_to(c[:, :, None], (mc.size, rr, nstrip))
+            sp = inter.slot_pair[c3, others]
+            svalid = sp < Px
+            if svalid.any():
+                spv = sp[svalid]
+                rho3 = np.broadcast_to(d_rho[mc][:, None, None],
+                                       sp.shape)[svalid]
+                fill = np.full(sp.shape, ZERO, dtype=np.int32)
+                fill[svalid] = rfidx(rho3, inter.pair_j[spv],
+                                     xt.pair_e[spv])
+                f_sf[mc] = fill
+            f_ssh[mc] = inter.slot_shift[c3, others]
+            f_smk[mc] = inter.slot_mask[c3, others]
+    ml, pl = ms[is_l], idx_in[q[is_l]]
+    if ml.size:
+        f_rk[ml, 0] = lsender[pl]
+        f_w[ml, 0] = leftw[pl]
+        f_mask[ml, 0] = FULL_MASK               # full word, shift 0
+
+    # --- scatter into per-receiver padded rows (flat per-server CSR) ---
+    Dmax = max(int(np.diff(flat.ptr).max()) if K else 0, 1)
+    kk = flat.all_k
+    dd = np.arange(M, dtype=np.int64) - flat.ptr[kk]
+    dec_rk = np.zeros((K, Dmax, rr), dtype=np.int32)
+    dec_w = np.full((K, Dmax, rr), Wx, dtype=np.int32)
+    dec_mask = np.zeros((K, Dmax, rr), dtype=np.uint32)
+    dec_shift = np.zeros((K, Dmax, rr), dtype=np.uint32)
+    strip_f = np.full((K, Dmax, rr, nstrip), ZERO, dtype=np.int32)
+    strip_shift = np.zeros((K, Dmax, rr, nstrip), dtype=np.uint32)
+    strip_mask = np.zeros((K, Dmax, rr, nstrip), dtype=np.uint32)
+    direct_l = np.full((K, Dmax), ZERO, dtype=np.int32)
+    direct_mask = np.zeros((K, Dmax), dtype=np.uint32)
+    dec_rk[kk, dd] = f_rk
+    dec_w[kk, dd] = f_w
+    dec_mask[kk, dd] = f_mask
+    dec_shift[kk, dd] = f_shift
+    strip_f[kk, dd] = f_sf
+    strip_shift[kk, dd] = f_ssh
+    strip_mask[kk, dd] = f_smk
+    direct_l[kk, dd] = f_dl
+    direct_mask[kk, dd] = f_dm
+
+    return FusedHierarchicalSchedule(
+        K=K, R=R, S=S, rr=rr, Wx=Wx, Lmax=Lmax, Dmax=Dmax, loc_e=loc_e,
+        enc_l=enc_l, enc_shift=enc_shift, enc_mask=enc_mask,
+        dec_rk=dec_rk, dec_w=dec_w, dec_mask=dec_mask, dec_shift=dec_shift,
+        strip_f=strip_f, strip_shift=strip_shift, strip_mask=strip_mask,
+        direct_l=direct_l, direct_mask=direct_mask)
+
+
+@dataclasses.dataclass(frozen=True)
 class PackedSchedule:
     """The kernels' form of a `FusedSparseSchedule`: what goes to the card.
 
@@ -262,6 +488,9 @@ class PackedSchedule:
     strip_e: np.ndarray           # [K, Dmax, r, r-1] int32 CSR entry (nnz = zero)
     strip_code: np.ndarray        # [K, Dmax, r, r-1] uint8
     book: np.ndarray              # [2, r + 2] uint32: shifts, then masks
+    # Two-level only: the CSR entry of each intra-rack delivery's word
+    # (nnz = none); the encode tables then have one row per rack.
+    direct_e: np.ndarray | None = None   # [K, Dmax] int32
 
 
 def code_book(r: int) -> np.ndarray:
@@ -315,6 +544,58 @@ def pack_schedule(s: FusedSparseSchedule, nnz: int) -> PackedSchedule:
         book=book)
 
 
+def pack_hierarchical(s: FusedHierarchicalSchedule, nnz: int) -> PackedSchedule:
+    """The kernels' packed tables of a two-level schedule, as
+    `pack_schedule` derives them for a flat one: every `rflat` position
+    ``off * (Lmax + 1) + lpos`` of a rack (the encode's row, a receiving
+    server's rack) composed through the Map slice `loc_e` of that rack's
+    server `off` into a CSR entry (`ZERO` composes to `nnz`, the zero
+    word), so phase A reads the Map output in place; (shift, mask) pairs
+    coded in `code_book(rr)`; `dec_pos = dec_rk * (Wx + 1) + dec_w`; the
+    intra-rack deliveries' words as `direct_e` (their `direct_mask` is the
+    full word, every other one's 0). Raises `ValueError` for an index out
+    of range, a pair not in the book or a size past int32."""
+    blk = s.Lmax + 1
+    if nnz >= 2 ** 31 or s.R * (s.Wx + 1) >= 2 ** 31:
+        raise ValueError(f"nnz = {nnz} or R (Wx + 1) = {s.R * (s.Wx + 1)} "
+                         "does not fit int32 indexing")
+    if not np.isin(s.direct_mask, (0, FULL_MASK)).all():
+        raise ValueError("direct_mask must be 0 or the full word")
+    loc = np.concatenate([s.loc_e, np.full((s.K, 1), nnz, np.int64)],
+                         axis=1).astype(np.int32)
+    recv_rack = np.arange(s.K) // s.S
+
+    def entries(pos: np.ndarray, rack: np.ndarray) -> np.ndarray:
+        """rflat position -> CSR entry, `rack` broadcast over pos's rows."""
+        if pos.size and (pos.min() < 0 or pos.max() >= s.S * blk):
+            raise ValueError("an rflat position lies outside its rack")
+        rack = rack.reshape((-1,) + (1,) * (pos.ndim - 1))
+        return loc[rack * s.S + pos // blk, pos % blk]
+
+    book = code_book(s.rr)
+    return PackedSchedule(
+        enc_e=entries(s.enc_l, np.arange(s.R)),
+        enc_code=_codes(s.enc_shift, s.enc_mask, book, "enc"),
+        dec_pos=s.dec_rk * np.int32(s.Wx + 1) + s.dec_w,
+        dec_code=_codes(s.dec_shift, s.dec_mask, book, "dec"),
+        strip_e=entries(s.strip_f, recv_rack),
+        strip_code=_codes(s.strip_shift, s.strip_mask, book, "strip"),
+        book=book,
+        direct_e=np.where(s.direct_mask == FULL_MASK,
+                          entries(s.direct_l, recv_rack),
+                          nnz).astype(np.int32))
+
+
+def _count_rack_bits(inter: int, intra: int) -> None:
+    """Add one two-level Shuffle's bits to the registry's counters (the
+    reference's names)."""
+    reg = get_registry()
+    reg.counter("shuffle_inter_rack_bits_total",
+                "coded-Shuffle bits crossing rack boundaries").inc(inter)
+    reg.counter("shuffle_intra_rack_bits_total",
+                "coded-Shuffle bits moving inside racks").inc(intra)
+
+
 def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload an index/word table as int32 (uint32 bits kept as-is)."""
     a = np.ascontiguousarray(a)
@@ -339,22 +620,63 @@ class FusedSparseShuffle:
     [nnz] edge values in, same `PlanShuffleResult` out); `exchange` is the
     device form the engine uses (float32 tensor in, int32 codec-word tensor
     out, no host round trip).
+
+    Given a `HierarchicalPlan` (or a non-flat `topology=` with one), the
+    exchange is the two-level one: K1 encodes the R rack buffers from the
+    rack-level tables, and K2 decodes every server's deliveries from them,
+    reading the intra-rack deliveries' words straight from the Map output
+    (`pack_hierarchical`); its bits are `inter_rack_bits +
+    intra_rack_bits`, split on the exchange span and in the metrics
+    registry. `Topology.flat(K)` is the flat session, with the same tables.
     """
 
-    def __init__(self, plan: ShufflePlan, csr: CSR, alloc: Allocation, *,
+    def __init__(self, plan: ShufflePlan | HierarchicalPlan, csr: CSR,
+                 alloc: Allocation, *, topology: Topology | None = None,
                  device: str | torch.device | None = "cuda"):
         self.device = resolve_device(device)
-        self.plan = plan
         self.nnz = csr.nnz
-        self.sched = partition_plan(plan, csr, alloc)
-        self.packed = pack_schedule(self.sched, csr.nnz)
-        self.schedule_bits = plan.coded_bits + plan.leftover_bits
-        self.M = int(plan.all_k.size)
+        self._bind(plan, csr, alloc, topology)
+        self.M = int(self.plan.all_k.size)
         p, dev = self.packed, self.device
         self.tables = {name: _upload(getattr(p, name), dev) for name in (
             "enc_e", "enc_code", "dec_pos", "dec_code", "strip_e",
             "strip_code", "book")}
-        self.tables["ptr"] = _i32(plan.ptr, dev)
+        self.tables["ptr"] = _i32(self.plan.ptr, dev)
+        if p.direct_e is not None:
+            self.tables["direct_e"] = _upload(p.direct_e, dev)
+
+    def _bind(self, plan, csr, alloc, topology) -> None:
+        """Resolve (plan, topology) into the flat or two-level partition, by
+        the reference's rules: a `HierarchicalPlan` carries its own
+        Topology (a different `topology=` raises); `Topology.flat(K)` (or
+        no topology) is the flat exchange on the plan's flat schedule; a
+        non-flat topology with a flat plan raises."""
+        if isinstance(plan, HierarchicalPlan):
+            if topology is not None and topology != plan.topology:
+                raise ValueError(
+                    f"topology {topology} disagrees with the plan's "
+                    f"{plan.topology}")
+            topology = plan.topology
+            if topology.is_flat:
+                plan = plan.flat
+        elif topology is not None and not topology.is_flat:
+            raise ValueError(
+                "a non-flat Topology needs a HierarchicalPlan "
+                "(core.shuffle_plan.compile_hierarchical), got a flat "
+                "ShufflePlan")
+        self.topology = topology
+        if isinstance(plan, HierarchicalPlan):
+            self.hplan, self.plan = plan, plan.flat
+            self.sched = partition_hierarchical(plan, csr, alloc)
+            self.packed = pack_hierarchical(self.sched, csr.nnz)
+            # Summed once: `inter_rack_bits` sums the rack plan's columns.
+            self.rack_bits = (plan.inter_rack_bits, plan.intra_rack_bits)
+            self.schedule_bits = sum(self.rack_bits)
+        else:
+            self.hplan, self.plan = None, plan
+            self.sched = partition_plan(plan, csr, alloc)
+            self.packed = pack_schedule(self.sched, csr.nnz)
+            self.schedule_bits = plan.coded_bits + plan.leftover_bits
 
     def _sync(self, tr) -> None:
         if tr.enabled and self.device.type == "cuda":
@@ -381,14 +703,20 @@ class FusedSparseShuffle:
             buf = xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"],
                                     swap=swap)
             self._sync(tr)
-        with tr.span("phase.exchange", backend="fused",
-                     bits=self.schedule_bits * B, B=B, K=self.sched.K):
+        attrs = dict(backend="fused", bits=self.schedule_bits * B, B=B,
+                     K=self.sched.K)
+        if self.hplan is not None:
+            inter, intra = (b * B for b in self.rack_bits)
+            attrs.update(inter_rack_bits=inter, intra_rack_bits=intra)
+        with tr.span("phase.exchange", **attrs):
             self._sync(tr)
+        if self.hplan is not None:
+            _count_rack_bits(inter, intra)
         with tr.span("phase.decode", backend="fused", B=B, deliveries=self.M):
             words = xor_decode_packed(
                 src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
                 t["strip_code"], t["book"], t["ptr"], swap=swap,
-                total=self.M)
+                total=self.M, direct_e=t.get("direct_e"))
             self._sync(tr)
         return words
 

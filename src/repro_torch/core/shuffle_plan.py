@@ -1,11 +1,13 @@
 """Compile-once / execute-many coded Shuffle plan (paper §IV-A), NumPy host side.
 
-A copy of the flat parts of the reference package's `core/shuffle_plan.py`:
-the compilers (`compile_plan` from a dense adjacency, `compile_plan_csr`
-from a CSR view), the plan's exact bit accounting, its CSR bindings
-(`edge_tables`) and the NumPy executors of every plan mode, dense
+A copy of the reference package's `core/shuffle_plan.py` but its repair
+and delta maintenance: the compilers (`compile_plan` from a dense
+adjacency, `compile_plan_csr` from a CSR view, `compile_hierarchical` for
+a two-level `Topology`), the plans' exact bit accounting, their CSR
+bindings (`edge_tables`) and the NumPy executors of every plan mode, dense
 (`execute`, `execute_coded` / `execute_fast` / `execute_uncoded`) and
-sparse (`execute_sparse` and its three forms). The NumPy executors are the
+sparse (`execute_sparse` and its three forms,
+`HierarchicalPlan.execute_coded_sparse`). The NumPy executors are the
 oracle that the device executors (`device_plan.DevicePlan`, the engine's
 `backend="numpy"`) and the fused exchange are held to. Every array it
 emits is bitwise equal to the reference's for the same (graph,
@@ -40,7 +42,8 @@ import functools
 import numpy as np
 import torch
 
-from ..obs import get_tracer
+from ..launch.mesh import Topology
+from ..obs import get_registry, get_tracer
 from .allocation import Allocation
 from .bitcodec import (T_BITS, floats_to_words, np_words_to_t,
                        segment_bounds, segment_words, t_words_to_np,
@@ -614,6 +617,342 @@ def _compile_missing(ii: np.ndarray, jj: np.ndarray, kk: np.ndarray,
         all_k=all_k, all_i=all_i, all_j=all_j,
         pos_covered=inv[:P], pos_left=inv[P:], ptr=ptr)
 
+
+# ---- hierarchical (topology-aware) two-level plans ----
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalEdgeTables:
+    """CSR bindings of a `HierarchicalPlan`: the server-level tables (reduce
+    gather + per-delivery entries, identical to the flat plan's) plus the
+    rack-level inter plan's own binding."""
+
+    flat: PlanEdgeTables
+    inter: PlanEdgeTables
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalPlan:
+    """Two-level coded-Shuffle schedule of one (graph, allocation, topology).
+
+    The flat K-server missing set is split per delivery by where the value
+    lives relative to its Reducer's rack:
+
+      * **intra-only** - some server in the Reducer's rack Mapped the column
+        vertex; the value never crosses a rack boundary (one intra-rack word
+        from its designated source, the lowest in-rack Mapper);
+      * **inter-rack** - no in-rack copy exists; the value joins the
+        rack-level missing set and is coded by `inter`, a `ShufflePlan`
+        compiled with *racks as super-servers* over the union allocation
+        (`rack_alloc`: a rack Maps a batch iff any member server does,
+        redundancy = the dominant rack-multiplicity of the crossing
+        batches).
+
+    Contracts, the reference's (tests/test_torch_hierarchical.py holds
+    every array bitwise against it):
+
+      * delivered words are **bitwise equal** to the flat
+        `execute_coded_sparse` delivery - same (k, i, j)-sorted stream, same
+        uint32 words (XOR coding is exact at both levels);
+      * `Topology.flat(K)` degenerates to exactly today's plan: `inter` is
+        array-bitwise-identical to `compile_plan_csr(csr, alloc)`, every
+        delivery is inter-rack, and `intra_rack_bits == 0`.
+
+    Bit accounting (per single-query Shuffle):
+
+      * `inter_rack_bits` - the rack-level plan's multicast columns plus its
+        unicast leftovers, exactly as the flat plan accounts its own;
+      * `intra_rack_bits` - one word per *unique* (rack, value) that must
+        move inside a rack: intra-only deliveries, slot values the sending
+        rack's leader does not hold when encoding, strip values the
+        receiving server does not hold when decoding, and leftover values
+        the unicasting rack's leader is missing. Words whose designated
+        source IS the consumer cost nothing, which is what drives the count
+        to zero on `Topology.flat`.
+    """
+
+    topology: Topology
+    flat: ShufflePlan             # server-level schedule (delivery stream)
+    inter: ShufflePlan            # rack-level coded schedule
+    rack_alloc: Allocation        # racks-as-super-servers union allocation
+    rack_of: np.ndarray           # [K] int32 server -> rack
+    inter_pos: np.ndarray         # [M] int64 into inter delivery stream (-1)
+    intra_src: np.ndarray         # [M] int32 in-rack source server (-1)
+    server_of_inter: np.ndarray   # [Mx] int32 receiving server per inter value
+    intra_words: int              # unique intra-rack words per Shuffle
+
+    @property
+    def n(self) -> int:
+        return self.flat.n
+
+    @property
+    def K(self) -> int:
+        return self.flat.K
+
+    @property
+    def r(self) -> int:
+        return self.flat.r
+
+    @property
+    def inter_rack_bits(self) -> int:
+        """Bits crossing rack boundaries in one single-query Shuffle."""
+        return self.inter.coded_bits + self.inter.leftover_bits
+
+    @property
+    def intra_rack_bits(self) -> int:
+        """Bits moving inside racks in one single-query Shuffle."""
+        return self.intra_words * T_BITS
+
+    @property
+    def total_bits(self) -> int:
+        return self.inter_rack_bits + self.intra_rack_bits
+
+    def check_alloc(self, alloc: Allocation) -> None:
+        self.flat.check_alloc(alloc)
+
+    def edge_tables(self, csr: CSR, alloc: Allocation) -> HierarchicalEdgeTables:
+        """Bind both levels to a CSR view (cached, like the flat form)."""
+        cached = self.__dict__.get("_h_edge_tables")
+        if cached is not None:
+            c_csr, c_alloc, tables = cached
+            if c_csr is csr and c_alloc is alloc:
+                return tables
+        tables = HierarchicalEdgeTables(
+            flat=self.flat.edge_tables(csr, alloc),
+            inter=self.inter.edge_tables(csr, self.rack_alloc))
+        self.__dict__["_h_edge_tables"] = (csr, alloc, tables)
+        return tables
+
+    def execute_coded_sparse(self, edge_vals: np.ndarray,
+                             tables: HierarchicalEdgeTables, *,
+                             backend: str = "numpy") -> PlanShuffleResult:
+        """Two-level coded Shuffle from a [nnz] edge-value vector.
+
+        Delivered `values` are bitwise equal to the flat plan's
+        `execute_coded_sparse` (same stream, exact XOR recovery at the rack
+        level, direct words at the intra level); `bits_sent` is the
+        two-level total `inter_rack_bits + intra_rack_bits` (x B for
+        batched [nnz, B] payloads). The exchange span and the metrics
+        registry carry both per-level numbers.
+        """
+        res_x = self.inter.execute_coded_sparse(edge_vals, tables.inter,
+                                                backend=backend)
+        B = res_x.batch
+        out = np.empty((self.flat.all_k.size,) + edge_vals.shape[1:],
+                       dtype=np.float32)
+        inter_m = self.inter_pos >= 0
+        out[inter_m] = res_x.values[self.inter_pos[inter_m]]
+        out[~inter_m] = edge_vals[tables.flat.all_e[~inter_m]]
+        inter_bits = res_x.bits_sent
+        intra_bits = self.intra_rack_bits * B
+        with get_tracer().span("phase.exchange", level="intra_rack",
+                               bits=intra_bits, B=B,
+                               inter_rack_bits=inter_bits,
+                               intra_rack_bits=intra_bits):
+            pass
+        reg = get_registry()
+        reg.counter("shuffle_inter_rack_bits_total",
+                    "coded-Shuffle bits crossing rack boundaries") \
+            .inc(inter_bits)
+        reg.counter("shuffle_intra_rack_bits_total",
+                    "coded-Shuffle bits moving inside racks") \
+            .inc(intra_bits)
+        return PlanShuffleResult(self.flat.all_k, self.flat.all_i,
+                                 self.flat.all_j, out, self.flat.ptr,
+                                 inter_bits + intra_bits, self.flat.n)
+
+
+def _rack_first_mapper(alloc: Allocation, R: int, S: int):
+    """Designated in-rack sources: ``first[rho, j]`` is the offset within
+    rack rho of its lowest server Mapping vertex j (0 if none Mapped it -
+    guard with `has`)."""
+    ms = alloc.map_sets.reshape(R, S, alloc.n)
+    return ms.argmax(axis=1).astype(np.int32), ms.any(axis=1)
+
+
+def compile_hierarchical(csr: CSR, alloc: Allocation, topology,
+                         validate: bool = True) -> HierarchicalPlan:
+    """Compile the two-level (racks x servers) coded-Shuffle schedule.
+
+    One pass over the edges builds the flat per-server missing stream (the
+    delivery contract), splits it by in-rack availability, and compiles the
+    crossing remainder with racks as super-servers through the *same*
+    `_compile_missing` body the flat compiler uses - the rack-level
+    redundancy is the dominant rack-multiplicity among the crossing batches
+    (pinned to `alloc.r` on a flat topology so `Topology.flat(K)`
+    degenerates to the flat plan bitwise). See `HierarchicalPlan` for the
+    locked contracts and the per-level bit accounting.
+    """
+    topology.check_K(alloc.K)
+    if csr.n != alloc.n:
+        raise ValueError(
+            f"graph has n={csr.n} vertices but the allocation expects "
+            f"n={alloc.n}; pad the graph with virtual isolated vertices "
+            f"first (Graph.padded / er_allocation(..., pad=True))")
+    R, S = topology.racks, topology.servers_per_rack
+    with get_tracer().span("plan.compile", entry="hierarchical", n=alloc.n,
+                           K=alloc.K, r=alloc.r, racks=R,
+                           servers_per_rack=S) as sp:
+        plan = _compile_hierarchical(csr, alloc, topology, R, S, validate)
+        _stamp_plan(sp, plan.flat, int(csr.nnz))
+        sp.set(inter_rack_bits=plan.inter_rack_bits,
+               intra_rack_bits=plan.intra_rack_bits,
+               rack_redundancy=plan.inter.r)
+    return plan
+
+
+def _compile_hierarchical(csr: CSR, alloc: Allocation, topology,
+                          R: int, S: int,
+                          validate: bool) -> HierarchicalPlan:
+    n = alloc.n
+    rack_of = topology.rack_of()
+    first, has = _rack_first_mapper(alloc, R, S)
+
+    # Flat server-level schedule: the delivery stream every level must honor
+    # (bitwise-identical to `compile_plan_csr` - same stream, same body).
+    kk = alloc.reduce_owner[csr.rows].astype(np.int32)
+    miss = ~alloc.map_sets[kk, csr.indices]
+    mi = csr.rows[miss].astype(np.int32)
+    mj = csr.indices[miss].astype(np.int32)
+    mk = kk[miss]
+    flat = _compile_missing(mi, mj, mk, alloc, schedule=True)
+    if validate:
+        _validate_csr(flat, csr, alloc)
+
+    # Rack-level union allocation: a rack Maps a batch iff any member does.
+    rho = rack_of[mk]
+    avail = has[rho, mj]                     # in-rack copy exists
+    xi, xj, xr = mi[~avail], mj[~avail], rho[~avail]
+    # Membership counts only servers that still hold their Map shard: a
+    # degraded allocation (post-`fail`) zeroes dead servers' map rows while
+    # keeping them in `subsets`, and a rack must never be scheduled to send
+    # a batch only its dead members Mapped. Healthy allocations have no
+    # empty rows, so this is the identity there (flat degeneracy intact).
+    alive = alloc.map_sets.any(axis=1)
+    rack_subsets = tuple(tuple(sorted({int(rack_of[s]) for s in T
+                                       if alive[s]}))
+                         for T in alloc.subsets)
+    sizes = np.array([len(T) for T in rack_subsets], dtype=np.int64)
+    if topology.is_flat:
+        r_rack = alloc.r                     # exact flat degeneracy
+    elif xj.size:
+        w = np.bincount(sizes[alloc.batch_of[xj]])
+        r_rack = int(np.flatnonzero(w == w.max()).max())
+    elif sizes.size:
+        w = np.zeros(int(sizes.max()) + 1, dtype=np.int64)
+        np.add.at(w, sizes, np.bincount(alloc.batch_of,
+                                        minlength=sizes.size))
+        r_rack = int(np.flatnonzero(w == w.max()).max())
+    else:
+        r_rack = min(alloc.r, R)
+    r_rack = max(r_rack, 1)
+    rack_alloc = Allocation(
+        n=n, K=R, r=r_rack, subsets=rack_subsets, batch_of=alloc.batch_of,
+        map_sets=has, reduce_owner=rack_of[alloc.reduce_owner])
+    inter = _compile_missing(xi, xj, xr, rack_alloc, schedule=True)
+    if validate:
+        _validate_slots(inter)
+
+    # Per-delivery routing: position in the inter stream, or in-rack source.
+    M = flat.all_k.size
+    n64 = np.int64(n)
+    d_rho = rack_of[flat.all_k]
+    d_avail = has[d_rho, flat.all_j]
+    inter_pos = np.full(M, -1, dtype=np.int64)
+    xkey = ((inter.all_k.astype(np.int64) * n64 + inter.all_i) * n64
+            + inter.all_j)
+    need = ~d_avail
+    dkey = ((d_rho[need].astype(np.int64) * n64 + flat.all_i[need]) * n64
+            + flat.all_j[need])
+    pos = np.searchsorted(xkey, dkey)
+    if (pos.size != xkey.size or not (pos < max(xkey.size, 1)).all()
+            or not np.array_equal(xkey[pos], dkey)):
+        raise AssertionError(
+            "rack-level delivery stream disagrees with the flat stream")
+    inter_pos[need] = pos
+    server_of_inter = np.empty(xkey.size, dtype=np.int32)
+    server_of_inter[pos] = flat.all_k[need]
+    intra_src = np.full(M, -1, dtype=np.int32)
+    intra_src[d_avail] = (d_rho[d_avail] * S
+                          + first[d_rho[d_avail], flat.all_j[d_avail]]) \
+        .astype(np.int32)
+
+    intra_words = _count_intra_words(
+        alloc, inter, rack_of, first, has, S, n64,
+        d_rho, d_avail, flat, intra_src, server_of_inter)
+
+    return HierarchicalPlan(
+        topology=topology, flat=flat, inter=inter, rack_alloc=rack_alloc,
+        rack_of=rack_of, inter_pos=inter_pos, intra_src=intra_src,
+        server_of_inter=server_of_inter, intra_words=intra_words)
+
+
+def _count_intra_words(alloc, inter, rack_of, first, has, S, n64,
+                       d_rho, d_avail, flat, intra_src,
+                       server_of_inter) -> int:
+    """Unique (rack, value) words that must move inside a rack; see
+    `HierarchicalPlan.intra_rack_bits` for the four contributing streams.
+    A word is free when its designated source is the consuming server."""
+    keys = []
+
+    def _need(rack, j_vertex, i_vertex, consumer):
+        """Key the (rack, value) words whose source != consumer."""
+        src_off = first[rack, j_vertex]
+        if not has[rack, j_vertex].all():
+            raise AssertionError("intra word scheduled in a rack that "
+                                 "never Mapped its vertex")
+        src = rack.astype(np.int64) * S + src_off
+        sel = src != consumer
+        if sel.any():
+            keys.append((rack[sel].astype(np.int64) * (n64 * n64)
+                         + i_vertex[sel].astype(np.int64) * n64
+                         + j_vertex[sel]))
+
+    # 1. intra-only deliveries (source != receiver always: the receiver is
+    #    missing the value, the source Mapped it).
+    if d_avail.any():
+        _need(d_rho[d_avail], flat.all_j[d_avail], flat.all_i[d_avail],
+              flat.all_k[d_avail].astype(np.int64))
+
+    Px = inter.pair_k.size
+    if Px:
+        # 2. encode: slot values the sending rack's leader must be handed.
+        cs, sl = np.nonzero(inter.slot_pair < Px)
+        p = inter.slot_pair[cs, sl]
+        send_rack = inter.col_sender[cs]
+        _need(send_rack, inter.pair_j[p], inter.pair_i[p],
+              send_rack.astype(np.int64) * S)
+        # 3. decode strips: the other slots of each covered pair's columns,
+        #    consumed by the pair's *server-level* receiver.
+        r_rack = inter.r
+        if r_rack > 1:
+            recv = server_of_inter[inter.pos_covered]        # [Px]
+            ar = np.broadcast_to(np.arange(r_rack)[None, None, :],
+                                 (Px, r_rack, r_rack))
+            others = ar[~(ar == inter.pair_slot[..., None])] \
+                .reshape(Px, r_rack, r_rack - 1)
+            c3 = np.broadcast_to(inter.pair_col[:, :, None],
+                                 (Px, r_rack, r_rack - 1))
+            sp = inter.slot_pair[c3, others]                  # [Px, rr, rr-1]
+            valid = sp < Px
+            if valid.any():
+                spv = sp[valid]
+                rrack = np.broadcast_to(
+                    rack_of[recv][:, None, None], sp.shape)[valid]
+                cons = np.broadcast_to(
+                    recv[:, None, None], sp.shape)[valid].astype(np.int64)
+                _need(rrack, inter.pair_j[spv], inter.pair_i[spv], cons)
+    if inter.left_k.size:
+        # 4. leftovers: the unicasting rack's leader must hold the value.
+        lrack = np.argmax(has[:, inter.left_j], axis=0).astype(np.int32)
+        if not has[lrack, inter.left_j].all():
+            raise AssertionError("rack-level leftover has no Mapping rack")
+        _need(lrack, inter.left_j, inter.left_i,
+              lrack.astype(np.int64) * S)
+
+    if not keys:
+        return 0
+    return int(np.unique(np.concatenate(keys)).size)
 
 
 def _validate(plan: ShufflePlan, adj: np.ndarray, alloc: Allocation) -> None:

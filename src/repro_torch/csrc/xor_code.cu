@@ -25,12 +25,16 @@
 //        OR_t ((buf[dec_pos[k, d, t]] ^ strip_t) & mask[c]) >> shift[c],
 //        strip_t = XOR_u (bswap(src[strip_e[k, d, t, u]]) << shift[c'])
 //                  & mask[c'],
-//      written at the flat (k, i, j) delivery position ptr[k] + d. Every
+//      written at the flat (k, i, j) delivery position ptr[k] + d, ORed,
+//      where the optional direct_e [K, Dmax] is given, with
+//      bswap(src[direct_e[k, d]]) (zero for the sentinel n_src). Every
 //      segment is recovered from the CODED word the sender wrote into its
 //      buffer column, by stripping the r - 1 other slots of that column that
 //      the receiver recomputes from its own Map slice. K2 never reads the
-//      wanted value itself from src: the delivered words would be the same
-//      bits, but the exchange the paper measures would be skipped.
+//      wanted value itself from src for a coded delivery: the delivered
+//      words would be the same bits, but the exchange the paper measures
+//      would be skipped. The direct word is the two-level Shuffle's
+//      intra-rack delivery (below).
 //
 // Bound: bytes. A slot costs a few integer ops; what costs is the random
 // 4-byte reads of src and buf, each pulling a 32-byte sector, and the chain
@@ -60,6 +64,19 @@
 // (`xor_decode_plan`, the reference's `_coded_result`,
 // core/shuffle_plan.py:295-306) replace a chain of about 25 int64 tensor
 // passes over [C, r] around one dense-K1 launch with one launch each.
+//
+// The two-level (racks x servers) Shuffle (core/fused_shuffle.py,
+// `pack_hierarchical`) launches the same K1 with the R racks as its senders
+// on the rack-level tables, and K2 with the K servers as receivers and
+// direct_e set: a delivery whose value some server of the receiver's rack
+// Mapped never crosses a rack, and its word is read straight from the Map
+// output (direct_e = its CSR entry; nnz for every other delivery). That
+// replaces the reference's direct gather `rflat[direct_l] & direct_mask`
+// (core/fused_shuffle.py:708-710) inside its two-level shard_map body;
+// every slot of such a delivery has the empty code, so at a rack
+// redundancy of 1 (no strip slots) it is the only source of the word. A
+// null direct_e is the flat K2: the same instance (a template flag), the
+// same code.
 //
 // K1's general form `xor_encode_gather` (any shift and mask words per slot,
 // local indices through an optional Map slice `loc_e`) stays behind
@@ -275,15 +292,15 @@ __global__ void __launch_bounds__(kThreads) xor_encode_packed_kernel(
   }
 }
 
-template <int R>
+template <int R, bool Direct>
 __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
     const uint32_t* __restrict__ src, unsigned n_src,
     const uint32_t* __restrict__ buf, unsigned n_cols,
     const int32_t* __restrict__ dec_pos, const uint8_t* __restrict__ dec_code,
     const int32_t* __restrict__ strip_e, const uint8_t* __restrict__ strip_code,
     const uint32_t* __restrict__ book, int n_codes,
-    const int32_t* __restrict__ ptr, uint32_t* __restrict__ out, int Dmax,
-    int r_rt, int B, int swap) {
+    const int32_t* __restrict__ ptr, const int32_t* __restrict__ direct_e,
+    uint32_t* __restrict__ out, int Dmax, int r_rt, int B, int swap) {
   __shared__ Book bk;
   load_book(bk, book, n_codes);
   constexpr int kItems = items_per_thread<R>();
@@ -300,20 +317,22 @@ __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
   const uint8_t* __restrict__ pc_k = dec_code + rows * r;
   const int32_t* __restrict__ s_k = strip_e + rows * r * (r - 1);
   const uint8_t* __restrict__ sc_k = strip_code + rows * r * (r - 1);
+  const int32_t* __restrict__ d_k = Direct ? direct_e + rows : nullptr;
   uint32_t* __restrict__ out_k = out + static_cast<size_t>(start) * B;
 
   if constexpr (R > 0) {
     constexpr int S = R * (R - 1);             // strip slots per delivery
     constexpr int SA = S > 0 ? S : 1;
-    int pos[kItems][R], se[kItems][SA];
+    int pos[kItems][R], se[kItems][SA], de[kItems];
     uint8_t pc[kItems][R], sc[kItems][SA];
-    uint32_t got[kItems][R], sv[kItems][SA];
+    uint32_t got[kItems][R], sv[kItems][SA], dv[kItems];
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
 #pragma unroll
       for (int t = 0; t < R; ++t) { pos[j][t] = -1; pc[j][t] = 255; }
 #pragma unroll
       for (int u = 0; u < SA; ++u) { se[j][u] = -1; sc[j][u] = 255; }
+      de[j] = -1;
       const int i = first + j * kThreads;
       const int d = i / B;
       if (i < per) {
@@ -323,6 +342,7 @@ __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
           load_row(s_k + d * S, se[j]);
           load_row(sc_k + d * S, sc[j]);
         }
+        if constexpr (Direct) de[j] = __ldg(d_k + d);
       }
     }
     // Every random read of every item in flight before the first XOR: the
@@ -340,6 +360,7 @@ __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
       for (int u = 0; u < S; ++u)
         sv[j][u] = src_word(src, n_src, se[j][u], b, B, swap,
                             bk.mask[bk.code(sc[j][u])]);
+      dv[j] = Direct ? src_word(src, n_src, de[j], b, B, swap, ~0u) : 0u;
     }
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
@@ -357,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
         const int cc = bk.code(pc[j][t]);
         word |= ((got[j][t] ^ strip) & bk.mask[cc]) >> bk.shift[cc];
       }
-      out_k[i] = word;
+      out_k[i] = word | dv[j];
     }
   } else {
     for (int j = 0; j < kItems; ++j) {
@@ -380,6 +401,7 @@ __global__ void __launch_bounds__(kThreads) xor_decode_packed_kernel(
         }
         word |= ((coded ^ strip) & m) >> bk.shift[cc];
       }
+      if constexpr (Direct) word |= src_word(src, n_src, d_k[d], b, B, swap, ~0u);
       out_k[i] = word;
     }
   }
@@ -401,16 +423,24 @@ void launch_encode(const uint32_t* src, unsigned n_src, const int32_t* enc_e,
       src, n_src, enc_e, enc_code, book, r + 2, out, W, r, B, swap);
 }
 
-template <int R>
+template <int R, bool Direct>
 void launch_decode(const uint32_t* src, unsigned n_src, const uint32_t* buf,
                    unsigned n_cols, const int32_t* dec_pos, const uint8_t* dec_code,
                    const int32_t* strip_e, const uint8_t* strip_code,
-                   const uint32_t* book, const int32_t* ptr, uint32_t* out, int K,
-                   int Dmax, int r, int B, int swap, cudaStream_t stream) {
-  xor_decode_packed_kernel<R><<<packed_grid<R>(static_cast<long long>(Dmax) * B, K),
-                                kThreads, 0, stream>>>(
-      src, n_src, buf, n_cols, dec_pos, dec_code, strip_e, strip_code, book,
-      r + 2, ptr, out, Dmax, r, B, swap);
+                   const uint32_t* book, const int32_t* ptr,
+                   const int32_t* direct_e, uint32_t* out, int K, int Dmax, int r,
+                   int B, int swap, cudaStream_t stream) {
+  xor_decode_packed_kernel<R, Direct>
+      <<<packed_grid<R>(static_cast<long long>(Dmax) * B, K), kThreads, 0, stream>>>(
+          src, n_src, buf, n_cols, dec_pos, dec_code, strip_e, strip_code, book,
+          r + 2, ptr, direct_e, out, Dmax, r, B, swap);
+}
+
+template <bool Direct>
+auto decode_for(int r) {
+  return r == 1 ? &launch_decode<1, Direct> : r == 2 ? &launch_decode<2, Direct>
+       : r == 3 ? &launch_decode<3, Direct> : r == 4 ? &launch_decode<4, Direct>
+       : &launch_decode<0, Direct>;
 }
 
 }  // namespace
@@ -465,25 +495,24 @@ extern "C" int xor_encode_packed(const void* src, long long n_src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A null direct_e runs the flat instance; a null ptr is one receiver.
 extern "C" int xor_decode_packed(const void* src, long long n_src,
                                  const void* buf, long long n_cols,
                                  const void* dec_pos, const void* dec_code,
                                  const void* strip_e, const void* strip_code,
-                                 const void* book, const void* ptr, void* out,
-                                 int K, int Dmax, int r, int B, int swap,
-                                 void* stream) {
+                                 const void* book, const void* ptr,
+                                 const void* direct_e, void* out, int K,
+                                 int Dmax, int r, int B, int swap, void* stream) {
   if (K > 0 && Dmax > 0 && B > 0) {
-    const auto launch = r == 1 ? &launch_decode<1> : r == 2 ? &launch_decode<2>
-                      : r == 3 ? &launch_decode<3> : r == 4 ? &launch_decode<4>
-                      : &launch_decode<0>;
+    const auto launch = direct_e ? decode_for<true>(r) : decode_for<false>(r);
     launch(static_cast<const uint32_t*>(src), static_cast<unsigned>(n_src),
            static_cast<const uint32_t*>(buf), static_cast<unsigned>(n_cols),
            static_cast<const int32_t*>(dec_pos), static_cast<const uint8_t*>(dec_code),
            static_cast<const int32_t*>(strip_e),
            static_cast<const uint8_t*>(strip_code),
            static_cast<const uint32_t*>(book), static_cast<const int32_t*>(ptr),
-           static_cast<uint32_t*>(out), K, Dmax, r, B, swap,
-           static_cast<cudaStream_t>(stream));
+           static_cast<const int32_t*>(direct_e), static_cast<uint32_t*>(out), K,
+           Dmax, r, B, swap, static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -127,14 +127,15 @@ def xor_encode_packed(src, enc_e, enc_code, book, *,
 
 
 def xor_decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
-                      ptr, *, swap: bool = True) -> torch.Tensor:
+                      ptr, *, swap: bool = True, direct_e=None) -> torch.Tensor:
     """Delivered codec words [M(, B)] in flat (k, i, j) order, M = ptr[K].
 
     Each segment is the coded word read from the sender's column of buf
-    [K, W + 1(, B)] at dec_pos [K, Dmax, r] (s * (W + 1) + w), stripped of
+    [senders, W + 1(, B)] at dec_pos [K, Dmax, r] (s * (W + 1) + w), stripped of
     the r - 1 slots recomputed from src at strip_e [K, Dmax, r, r - 1]
     under strip_code, masked and shifted back under dec_code; ptr [K + 1]
-    delivery offsets.
+    delivery offsets. direct_e [K, Dmax], where given, names a src word
+    each delivery ORs in whole (entries outside src read zero).
     """
     B = _as_2d(src).shape[1]
     bufw = words_to_u64(buf.reshape(-1, B))
@@ -150,6 +151,8 @@ def xor_decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
     out = torch.zeros_like(rec[:, :, 0])
     for t in range(rec.shape[2]):
         out |= rec[:, :, t]
+    if direct_e is not None:
+        out |= _src_take(src, direct_e, swap)
     ptr = ptr.long()
     counts = ptr[1:] - ptr[:-1]
     K, Dmax = out.shape[:2]

@@ -5,7 +5,10 @@ what bounds it is noted there). The coded Shuffle runs K1 and K2 on packed
 session tables (`xor_encode_packed`, `xor_decode_packed`, counted as
 "xor_encode" and "xor_decode"); the plan executors run them on the plan's
 own tables, composed in the packed layout for one receiver
-(`xor_encode_plan`, `xor_decode_plan`, counted under their names);
+(`xor_encode_plan`, `xor_decode_plan`, counted under their names); the
+two-level Shuffle runs K1 with the racks as senders (counted as
+"xor_encode") and K2 with its direct words (`direct_e`, counted as
+"xor_decode_direct");
 `xor_encode_gather` is K1's general form,
 any shift and mask words per slot, behind `ops.xor_encode_slots` (counted
 as "xor_encode_gather"). Each wrapper checks device, dtype, shape and
@@ -33,8 +36,8 @@ _SIGS = {
                           _build.I32, _build.I32, _build.P),
     "xor_decode_packed": (_build.P, _build.I64, _build.P, _build.I64, _build.P,
                           _build.P, _build.P, _build.P, _build.P, _build.P,
-                          _build.P, _build.I32, _build.I32, _build.I32,
-                          _build.I32, _build.I32, _build.P),
+                          _build.P, _build.P, _build.I32, _build.I32,
+                          _build.I32, _build.I32, _build.I32, _build.P),
 }
 MAX_R = 64            # the kernels' book holds r + 2 <= 66 codes
 MAX_GRID_Y = 65535    # one block row per server
@@ -152,16 +155,18 @@ def _encode_packed(src, enc_e, enc_code, book, swap: bool,
 
 
 def _decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
-                   ptr, M: int, swap: bool, counter: str) -> torch.Tensor:
+                   ptr, M: int, swap: bool, counter: str,
+                   direct_e=None) -> torch.Tensor:
     """Launch K2 on packed tables [K, Dmax, r(, r - 1)]: words [M, B].
-    ptr None: one receiver (K = 1) of its Dmax = M deliveries."""
+    ptr None: one receiver (K = 1) of its Dmax = M deliveries; direct_e
+    [K, Dmax] or None (the flat instance)."""
     K, Dmax, r = dec_pos.shape
     B = _batch(src)
     _build.check_tensor(src, "src", torch.int32)
-    if buf.dim() != src.dim() + 1 or buf.shape[0] != K:
-        raise ValueError(f"buf must be [K={K}, W + 1{', B' if B > 1 else ''}], "
-                         f"got {tuple(buf.shape)}")
-    _build.check_tensor(buf, "buf", torch.int32, (K, buf.shape[1])
+    if buf.dim() != src.dim() + 1:
+        raise ValueError(f"buf must be [senders, W + 1{', B' if B > 1 else ''}]"
+                         f", got {tuple(buf.shape)}")
+    _build.check_tensor(buf, "buf", torch.int32, tuple(buf.shape[:2])
                         + ((B,) if src.dim() == 2 else ()))
     _build.check_tensor(dec_pos, "dec_pos", torch.int32)
     _build.check_tensor(dec_code, "dec_code", torch.uint8, (K, Dmax, r))
@@ -170,6 +175,8 @@ def _decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
                         (K, Dmax, r, r - 1))
     if ptr is not None:
         _build.check_tensor(ptr, "ptr", torch.int32, (K + 1,))
+    if direct_e is not None:
+        _build.check_tensor(direct_e, "direct_e", torch.int32, (K, Dmax))
     _check_packed(r, book, dec_pos, dec_code, strip_e, strip_code)
     out = torch.empty((M, B), dtype=torch.int32, device=src.device)
     _build.check_tensor(out, "out", torch.int32)
@@ -179,8 +186,9 @@ def _decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
             src.data_ptr(), src.shape[0], buf.data_ptr(), buf.shape[0] * buf.shape[1],
             dec_pos.data_ptr(), dec_code.data_ptr(), strip_e.data_ptr(),
             strip_code.data_ptr(), book.data_ptr(),
-            None if ptr is None else ptr.data_ptr(), out.data_ptr(), K, Dmax, r,
-            B, int(swap), _build.stream_of(src))
+            None if ptr is None else ptr.data_ptr(),
+            None if direct_e is None else direct_e.data_ptr(), out.data_ptr(),
+            K, Dmax, r, B, int(swap), _build.stream_of(src))
     _build.check(lib, "xor_decode_packed", code)
     _build.LAUNCHES[counter] += 1
     return out
@@ -208,26 +216,33 @@ def xor_decode_packed(src: torch.Tensor, buf: torch.Tensor,
                       dec_pos: torch.Tensor, dec_code: torch.Tensor,
                       strip_e: torch.Tensor, strip_code: torch.Tensor,
                       book: torch.Tensor, ptr: torch.Tensor, *,
-                      swap: bool = True, total: int | None = None) -> torch.Tensor:
+                      swap: bool = True, total: int | None = None,
+                      direct_e: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on packed tables: delivered codec words [M(, B)] int32 in flat
     (k, i, j) order.
 
-    buf [K, W + 1(, B)] from K1; dec_pos [K, Dmax, r] int32 buffer position
+    buf [senders, W + 1(, B)] from K1 (K senders, or R racks in the
+    two-level Shuffle); dec_pos [K, Dmax, r] int32 buffer position
     s * (W + 1) + w of each segment's coded word; dec_code [K, Dmax, r]
     uint8; strip_e [K, Dmax, r, r - 1] int32 entries of src the receiver
     strips; strip_code uint8 alike; book [2, r + 2]; ptr [K + 1] int32
     delivery offsets. `total` is M = ptr[K] (pass it to keep the host from
-    reading ptr back).
+    reading ptr back). direct_e [K, Dmax] int32, where given, is an entry
+    of src whose word each delivery ORs in after its segments (src's
+    length n_src = none): the two-level Shuffle's intra-rack deliveries.
     """
     K, Dmax, r = dec_pos.shape
     _check_limits(K, r, Dmax * _batch(src))
     if not _build.on_cuda(src, buf, dec_pos, dec_code, strip_e, strip_code,
-                          book, ptr):
+                          book, ptr, direct_e):
         return ref.xor_decode_packed(src, buf, dec_pos, dec_code, strip_e,
-                                     strip_code, book, ptr, swap=swap)
+                                     strip_code, book, ptr, swap=swap,
+                                     direct_e=direct_e)
     M = int(ptr[-1]) if total is None else int(total)
     out = _decode_packed(src, buf, dec_pos, dec_code, strip_e, strip_code, book,
-                         ptr, M, swap, "xor_decode")
+                         ptr, M, swap,
+                         "xor_decode" if direct_e is None else "xor_decode_direct",
+                         direct_e)
     return out if src.dim() == 2 else out[:, 0]
 
 

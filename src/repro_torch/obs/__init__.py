@@ -4,6 +4,8 @@
   Chrome-trace/perfetto export, deterministic span trees.
 * :mod:`repro_torch.obs.metrics` - counters / gauges / fixed-bucket
   histograms with a Prometheus-text exporter.
+* :mod:`repro_torch.obs.bench` - warmup + repetition timing helpers
+  (`measure`, `timeit`, `stopwatch`).
 
 Enable tracing either with ``REPRO_TRACE=1`` in the environment or
 ``obs.get_tracer().enable()`` at runtime. While the tracer is enabled the

@@ -78,7 +78,7 @@ def test_engine_builds_the_table_once_for_either_route(backend):
     n = divisible_n(300, 4, 2)
     g = graphs.erdos_renyi(n, 0.05, seed=3)
     eng = engine.compile(algo.pagerank(), g, er_allocation(n, 4, 2),
-                         backend=backend, device="cpu")
+                         path="sparse", backend=backend, device="cpu")
     np.testing.assert_array_equal(eng._tiles.numpy(),
                                   csr_tiles.tile_rows(g.csr.indptr))
     assert eng.with_program(algo.degree_count())._tiles is eng._tiles

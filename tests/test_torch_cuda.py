@@ -23,7 +23,11 @@ oracle, the plan executor's coded words with every codec word's top bit
 set bitwise the NumPy executor's on every XOR route, the plan kernels
 (`xor_encode_plan` / `xor_decode_plan`) bitwise their plain versions on
 random tables and on plans' tables at r = 1..5, 33 and 64 with their
-launch counts and launch errors raising, and the reduced mamba2-370m
+launch counts and launch errors raising, K2 with direct words (the
+two-level Shuffle's intra-rack deliveries) bitwise its plain version at
+r = 1, 2, 3, 5 and 33, a two-level session (`Topology(4, 2)` and
+`(2, 4)`) on backend="fused" bitwise backend="numpy" and the host plan,
+and the reduced mamba2-370m
 served on the card (the kernel prefill
 against the plain chunked prefill and the decode loop). Whether a card
 exists is decided inside the `cuda` fixture, never at import time.
@@ -67,7 +71,7 @@ def _session(dev, n=4000, K=4, r=2):
     n = divisible_n(n, K, r)
     g = graphs.erdos_renyi(n, 8.0 / n, seed=5)
     return g, engine.compile(algo.pagerank(), g, er_allocation(n, K, r),
-                             device=dev)
+                             path="sparse", backend="fused", device=dev)
 
 
 def _hold_packed(dev, g, eng, B):
@@ -121,7 +125,8 @@ def test_sessions_past_32_segments(cuda, K, r):
     executor, sssp bitwise the oracle."""
     n = divisible_n(2 * K, K, r)
     g = graphs.erdos_renyi(n, 0.1, seed=K)
-    eng = engine.compile(algo.sssp(0), g, er_allocation(n, K, r), device=cuda)
+    eng = engine.compile(algo.sssp(0), g, er_allocation(n, K, r),
+                         path="sparse", backend="fused", device=cuda)
     assert eng.fused.sched.r == r
     for B in (1, 3):
         _hold_packed(cuda, g, eng, B)
@@ -169,6 +174,88 @@ def test_session_matches_oracle_and_launches_kernels(cuda):
     want = algo.reference_run(algo.sssp(0), g, 10)
     np.testing.assert_array_equal(sssp.state.cpu().numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+def _random_direct_tables(rng, dev, K, W, nnz, Dmax, r, B):
+    """Random packed K2 tables with direct entries (the sentinel nnz and
+    entries past it included), deliveries per receiver 0..Dmax."""
+    from repro_torch.core.fused_shuffle import code_book
+
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    code = lambda shape: up(rng.integers(0, r + 2, size=shape)  # noqa: E731
+                            .astype(np.uint8))
+    ints = lambda hi, shape: up(rng.integers(0, hi, size=shape)  # noqa: E731
+                                .astype(np.int32))
+    counts = rng.integers(0, Dmax + 1, size=K)
+    src = up(rng.integers(0, 2 ** 32, size=(nnz, B) if B > 1 else (nnz,),
+                          dtype=np.uint32).view(np.int32))
+    book = up(code_book(r).view(np.int32))
+    buf = xc.xor_encode_packed(src, ints(nnz + 1, (K, W, r)), code((K, W, r)),
+                               book)
+    dec = (ints(K * (W + 1), (K, Dmax, r)), code((K, Dmax, r)),
+           ints(nnz + 1, (K, Dmax, r, r - 1)), code((K, Dmax, r, r - 1)),
+           book, up(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)))
+    return src, buf, dec, ints(nnz + 3, (K, Dmax))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("r", [1, 2, 3, 5, 33])
+def test_k2_direct_matches_plain_version(cuda, r, B):
+    """K2 with direct_e bitwise its plain version, counted apart from the
+    flat K2, whose words it ORs its direct words into."""
+    rng = np.random.default_rng(r * 10 + B)
+    src, buf, dec, direct = _random_direct_tables(rng, cuda, 5, 41, 700, 37,
+                                                  r, B)
+    _build.LAUNCHES.clear()
+    got = xc.xor_decode_packed(src, buf, *dec, direct_e=direct)
+    flat = xc.xor_decode_packed(src, buf, *dec)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["xor_decode_direct"] == 1
+    assert _build.LAUNCHES["xor_decode"] == 1
+    assert torch.equal(got, xref.xor_decode_packed(src, buf, *dec,
+                                                   direct_e=direct))
+    assert torch.equal(flat, xref.xor_decode_packed(src, buf, *dec))
+    assert torch.equal(got & ~flat, got ^ flat)        # only bits ORed in
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
+def test_hierarchical_fused_session_matches_numpy(cuda, shape):
+    """The two-level session on the card: backend="fused" (K1 over the rack
+    buffers, K2 with direct words) delivers the words of backend="numpy"
+    (the plan kernels at the rack level) and of the host plan, bitwise;
+    states bitwise equal, the same bits, each route's kernels launched."""
+    from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+    from repro_torch.launch.mesh import Topology
+
+    n = divisible_n(3000, 8, 2)
+    g = graphs.erdos_renyi(n, 8.0 / n, seed=3)
+    alloc = er_allocation(n, 8, 2)
+    sess = {b: engine.compile(algo.pagerank(), g, alloc, "coded", path="sparse",
+                              backend=b, topology=Topology(*shape), device=cuda)
+            for b in ("fused", "numpy")}
+    hp = sess["fused"].hplan
+    ev = algo.pagerank().map_edge_values_t(
+        sess["fused"]._dg, torch.rand(g.n, device=cuda)).contiguous()
+    want = floats_to_words(hp.execute_coded_sparse(
+        ev.cpu().numpy(), hp.edge_tables(g.csr, alloc)).values)
+    np.testing.assert_array_equal(t_words_to_np(sess["fused"].fused.exchange(ev)),
+                                  want)
+    np.testing.assert_array_equal(t_words_to_np(sess["numpy"].dplan.words(ev)),
+                                  want)
+    kernels = {"fused": ("xor_encode", "xor_decode_direct", "segment_reduce"),
+               "numpy": ("xor_encode_plan", "xor_decode_plan", "segment_reduce")}
+    for prog in (algo.pagerank(), algo.sssp(0)):
+        res = {}
+        for b, eng in sess.items():
+            _build.LAUNCHES.clear()
+            res[b] = eng.with_program(prog).run(5)
+            torch.cuda.synchronize()
+            for name in kernels[b]:
+                assert _build.LAUNCHES[name] == 5, (b, name)
+        assert torch.equal(res["fused"].state.view(torch.int32),
+                           res["numpy"].state.view(torch.int32))
+        assert res["fused"].shuffle_bits == res["numpy"].shuffle_bits == 5 * (
+            hp.inter_rack_bits + hp.intra_rack_bits)
 
 
 @pytest.mark.parametrize("mode,path", [

@@ -239,7 +239,8 @@ def test_sessions_past_32_segments(K, r):
     rplan = r_compile(g.csr, alloc)
     ev = np.random.default_rng(r).standard_normal(g.csr.nnz).astype(np.float32)
     want = rplan.execute_coded_sparse(ev, rplan.edge_tables(g.csr, alloc))
-    eng = t_engine.compile(t_algo.sssp(0), tg, ta, device="cpu")
+    eng = t_engine.compile(t_algo.sssp(0), tg, ta, path="sparse",
+                           backend="fused", device="cpu")
     assert eng.fused.packed.book.shape == (2, r + 2)
     assert (eng.fused.packed.book[1][:r] == 0).any()    # zero-width segments
     got = eng.fused.execute(ev)
@@ -263,7 +264,8 @@ def _check_run(model, prog, B, iters=10):
     tg, ta = _port(g, alloc)
     rprog, tprog = _programs(prog, g.n, B)
     want = r_engine.run(rprog, g, alloc, iters, mode="coded", path="sparse")
-    eng = t_engine.compile(tprog, tg, ta, device="cpu")
+    eng = t_engine.compile(tprog, tg, ta, path="sparse", backend="fused",
+                           device="cpu")
     got = eng.run(iters)
     st = got.state.numpy()
     assert st.shape == want.state.shape and st.dtype == np.float32
@@ -298,7 +300,8 @@ def test_engine_20k_pagerank_and_sssp():
 def test_loads_with_program_and_run_batch():
     g, alloc = _case("er")
     tg, ta = _port(g, alloc)
-    eng = t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu")
+    eng = t_engine.compile(t_algo.pagerank(), tg, ta, path="sparse",
+                           backend="fused", device="cpu")
     ref = r_engine.compile(r_algo.pagerank(), g, alloc, "coded")
     assert eng.loads() == ref.loads()
     roots = [0, 5, 17]
@@ -323,9 +326,11 @@ def test_no_fallback_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            t_engine.compile(t_algo.pagerank(), tg, ta, device=device)
+            t_engine.compile(t_algo.pagerank(), tg, ta, path="sparse",
+                             backend="fused", device=device)
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            t_engine.run(t_algo.pagerank(), tg, ta, 1, device=device)
+            t_engine.run(t_algo.pagerank(), tg, ta, 1, path="sparse",
+                         backend="fused", device=device)
 
 
 @pytest.mark.parametrize("call,match", [
@@ -334,15 +339,12 @@ def test_no_fallback_without_cuda(monkeypatch):
     (lambda eng: eng.fail((0,)), "Queue 1 #9"),
     (lambda eng: eng.update(object()), "Queue 1 #9"),
     (lambda eng: t_engine.restore("ckpt", eng.program, eng.g), "Queue 1 #9"),
-    (lambda eng: t_engine.compile(eng.program, eng.g, eng.alloc,
-                                  device="cpu", topology=object()),
-     "Queue 1 #8"),
-], ids=["fault_schedule", "checkpoint", "fail", "update", "restore",
-        "topology"])
+], ids=["fault_schedule", "checkpoint", "fail", "update", "restore"])
 def test_unported_options_name_their_roadmap_item(call, match):
     g, alloc = _case("er")
     tg, ta = _port(g, alloc)
-    eng = t_engine.compile(t_algo.pagerank(), tg, ta, device="cpu")
+    eng = t_engine.compile(t_algo.pagerank(), tg, ta, path="sparse",
+                           backend="fused", device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         call(eng)
 
@@ -354,7 +356,8 @@ def test_fused_backend_outside_mode_coded_raises_as_the_reference():
         r_engine.compile(r_algo.pagerank(), g, alloc, "uncoded",
                          backend="fused")
     with pytest.raises(ValueError, match="use mode='coded'"):
-        t_engine.compile(t_algo.pagerank(), tg, ta, "uncoded", device="cpu")
+        t_engine.compile(t_algo.pagerank(), tg, ta, "uncoded", path="sparse",
+                         backend="fused", device="cpu")
 
 
 SCRIPT_PALLAS = r"""
