@@ -69,7 +69,33 @@ non-zero before its last line:
      on ER n = 2,000 (padded to 2,004), p = 0.02,
      seed 5, for 2 iterations: its delivered dict equal to mode coded's
      on the dense path, sssp bitwise the dense coded state;
-  7. topology: the two-level (racks x servers) coded Shuffle through
+  7. elastic (on the scale and er-76k sessions): at scale,
+     backend="numpy", mode coded, `fail((1,))` and `fail((0, 1))` (|failed|
+     = r: re-Maps, pairs demoted to full-word leftover columns) with the
+     host repair time (against a fresh `compile_plan_csr` on the degraded
+     allocation for (1,), whose arrays must equal the repair's but
+     `col_sender`), the session build, the first post-failure iteration,
+     steady time and device busy beside the healthy session's; pagerank
+     and sssp for 10 iterations bitwise the healthy session's with the
+     host plan's bits plus the hand-over, the plan kernels bitwise their
+     plain versions on the repaired tables (records at B = 1 and 4) and
+     launched on that run (counts reset just before it); `update` by a
+     seeded delta of 5,000 inserted and 5,000 deleted edges on backend
+     "numpy" and "fused": host `apply_delta` against a fresh compile, the
+     fused rebind against a fresh fused session, the plan array-identical
+     to the fresh one and the rebound tables equal to a fresh fused
+     session's, pagerank and sssp bitwise the fresh session's (pagerank
+     within rtol 1e-5 of the oracle), K1 / K2 / K3 and the plan kernels
+     held against their plain versions on the new tables, each route's
+     launches; at er-76k a `FaultSchedule` (server 1 crashes at iteration 3
+     and recovers at 7, of 10) with the bits and `FaultLog` equal to the
+     host's accounting and the states bitwise the uninterrupted run's;
+     checkpoints every 2 iterations (er-76k padded to n = 80,136), restored
+     at epoch 6 and resumed bitwise at K = 4 and K' = 8, with the save cost
+     per iteration; `GraphService` with 64 sssp queries through
+     max_batch = 4 and one crash, each column bitwise the standalone run's,
+     queries/s, latency percentiles and mean batch;
+  8. topology: the two-level (racks x servers) coded Shuffle through
      `engine.compile(..., "coded", path="sparse", topology=Topology(R, S))`
      on backend="fused" (K1 over the R rack buffers, K2 with its direct
      words, "xor_decode_direct") and "numpy" (the plan kernels on the
@@ -83,10 +109,11 @@ non-zero before its last line:
      (counts reset just before it), Topology.flat(8) the flat session
      with its tables; K2's direct form bitwise its plain version at the
      4 x 2 and 2 x 4 shapes, B = 1 and 4. Then ER n ~ 1e6 (seed 7) at
-     K = 8 on Topology(4, 2) and flat, pagerank for 10 iterations on both
-     backends against the oracle: host compile and session build times,
+     K = 8 on Topology(4, 2) (both backends) and flat (backend "numpy";
+     the flat fused route is the scale phase's, at K = 4), pagerank for 10
+     iterations against the oracle: host compile and session build times,
      steady ms per iteration, device busy and idle share, peak memory;
-  8. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
+  9. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
      `ssd_state_scan` (bitwise) against their plain versions at the
      `tests/test_kernels.py` ssd shapes, K6 at ragged shapes in float32
      and bf16, both at the serve shape (G = 128 groups, 32 chunks of 64,
@@ -1675,6 +1702,420 @@ def modes_phase(torch, dev, er: tuple, scale: tuple,
 
 
 # ---------------------------------------------------------------------------
+# elastic phase: failures, graph deltas, fault schedules, checkpoints and the
+# query service on the plan kernels and the packed K1 / K2
+# ---------------------------------------------------------------------------
+
+
+ELASTIC_DELTA = 5_000     # inserted and deleted undirected edges at scale
+CKPT_N = 80_136           # er-76k padded for K = 4 and K' = 8 at r = 2
+SERVE_QUERIES, SERVE_MAX_BATCH = 64, 4
+
+
+def traced(fn):
+    """Run `fn` under an enabled tracer; returns (its result, wall seconds,
+    seconds per span name summed over its spans)."""
+    from repro_torch.obs import Tracer, set_tracer
+
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        set_tracer(prev)
+    wall = time.perf_counter() - t0
+    spans: dict = {}
+    for sp in tracer.spans():
+        spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration_s
+    return out, wall, spans
+
+
+def synced(torch, fn):
+    """(fn(), seconds) with the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_plan(a, b, skip=(), what: str = "") -> None:
+    """Every array of two ShufflePlans equal in dtype, shape and value."""
+    for f in dataclasses.fields(a):
+        if f.name in skip:
+            continue
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{what}: plan field {f.name} differs")
+        elif x != y:
+            raise AssertionError(f"{what}: plan field {f.name} differs")
+
+
+def seeded_delta(g, seed: int, nins: int, ndel: int):
+    """An EdgeDelta of `ndel` existing and `nins` new undirected edges of
+    `g`'s real vertices, drawn from `seed`."""
+    from repro_torch.graphs import EdgeDelta
+
+    rng = np.random.default_rng(seed)
+    csr, n = g.csr, g.n
+    upper = np.flatnonzero(csr.rows < csr.indices)
+    pick = rng.choice(upper, size=ndel, replace=False)
+    dels = np.stack([csr.rows[pick], csr.indices[pick]], axis=1)
+    key = csr.rows.astype(np.int64) * n + csr.indices
+    cand = rng.integers(0, g.params.get("padded_from", n), size=(4 * nins, 2))
+    lo, hi = cand.min(axis=1), cand.max(axis=1)
+    k = lo * n + hi
+    pos = np.minimum(np.searchsorted(key, k), key.size - 1)
+    ok = (lo != hi) & (key[pos] != k)
+    _, first = np.unique(k[ok], return_index=True)
+    take = np.sort(first)[:nins]
+    ins = np.stack([lo[ok][take], hi[ok][take]], axis=1)
+    if ins.shape[0] != nins:
+        raise AssertionError("could not draw the delta's inserted edges")
+    return EdgeDelta.for_graph(g, insert=ins, delete=dels)
+
+
+def same_state(torch, a, b, what: str) -> None:
+    if not bitwise(torch, a, b):
+        raise AssertionError(f"{what}: states not bitwise equal")
+
+
+def elastic_fail(torch, dev, healthy, runs: dict, failed: tuple,
+                 fresh_compile: bool) -> tuple[list[dict], dict]:
+    """`healthy.fail(failed)` on backend="numpy", mode coded, at scale: host
+    repair (span `plan.repair`) and session build times, against a fresh
+    `compile_plan_csr` on the degraded allocation when `fresh_compile`
+    (its arrays equal to the repair's but `col_sender` while |failed| < r;
+    from r on the repair also demotes pairs, which a fresh compile does
+    not); the first
+    post-failure iteration; pagerank and sssp for 10 iterations, launch
+    counts read over them, states bitwise the healthy session's, bits the
+    host plan's plus the hand-over; the plan kernels bitwise their plain
+    versions on the repaired tables (records at B = 1, and at B = 4 under
+    "b4"); steady ms, device busy and idle share."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+    from repro_torch.kernels import _build
+
+    what = f"elastic fail{failed}"
+    deg, build_s, spans = traced(lambda: healthy.fail(failed))
+    rs, plan = deg.recovery, deg.plan
+    info = {"repair_s": spans["plan.repair"], "session_build_s": build_s,
+            "handover_bits": rs.handover_bits,
+            "demoted_pairs": rs.demoted_pairs,
+            "remapped_vertices": rs.remapped_vertices,
+            "M": int(plan.all_k.size), "C": int(plan.slot_pair.shape[0]),
+            "L": int(plan.left_k.size),
+            "dead_receivers_deliveries": int(np.diff(plan.ptr)[list(failed)].sum())}
+    if info["dead_receivers_deliveries"] or np.isin(plan.col_sender, failed).any():
+        raise AssertionError(f"{what}: a dead server still sends or receives")
+    if (rs.demoted_pairs > 0) != (len(failed) >= healthy.alloc.r):
+        raise AssertionError(f"{what}: demotions {rs.demoted_pairs}")
+    if fresh_compile:
+        t0 = time.perf_counter()
+        fresh = compile_plan_csr(healthy.g.csr, deg.alloc)
+        info["fresh_compile_s"] = time.perf_counter() - t0
+        if len(failed) < healthy.alloc.r:    # the repair contract's regime
+            same_plan(plan, fresh, skip=("col_sender",), what=what)
+        del fresh
+    state = torch.as_tensor(healthy.program.init(healthy.g), device=dev)
+    _, info["first_iter_s"] = synced(torch, lambda: deg.run(1, state=state))
+    info["time_to_recover_s"] = info["session_build_s"] + info["first_iter_s"]
+    _build.LAUNCHES.clear()
+    got = {"pagerank": deg.run(10),
+           "sssp": deg.with_program(algo.sssp(0)).run(10)}
+    torch.cuda.synchronize()
+    launches = info["launches"] = dict(_build.LAUNCHES)
+    bits = plan.coded_bits + plan.leftover_bits + rs.handover_bits
+    for name, res in got.items():
+        same_state(torch, res.state, runs[name].state, f"{what} {name}")
+        if res.shuffle_bits != 10 * bits:
+            raise AssertionError(f"{what} {name}: bits are not the host "
+                                 "plan's plus the hand-over")
+    info["bits_per_iter"] = bits
+    pr = algo.pagerank()
+    ev = pr.map_edge_values_t(deg._dg, state).contiguous()
+    state4 = torch.from_numpy(np.random.default_rng(4).random(
+        (deg.g.n, 4), dtype=np.float32)).to(dev)
+    ev4 = pr.map_edge_values_t(deg._dg, state4).contiguous()
+    recs = plan_records(torch, deg, ev, ev4, f"{what}'s repaired tables")
+    record_launches(recs, launches, f"the {what} path")
+    info.update(iteration_profile(torch, deg))
+    return recs, info
+
+
+def elastic_update(torch, dev, scale: tuple, healthy, runs: dict) -> dict:
+    """`update(delta)` at scale on backend "numpy" and "fused", with a seeded
+    delta of ELASTIC_DELTA inserted and deleted edges: host `apply_delta`
+    (span `plan.apply_delta`) and the session update against a fresh
+    `compile_plan_csr` on the mutated graph and a fresh session build; the
+    plan array-identical to the fresh one; pagerank and sssp for 10
+    iterations on both updated sessions bitwise the fresh session's (and
+    pagerank within rtol 1e-5 of the NumPy oracle); K1 / K2 / K3 held
+    against their plain versions on the rebound packed tables, the fused
+    rebind's time (span `fused.rebind`: partition, pack, upload) against a
+    fresh fused session's build; each route's launch counts."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.graph_models import Graph
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+    from repro_torch.kernels import _build
+
+    g, alloc, plan, _ = scale
+    delta = seeded_delta(g, 11, ELASTIC_DELTA, ELASTIC_DELTA)
+    info = {"inserted": delta.num_insert, "deleted": delta.num_delete}
+    upd, info["numpy_update_s"], spans = traced(lambda: healthy.update(delta))
+    info["apply_delta_s"] = spans["plan.apply_delta"]
+    st = upd.delta_stats
+    info.update(inserted_values=st.inserted_values,
+                deleted_values=st.deleted_values)
+    g2 = Graph(model=g.model, params=dict(g.params), csr=upd.g.csr)
+    t0 = time.perf_counter()
+    fresh_plan = compile_plan_csr(g2.csr, alloc)
+    info["fresh_compile_s"] = time.perf_counter() - t0
+    same_plan(upd.plan, fresh_plan, what="elastic update")
+    t0 = time.perf_counter()
+    fresh = engine.compile(algo.pagerank(), g2, alloc, "coded", path="sparse",
+                           backend="numpy", plan=fresh_plan, device=dev)
+    info["fresh_numpy_session_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused0 = engine.compile(algo.pagerank(), g, alloc, "coded", path="sparse",
+                            backend="fused", plan=plan, device=dev)
+    info["fused_session_s"] = time.perf_counter() - t0
+    fupd, info["fused_update_s"], spans = traced(lambda: fused0.update(delta))
+    info["fused_rebind_s"] = spans["fused.rebind"]
+    del fused0
+    t0 = time.perf_counter()
+    fresh_fused = engine.compile(algo.pagerank(), g2, alloc, "coded",
+                                 path="sparse", backend="fused",
+                                 plan=fresh_plan, device=dev)
+    info["fresh_fused_session_s"] = time.perf_counter() - t0
+    for k, t in fresh_fused.fused.tables.items():
+        if not torch.equal(t, fupd.fused.tables[k]):
+            raise AssertionError(f"elastic update: rebound table {k} differs "
+                                 "from a fresh fused session's")
+    del fresh_fused
+    want = {"pagerank": fresh.run(10),
+            "sssp": fresh.with_program(algo.sssp(0)).run(10)}
+    oracle = algo.reference_run(algo.pagerank(), g2, 10)
+    info["pagerank_max_rel_err"] = check_pagerank(
+        want["pagerank"].state.cpu().numpy(), oracle, "elastic update fresh")
+    for route, eng in (("numpy", upd), ("fused", fupd)):
+        _build.LAUNCHES.clear()
+        got = {"pagerank": eng.run(10),
+               "sssp": eng.with_program(algo.sssp(0)).run(10)}
+        torch.cuda.synchronize()
+        launches = info[f"{route}_launches"] = dict(_build.LAUNCHES)
+        names = (("xor_encode", "xor_decode") if route == "fused"
+                 else PLAN_KERNELS) + ("segment_reduce",)
+        for name in names:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{name} never launched on the updated "
+                                     f"{route} session")
+        for name, res in got.items():
+            same_state(torch, res.state, want[name].state,
+                       f"elastic update {route} {name}")
+            if res.shuffle_bits != want[name].shuffle_bits:
+                raise AssertionError(f"elastic update {route} {name}: bits")
+    pr = algo.pagerank()
+    ev = pr.map_edge_values_t(fupd._dg, torch.as_tensor(
+        pr.init(fupd.g), device=dev)).contiguous()
+    held = hold_session(torch, fupd, ev, "the rebound tables",
+                        general_tables(torch, fupd))
+    info["rebound_max_abs_err"] = held["err"]
+    dp = upd.dplan
+    hold_plan_kernels(torch, dp, ev, "the patched plan's tables")
+    info.update({f"{route}_{k}": v for route, eng in (("numpy", upd),
+                                                       ("fused", fupd))
+                 for k, v in iteration_profile(torch, eng).items()
+                 if k in ("steady_s_per_iter", "device_busy_s_per_iter",
+                          "device_idle_share")})
+    return info
+
+
+def elastic_schedule(torch, dev, er: tuple) -> dict:
+    """A FaultSchedule at er-76k, backend numpy, mode coded: server 1 crashes
+    at iteration 3 and recovers at 7, over 10 iterations of pagerank and of
+    sssp. The bits equal the host's accounting (3 + 3 healthy iterations,
+    4 repaired ones with their hand-over), the FaultLog's hand-over and
+    recovery bits too, and the final states are bitwise the uninterrupted
+    run's."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.faults import FaultSchedule
+
+    g, alloc, plan, _ = er
+    eng = engine.compile(algo.pagerank(), g, alloc, "coded", path="sparse",
+                         backend="numpy", plan=plan, device=dev)
+    sched = FaultSchedule([(3, "crash", (1,)), (7, "recover", (1,))])
+    rep, _, rs = plan.repair(g.csr, alloc, (1,))
+    healthy_bits = plan.coded_bits + plan.leftover_bits
+    degraded_bits = rep.coded_bits + rep.leftover_bits + rs.handover_bits
+    want_bits = 6 * healthy_bits + 4 * degraded_bits
+    info = {"healthy_bits_per_iter": healthy_bits,
+            "degraded_bits_per_iter": degraded_bits}
+    for name, prog in (("pagerank", algo.pagerank()), ("sssp", algo.sssp(0))):
+        e = eng.with_program(prog)
+        clean = e.run(10)
+        res, info[f"{name}_s"] = synced(
+            torch, lambda: e.run(10, fault_schedule=sched))
+        same_state(torch, res.state, clean.state, f"elastic schedule {name}")
+        log_ = res.faults
+        if (res.shuffle_bits != want_bits or log_.crashes != 1
+                or log_.recoveries != 1
+                or log_.handover_bits != 4 * rs.handover_bits
+                or log_.recovery_bits != degraded_bits):
+            raise AssertionError(f"elastic schedule {name}: bits "
+                                 f"{res.shuffle_bits} / log {log_} against "
+                                 f"the host's {want_bits}")
+        info[f"{name}_bits"] = res.shuffle_bits
+    info["clean_bits"] = 10 * healthy_bits
+    return info
+
+
+def elastic_checkpoints(torch, dev, er: tuple) -> dict:
+    """Checkpoints at er-76k padded to n = CKPT_N (divisible for K = 4 and
+    K' = 8 at r = 2): sssp and pagerank, 10 iterations with
+    checkpoint_every=2 into a temporary directory, then `restore` at epoch
+    6 and resume for 4: bitwise the uninterrupted run at K = 4 (and the
+    same bits) and elastically at K' = 8. The save cost per iteration:
+    the checkpointed run's time less the plain run's, over 10."""
+    import tempfile
+
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.allocation import er_allocation
+    from repro_torch.core.checkpoint import SessionCheckpointer
+
+    g = er[0].padded(CKPT_N)
+    alloc = er_allocation(CKPT_N, 4, 2)
+    info = {"n": CKPT_N}
+    for name, prog in (("sssp", algo.sssp(0)), ("pagerank", algo.pagerank())):
+        eng = engine.compile(prog, g, alloc, "coded", path="sparse",
+                             backend="numpy", device=dev)
+        full, plain_s = synced(torch, lambda: eng.run(10))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            ck = SessionCheckpointer(d, keep=5)
+            saved, ck_s = synced(torch, lambda: eng.run(
+                10, checkpoint=ck, checkpoint_every=2))
+            ck.wait()
+            same_state(torch, saved.state, full.state, f"checkpointed {name}")
+            info[f"{name}_save_s_per_iter"] = (ck_s - plain_s) / 10
+            for K in (4, 8):
+                e2, ckpt = engine.restore(d, prog, g, K=K, epoch=6,
+                                          mode="coded", path="sparse",
+                                          backend="numpy", device=dev)
+                res = e2.run(4, state=ckpt.state, start_iter=ckpt.iteration,
+                             start_bits=ckpt.shuffle_bits)
+                same_state(torch, res.state, full.state,
+                           f"restored {name} at K = {K}")
+                if K == 4 and res.shuffle_bits != full.shuffle_bits:
+                    raise AssertionError(f"restored {name}: bits differ")
+                info[f"{name}_K{K}_bits"] = res.shuffle_bits
+    return info
+
+
+def elastic_service(torch, dev, er: tuple) -> dict:
+    """GraphService at er-76k: SERVE_QUERIES sssp queries (10 iterations
+    each) submitted at once through max_batch = SERVE_MAX_BATCH, server 1
+    crashing at the batch boundary half way through: queries/s, latency
+    percentiles, mean batch; every column bitwise the standalone sssp run
+    of its root."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.serve import GraphService
+
+    g, alloc, plan, _ = er
+    roots = [int(x) for x in np.random.default_rng(64).choice(
+        g.params.get("padded_from", g.n), size=SERVE_QUERIES, replace=False)]
+    crash_at = SERVE_QUERIES // SERVE_MAX_BATCH // 2
+    sched = FaultSchedule([(crash_at, "crash", (1,))])
+    with GraphService(g, alloc, plan=plan, max_batch=SERVE_MAX_BATCH,
+                      max_wait_s=0.002, fault_schedule=sched,
+                      device=dev) as svc:
+        svc.submit("sssp", roots[0], iters=10).result(timeout=600)  # warm
+        t0 = time.perf_counter()
+        futs = [svc.submit("sssp", s, iters=10) for s in roots]
+        cols = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+    st = svc.stats
+    info = {"queries": SERVE_QUERIES, "wall_s": wall,
+            "queries_per_s": SERVE_QUERIES / wall,
+            "p50_s": st.latency_p50, "p95_s": st.latency_p95,
+            "p99_s": st.latency_p99, "mean_batch": st.mean_batch,
+            "batches": st.batches, "crashes": st.crashes, "crash_at": crash_at,
+            "shuffle_bits": st.shuffle_bits}
+    if st.crashes != 1 or st.queries != SERVE_QUERIES + 1:
+        raise AssertionError(f"elastic service: {st}")
+    eng = engine.compile(algo.sssp(0), g, alloc, "coded", path="sparse",
+                         backend="numpy", plan=plan, device=dev)
+    for s, col in zip(roots, cols):
+        want = eng.with_program(algo.sssp(s)).run(10).state
+        same_state(torch, col, want, f"service sssp({s})")
+    return info
+
+
+def elastic_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
+    """The sessions that change, on the card (see the module docstring)."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+
+    g, alloc, plan, want = scale
+    t0 = time.perf_counter()
+    healthy = engine.compile(algo.pagerank(), g, alloc, "coded",
+                             path="sparse", backend="numpy", plan=plan,
+                             device=dev)
+    info = {"healthy_session_s": time.perf_counter() - t0}
+    runs = {"pagerank": healthy.run(10),
+            "sssp": healthy.with_program(algo.sssp(0)).run(10)}
+    info["healthy_pagerank_max_rel_err"] = check_pagerank(
+        runs["pagerank"].state.cpu().numpy(), want, "elastic healthy")
+    info["healthy"] = {k: v for k, v in iteration_profile(
+        torch, healthy).items() if k != "phase_s_per_iter"}
+    records = {}
+    for failed in ((1,), (0, 1)):
+        key = "fail" + "".join(map(str, failed))
+        records[key], info[key] = elastic_fail(
+            torch, dev, healthy, runs, failed, fresh_compile=failed == (1,))
+        f = info[key]
+        log(f"elastic phase, scale fail{failed}: repair "
+            f"{f['repair_s']:.3f} s (compile_plan_csr "
+            f"{f.get('fresh_compile_s', float('nan')):.3f} s), session build "
+            f"{f['session_build_s']:.3f} s, first iteration "
+            f"{f['first_iter_s'] * 1e3:.3f} ms, steady "
+            f"{f['steady_s_per_iter'] * 1e3:.4f} ms/iter (healthy "
+            f"{info['healthy']['steady_s_per_iter'] * 1e3:.4f}), device busy "
+            f"{(f['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter (healthy "
+            f"{(info['healthy']['device_busy_s_per_iter'] or 0) * 1e3:.4f}), "
+            f"demoted {f['demoted_pairs']}, handover {f['handover_bits']} "
+            f"bits | {smi}")
+        log("elastic phase, plan kernels on the repaired tables: "
+            + json.dumps(records[key]))
+    info["update"] = u = elastic_update(torch, dev, scale, healthy, runs)
+    log(f"elastic phase, scale update(+{u['inserted']}, -{u['deleted']}): "
+        f"apply_delta {u['apply_delta_s']:.3f} s (compile_plan_csr "
+        f"{u['fresh_compile_s']:.3f} s), numpy update "
+        f"{u['numpy_update_s']:.3f} s (fresh session "
+        f"{u['fresh_numpy_session_s']:.3f} s), fused rebind "
+        f"{u['fused_rebind_s']:.3f} s of update {u['fused_update_s']:.3f} s "
+        f"(fresh fused session {u['fresh_fused_session_s']:.3f} s) | {smi}")
+    del healthy, runs
+    info["schedule"] = elastic_schedule(torch, dev, er)
+    log(f"elastic phase, er-76k fault schedule: {json.dumps(info['schedule'])}")
+    info["checkpoint"] = elastic_checkpoints(torch, dev, er)
+    log(f"elastic phase, checkpoints: {json.dumps(info['checkpoint'])}")
+    info["service"] = s = elastic_service(torch, dev, er)
+    log(f"elastic phase, service: {s['queries_per_s']:.1f} queries/s, p50 "
+        f"{s['p50_s'] * 1e3:.2f} ms, p95 {s['p95_s'] * 1e3:.2f} ms, p99 "
+        f"{s['p99_s'] * 1e3:.2f} ms, mean batch {s['mean_batch']:.2f} | {smi}")
+    info["records"] = records
+    return info
+
+
+# ---------------------------------------------------------------------------
 # topology phase: the two-level (racks x servers) coded Shuffle
 # ---------------------------------------------------------------------------
 
@@ -1844,8 +2285,8 @@ def topology_er76k(torch, dev) -> tuple[dict, dict]:
 
 
 def topology_scale(torch, dev, smi: str) -> tuple[dict, dict]:
-    """ER n ~ 1e6 (seed 7) at K = 8, r = 2 on Topology(4, 2) and flat,
-    pagerank for 10 iterations on backend="fused" and "numpy": host
+    """ER n ~ 1e6 (seed 7) at K = 8, r = 2 on Topology(4, 2) (backend
+    "fused" and "numpy") and flat ("numpy"), pagerank for 10 iterations: host
     compile and session build times, per-level bits, steady ms per
     iteration, device busy and idle share, peak memory, pagerank within
     rtol 1e-5 of the oracle, exact bits, each run's launch counts. Returns
@@ -1876,45 +2317,50 @@ def topology_scale(torch, dev, smi: str) -> tuple[dict, dict]:
                 flat_inter_rack_bits=int(empirical_loads(
                     plan, alloc, topology=Topology(4, 2))["inter_rack_bits"]))
     pr, rec = algo.pagerank(), None
-    for key, p in (("4x2", hp), ("flat", plan)):
+    # The flat K = 8 session runs on backend "numpy" only: the flat fused
+    # route is the scale phase's (at K = 4), and its session build here
+    # (13.5 s on an H100 80GB HBM3 host) would keep the script from its
+    # time budget.
+    cells = (("4x2", hp, "fused"), ("4x2", hp, "numpy"),
+             ("flat", plan, "numpy"))
+    for key, p, backend in cells:
         bits = (hp.inter_rack_bits + hp.intra_rack_bits if key == "4x2"
                 else info["flat_bits"])
-        for backend in ("fused", "numpy"):
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            eng = engine.compile(pr, g, alloc, "coded", path="sparse",
-                                 backend=backend, plan=p, device=dev)
-            m = info[f"{key}_{backend}"] = {
-                "session_s": time.perf_counter() - t0}
-            eng.run(1)
-            torch.cuda.synchronize()
-            _build.LAUNCHES.clear()
-            t0 = time.perf_counter()
-            res = eng.run(10)
-            torch.cuda.synchronize()
-            m["pagerank_s_per_iter"] = (time.perf_counter() - t0) / 10
-            m["launches"] = dict(_build.LAUNCHES)
-            m["pagerank_max_rel_err"] = check_pagerank(
-                res.state.cpu().numpy(), want, f"scale {key} {backend}")
-            if res.shuffle_bits != bits * 10:
-                raise AssertionError(f"scale {key} {backend}: shuffle bits "
-                                     "are not exact")
-            m.update(iteration_profile(torch, eng))
-            m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
-            if key == "4x2" and backend == "fused":
-                ev = pr.map_edge_values_t(eng._dg, torch.as_tensor(
-                    pr.init(g), device=dev)).contiguous()
-                rec = direct_record(torch, eng, ev, "scale 4x2")
-                record_launches([rec], m["launches"], "the scale 4x2 path")
-                del ev
-            log(f"topology phase, scale, {key} {backend}: steady "
-                f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
-                f"{(m['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, "
-                f"idle {m['device_idle_share']}, peak {m['peak_mem_bytes']} B,"
-                f" session {m['session_s']:.4f} s | {smi}")
-            del eng, res
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = engine.compile(pr, g, alloc, "coded", path="sparse",
+                             backend=backend, plan=p, device=dev)
+        m = info[f"{key}_{backend}"] = {
+            "session_s": time.perf_counter() - t0}
+        eng.run(1)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = eng.run(10)
+        torch.cuda.synchronize()
+        m["pagerank_s_per_iter"] = (time.perf_counter() - t0) / 10
+        m["launches"] = dict(_build.LAUNCHES)
+        m["pagerank_max_rel_err"] = check_pagerank(
+            res.state.cpu().numpy(), want, f"scale {key} {backend}")
+        if res.shuffle_bits != bits * 10:
+            raise AssertionError(f"scale {key} {backend}: shuffle bits "
+                                 "are not exact")
+        m.update(iteration_profile(torch, eng))
+        m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        if key == "4x2" and backend == "fused":
+            ev = pr.map_edge_values_t(eng._dg, torch.as_tensor(
+                pr.init(g), device=dev)).contiguous()
+            rec = direct_record(torch, eng, ev, "scale 4x2")
+            record_launches([rec], m["launches"], "the scale 4x2 path")
+            del ev
+        log(f"topology phase, scale, {key} {backend}: steady "
+            f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
+            f"{(m['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, "
+            f"idle {m['device_idle_share']}, peak {m['peak_mem_bytes']} B,"
+            f" session {m['session_s']:.4f} s | {smi}")
+        del eng, res
     return rec, info
 
 
@@ -2371,6 +2817,8 @@ def main() -> int:
                                             er, scale)
     plan_er, plan_scale, result["modes"] = timed(
         "modes", modes_phase, torch, dev, er, scale, result["scale"])
+    result["elastic"] = timed("elastic", elastic_phase, torch, dev, er, scale,
+                              smi)
     del er, scale
     k2d_er, k2d_scale, result["topology"] = timed("topology", topology_phase,
                                                   torch, dev, smi)

@@ -1,7 +1,6 @@
 """Coded MapReduce-on-graph engine on one card (paper §II-B execution model).
 
-Port of the reference package's `core/engine.py` (all of `CompiledEngine`
-but faults). A session compiles the coded multicast schedule once on the
+Port of the reference package's `core/engine.py`. A session compiles the coded multicast schedule once on the
 host (`compile_plan_csr`, or `compile_hierarchical` for a non-flat
 `topology=`) and keeps the state on the device across iterations. Three
 backends, the reference's names, and the reference's defaults
@@ -58,9 +57,35 @@ are bitwise equal to the NumPy oracle of their path
 (`algorithms.reference_run`), float sums agree within a stated tolerance
 (the device's sums against NumPy's); `shuffle_bits` is exact.
 
-What the reference offers beyond these routes (faults, checkpoints)
-raises `NotImplementedError` naming the ROADMAP item that will bring it;
-what the reference rejects raises its `ValueError`, in its order.
+Sessions that change, as the reference's (its `faults`, `checkpoint` and
+delta modules have copies here):
+
+  * `fail(servers)` returns the survivors' session: a coded plan repaired
+    by `ShufflePlan.repair` (still coded; the dead senders' columns handed
+    to healthy stand-ins, whose unicast overhead `handover_bits` is added
+    to every iteration's bits), an uncoded one recompiled on the degraded
+    allocation, a two-level one recompiled on it. The repaired tables go
+    through the same device executors: on backend="numpy" the plan kernels
+    run them unchanged. backend="fused" raises the reference's
+    `RuntimeError` from `partition_plan` on a repaired schedule with a
+    stand-in sender, as the reference's fused route does at its first
+    iteration (the stand-in cannot encode its own slot, which the
+    reference prices as `handover_bits` but never routes).
+  * `update(delta)` rebinds the session to the graph mutated by an
+    `EdgeDelta`: `CSR.apply_delta`, `ShufflePlan.apply_delta` (the plan and
+    its edge tables array-identical to a fresh compile), and for
+    backend="fused" `FusedSparseShuffle.rebind` (re-partition, re-pack and
+    re-upload the tables; the device and the built kernels stay).
+  * `run(..., fault_schedule=, checkpoint=, start_iter=, start_bits=)`
+    applies crash / straggle / recover events at iteration boundaries,
+    saves atomic checkpoints (`core.checkpoint.SessionCheckpointer`; the
+    state is copied to the host on the calling thread) and resumes a
+    checkpointed run; `restore` rebuilds a session from a checkpoint, onto
+    K' servers too (`faults.rebalance`). The state is allocation-agnostic
+    (the Reduce sums in canonical CSR order), so every one of these runs
+    is bitwise the uninterrupted one.
+
+What the reference rejects raises its `ValueError`, in its order.
 """
 from __future__ import annotations
 
@@ -92,13 +117,6 @@ MODES = ("single",) + PLAN_MODES + ("coded-ref",)
 # front as the reference does.
 _BACKEND_OPTS = {"numpy": frozenset(), "fused": frozenset(),
                  "spmv": frozenset({"bm"})}
-_NOT_PORTED = {
-    "faults": "ROADMAP Queue 1 #9 (elastic and dynamic sessions)",
-}
-
-
-def _not_ported(what: str, key: str):
-    return NotImplementedError(f"{what} is not ported yet: {_NOT_PORTED[key]}")
 
 
 def _plan_bits(plan: ShufflePlan, mode: str) -> int:
@@ -192,6 +210,7 @@ class EngineResult:
     iters: int
     shuffle_bits: int            # total over all iterations
     mode: str
+    faults: "object | None" = None   # faults.FaultLog when a schedule ran
 
     @property
     def batch(self) -> int:
@@ -219,7 +238,14 @@ class CompiledEngine:
     (`device_plan.DevicePlan`) and the Reduce gather table for
     backend="numpy"; the [n, n] device graph and each server's Reduce
     rows on the dense path. All of it is program-independent, so
-    `with_program` rebinds the vertex program for free.
+    `with_program` rebinds the vertex program for free. `fail` and
+    `update` return new sessions (the old one stays usable); theirs hold
+    `.recovery` (`faults.RepairStats`) and `.delta_stats`
+    (`shuffle_plan.DeltaStats`).
+
+    `fused` hands over an exchange already bound to (plan, graph,
+    allocation) on this device, as `update` does after
+    `FusedSparseShuffle.rebind`; by default the session builds its own.
     """
 
     def __init__(self, program: VertexProgram, g: Graph,
@@ -228,7 +254,8 @@ class CompiledEngine:
                  plan: ShufflePlan | HierarchicalPlan | None = None,
                  device: str | torch.device | None = "cuda",
                  topology: Topology | None = None,
-                 backend_opts: dict | None = None, **opts):
+                 backend_opts: dict | None = None,
+                 fused: FusedSparseShuffle | None = None, **opts):
         opts = {**(backend_opts or {}), **opts}
         self.sparse, plan, self.hplan, topology = _check_options(
             program, mode, path, backend, topology, opts, alloc, plan)
@@ -243,6 +270,8 @@ class CompiledEngine:
         self.backend = backend
         self.backend_opts = opts
         self.distributed = mode != "single" and alloc is not None
+        self.recovery = None                  # faults.RepairStats after fail()
+        self.delta_stats = None               # shuffle_plan.DeltaStats after update()
         planned = self.distributed and mode in PLAN_MODES
         if planned and plan is None:
             # Uncoded only consumes the missing set; skip the column tables.
@@ -281,8 +310,8 @@ class CompiledEngine:
             self._indices = _i32(g.csr.indices, self.device)
             return
         if backend == "fused":
-            self.fused = FusedSparseShuffle(self.hplan or plan, g.csr, alloc,
-                                            device=self.device)
+            self.fused = fused or FusedSparseShuffle(
+                self.hplan or plan, g.csr, alloc, device=self.device)
         elif self.hplan is not None:
             self.dplan = HierarchicalDevicePlan(
                 self.hplan, self.device, self.hplan.edge_tables(g.csr, alloc))
@@ -336,11 +365,139 @@ class CompiledEngine:
         eng.program = program
         return eng
 
-    def fail(self, servers):
-        raise _not_ported("CompiledEngine.fail", "faults")
+    def _derived(self, g: Graph, alloc: Allocation, plan,
+                 fused: FusedSparseShuffle | None = None) -> "CompiledEngine":
+        """A session of this one's program, mode, path, backend and device
+        on another (graph, allocation, plan)."""
+        return CompiledEngine(self.program, g, alloc, self.mode,
+                              path=self.path, backend=self.backend, plan=plan,
+                              device=self.device, backend_opts=self.backend_opts,
+                              fused=fused)
 
-    def update(self, delta):
-        raise _not_ported("CompiledEngine.update", "faults")
+    def fail(self, servers) -> "CompiledEngine":
+        """Degrade this session after `servers` crash; returns the survivors'.
+
+        Coded modes repair the compiled schedule in place of recompiling
+        (`ShufflePlan.repair`: dead senders' columns handed to healthy group
+        members, bitwise-equal delivered words), so post-failure iterations
+        keep the coded gain; uncoded recompiles the missing set on the
+        degraded allocation. Always call on the *original* session with the
+        cumulative failed set - `fail((0,)).fail((0, 1))` is not supported,
+        `fail((0, 1))` is. The returned session's `.recovery` holds the
+        `RepairStats` (hand-over bits, demotions, re-Mapped vertices); its
+        per-iteration `run` bits include the hand-over overhead. On
+        backend="fused" a repaired schedule with a stand-in sender raises
+        `partition_plan`'s `RuntimeError`, as the reference's fused route
+        does.
+        """
+        from .faults import RepairStats, degrade_allocation
+
+        if not self.distributed or self.mode not in PLAN_MODES:
+            raise ValueError(
+                "fail() needs a distributed plan-mode session "
+                f"(uncoded/coded/coded-fast; got mode={self.mode!r})")
+        failed = tuple(sorted({int(s) for s in np.atleast_1d(servers)}))
+        bad = [s for s in failed if not 0 <= s < self.alloc.K]
+        if bad:
+            raise ValueError(f"failed servers {bad} out of range 0..{self.alloc.K - 1}")
+        if self.mode == "uncoded":
+            degraded, dstats = degrade_allocation(self.alloc, failed)
+            plan = compile_plan_csr(self.g.csr, degraded, schedule=False)
+            rstats = RepairStats(failed, dstats.remapped_vertices, 0, 0)
+        else:
+            plan, degraded, rstats = self.plan.repair(self.g.csr, self.alloc,
+                                                      failed)
+            if self.hplan is not None:
+                # Repair keeps the rack structure: the survivors stay in
+                # their racks, so the two-level session recompiles the
+                # hierarchical plan on the degraded allocation (O(edges))
+                # while `rstats` keeps the flat repair's hand-over pricing.
+                plan = compile_hierarchical(self.g.csr, degraded,
+                                            self.topology)
+        eng = self._derived(self.g, degraded, plan)
+        eng.recovery = rstats
+        return eng
+
+    def update(self, delta) -> "CompiledEngine":
+        """Rebind this session to the mutated graph in O(plan + delta).
+
+        `delta` is a `graphs.EdgeDelta`. The returned session is
+        array-identical to compiling fresh on the mutated graph - the plan
+        is patched by `ShufflePlan.apply_delta` (bitwise-equal schedule),
+        the CSR edge tables are carried forward incrementally (no
+        re-locate), and for backend="fused" the exchange is rebound
+        (`FusedSparseShuffle.rebind`: its tables re-partitioned, re-packed
+        and uploaded anew; an empty delta keeps the exchange as it is). The
+        new session's `.delta_stats` holds the `DeltaStats`.
+
+        Composes with `fail` both ways: `update` on a degraded session
+        re-patches hand-over senders for the new schedule (its
+        `.recovery.handover_bits` is refreshed), and `fail` on an updated
+        session repairs the updated plan.
+        """
+        if not self.distributed or self.mode not in PLAN_MODES:
+            raise ValueError(
+                "update() needs a distributed plan-mode session "
+                f"(uncoded/coded/coded-fast; got mode={self.mode!r})")
+        with get_tracer().span("engine.update", mode=self.mode,
+                               inserts=delta.num_insert,
+                               deletes=delta.num_delete) as sp:
+            csr2 = self.g.csr.apply_delta(delta)
+            g2 = Graph(model=self.g.model, params=dict(self.g.params),
+                       csr=csr2, dense_limit=self.g.dense_limit)
+            plan2, dstats = self.plan.apply_delta(
+                self.g.csr, self.alloc, delta, csr_new=csr2)
+            if self.hplan is not None:
+                # The flat patch prices the delta (`dstats`); the rack-level
+                # stream can shift arbitrarily under it, so the two-level
+                # session recompiles the hierarchy on the new CSR.
+                plan2 = compile_hierarchical(csr2, self.alloc, self.topology)
+            fused = None
+            if self.backend == "fused":
+                fused = (self.fused if len(delta) == 0
+                         else self.fused.rebind(plan2, csr2, self.alloc))
+            eng = self._derived(g2, self.alloc, plan2, fused)
+            eng.delta_stats = dstats
+            if self.recovery is not None:
+                eng.recovery = (
+                    dataclasses.replace(self.recovery,
+                                        handover_bits=dstats.handover_bits)
+                    if dstats.schedule_changed else self.recovery)
+            sp.set(schedule_changed=dstats.schedule_changed,
+                   handover_bits=dstats.handover_bits)
+        return eng
+
+    def _apply_events(self, cur: "CompiledEngine", events,
+                      failed: set, straggling: set, log) -> tuple["CompiledEngine", bool]:
+        """Fold one boundary's fault events into the (failed, straggling)
+        sets; returns (current session, whether a new crash landed)."""
+        crashed = changed = False
+        tr = get_tracer()
+        for ev in events:
+            tr.event(f"fault.{ev.kind}", at=ev.at,
+                     servers=",".join(str(s) for s in ev.servers))
+            if ev.kind == "crash":
+                new = set(ev.servers) - failed
+                if new:
+                    failed |= new
+                    straggling -= new
+                    changed = crashed = True
+                    log.crashes += 1
+            elif ev.kind == "recover":
+                if set(ev.servers) & failed:
+                    failed.difference_update(ev.servers)
+                    changed = True
+                    log.recoveries += 1
+                straggling.difference_update(ev.servers)
+            else:                                       # "straggle"
+                straggling |= set(ev.servers) - failed
+            log.applied += (ev,)
+        if changed:
+            cur = self if not failed else self.fail(tuple(sorted(failed)))
+            if cur.recovery is not None:
+                log.demoted_pairs = cur.recovery.demoted_pairs
+                log.remapped_vertices = cur.recovery.remapped_vertices
+        return cur, crashed
 
     def _sync(self, tr) -> None:
         if tr.enabled and self.device.type == "cuda":
@@ -445,27 +602,80 @@ class CompiledEngine:
             land.append((idx, vals))
         return land
 
-    def run(self, iters: int, state=None, *, fault_schedule=None,
-            checkpoint=None) -> EngineResult:
+    def run(self, iters: int, state=None, *, start_iter: int = 0,
+            start_bits: int = 0, checkpoint=None, checkpoint_every: int = 1,
+            fault_schedule=None) -> EngineResult:
         """Execute `iters` rounds from `program.init` (or a given [n] /
-        [n, B] state); the state stays on the device throughout."""
-        if fault_schedule is not None or checkpoint is not None:
-            raise _not_ported("fault_schedule= / checkpoint=", "faults")
+        [n, B] state); the state stays on the device throughout.
+
+        `start_iter`/`start_bits` resume a checkpointed run: iteration
+        indices continue from `start_iter` (fault-schedule boundaries and
+        checkpoint epochs line up with the uninterrupted run) and the
+        returned `shuffle_bits` is cumulative from `start_bits`.
+
+        `checkpoint` (a `core.checkpoint.SessionCheckpointer`) persists
+        (iteration, state, cumulative bits, current allocation) every
+        `checkpoint_every` iterations and always after the final one;
+        each save copies the state to the host on this thread (waiting for
+        the iteration's device work), then writes it atomically on a
+        background thread.
+
+        `fault_schedule` (a `faults.FaultSchedule`) applies crash /
+        straggle / recover events at iteration boundaries: crashes swap in
+        the repaired coded session (`fail`), recovers swap the original
+        back, stragglers re-price the Shuffle per the hand-over rule
+        (values are unaffected). The result's `.faults` is the `FaultLog`.
+        """
         if state is None:
             state = self.program.init(self.g)
         state = torch.as_tensor(state, dtype=torch.float32,
                                 device=self.device).contiguous()
-        B = 1 if state.dim() == 1 else int(state.shape[1])
-        tr, total = get_tracer(), 0
+        total_bits = start_bits
+        cur, log = self, None
+        failed: set[int] = set()
+        straggling: set[int] = set()
+        crash_pending = False
+        if fault_schedule is not None:
+            from .faults import FaultLog
+            log = FaultLog()
+        tr = get_tracer()
+        B0 = 1 if state.dim() == 1 else int(state.shape[1])
         with tr.span("engine.run", mode=self.mode, backend=self.backend,
-                     iters=iters, B=B) as sp:
-            for it in range(iters):
+                     iters=iters, B=B0) as run_sp:
+            for it in range(start_iter, start_iter + iters):
                 with tr.span("engine.iteration", iteration=it) as it_sp:
-                    state, bits = self._step(state)
+                    if fault_schedule is not None:
+                        cur, crashed = self._apply_events(
+                            cur, fault_schedule.at(it), failed, straggling,
+                            log)
+                        crash_pending |= crashed
+                    state, bits = cur._step(state)
+                    B = 1 if state.dim() == 1 else int(state.shape[1])
+                    if straggling and cur.mode in ("coded", "coded-fast"):
+                        from .faults import _straggler_bits_plan
+                        bits = _straggler_bits_plan(
+                            cur.plan, tuple(sorted(straggling))) * B
+                        if cur.mode == "coded":
+                            bits += cur.plan.leftover_bits * B
+                    if log is not None and straggling:
+                        log.straggled_iters += 1
+                    if cur.recovery is not None:
+                        bits += cur.recovery.handover_bits * B
+                        if log is not None:
+                            log.handover_bits += \
+                                cur.recovery.handover_bits * B
+                    if crash_pending:
+                        log.recovery_bits += bits
+                        crash_pending = False
+                    total_bits += bits
                     it_sp.set(bits=bits)
-                total += bits
-            sp.set(shuffle_bits=total)
-        return EngineResult(state, iters, total, self.mode)
+                    if checkpoint is not None and (
+                            (it + 1 - start_iter) % max(checkpoint_every, 1)
+                            == 0 or it == start_iter + iters - 1):
+                        checkpoint.save(it + 1, state, total_bits, cur.alloc)
+            run_sp.set(shuffle_bits=total_bits - start_bits)
+        return EngineResult(state, start_iter + iters, total_bits, self.mode,
+                            faults=log)
 
     def run_batch(self, states, iters: int) -> EngineResult:
         """Run B queries on ONE Shuffle exchange per iteration.
@@ -529,8 +739,40 @@ def run(program: VertexProgram, g: Graph, alloc: Allocation | None,
                    backend_opts=backend_opts).run(iters)
 
 
-def restore(*_args, **_kwargs):
-    raise _not_ported("engine.restore", "faults")
+def restore(directory, program: VertexProgram, g: Graph, *,
+            K: int | None = None, mode: str = "coded", path: str = "auto",
+            backend: str = "numpy", backend_opts: dict | None = None,
+            topology: Topology | None = None, epoch: int | None = None,
+            device: str | torch.device | None = "cuda"):
+    """Rebuild a session on `device` from the newest complete checkpoint
+    under `directory`; returns `(CompiledEngine, SessionCheckpoint)`.
+
+    The checkpoint carries the exact allocation (fingerprint-verified), so
+    the default restore recompiles the *same* schedule and
+    ``eng.run(remaining, state=ckpt.state, start_iter=ckpt.iteration,
+    start_bits=ckpt.shuffle_bits)`` resumes bitwise-identically to the
+    uninterrupted run (the sparse Reduce gathers in canonical CSR entry
+    order, so even float-sum programs are insensitive to the allocation).
+    Pass `K` != the checkpointed K for an *elastic* restore: the allocation
+    is re-derived via `faults.rebalance` and a fresh plan compiled - state
+    still resumes bitwise-identically, only the schedule (bits) changes.
+    `epoch` pins a specific checkpoint instead of the newest. `ckpt.state`
+    is the host array; `run` uploads it.
+    """
+    from .checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(directory, epoch=epoch)
+    if ckpt.state.shape[0] != g.n:
+        raise ValueError(
+            f"checkpoint state has n={ckpt.state.shape[0]} but graph has "
+            f"n={g.n}")
+    alloc = ckpt.alloc
+    if K is not None and alloc is not None and K != alloc.K:
+        from .faults import rebalance
+        alloc = rebalance(alloc, K)
+    eng = compile(program, g, alloc, mode, path=path, backend=backend,
+                  backend_opts=backend_opts, topology=topology, device=device)
+    return eng, ckpt
 
 
 def _unicast_leftovers(g: Graph, alloc: Allocation, values: np.ndarray,

@@ -636,6 +636,10 @@ class FusedSparseShuffle:
         self.device = resolve_device(device)
         self.nnz = csr.nnz
         self._bind(plan, csr, alloc, topology)
+        self._upload()
+
+    def _upload(self) -> None:
+        """Upload the packed tables of the bound plan to the device."""
         self.M = int(self.plan.all_k.size)
         p, dev = self.packed, self.device
         self.tables = {name: _upload(getattr(p, name), dev) for name in (
@@ -644,6 +648,29 @@ class FusedSparseShuffle:
         self.tables["ptr"] = _i32(self.plan.ptr, dev)
         if p.direct_e is not None:
             self.tables["direct_e"] = _upload(p.direct_e, dev)
+
+    def rebind(self, plan: ShufflePlan | HierarchicalPlan, csr: CSR,
+               alloc: Allocation) -> "FusedSparseShuffle":
+        """New exchange bound to a mutated (plan, csr) on this one's device.
+
+        `CompiledEngine.update`'s hook, as the reference's: the per-server
+        partition is rebuilt for the new plan (its tables index CSR
+        entries, so any real delta moves them), packed, and uploaded; the
+        device and the kernels, built once per process, carry over. A
+        two-level instance expects a fresh `HierarchicalPlan` on the same
+        Topology; switching between the flat and the two-level exchange
+        raises the reference's `ValueError`. The span `fused.rebind` times
+        the host partition, the pack and the upload.
+        """
+        with get_tracer().span("fused.rebind", nnz=csr.nnz):
+            ex = object.__new__(FusedSparseShuffle)
+            ex.device, ex.nnz = self.device, csr.nnz
+            ex._bind(plan, csr, alloc, self.topology)
+            if (ex.hplan is None) != (self.hplan is None):
+                raise ValueError("rebind cannot switch between the flat and "
+                                 "two-level exchange; build a new instance")
+            ex._upload()
+        return ex
 
     def _bind(self, plan, csr, alloc, topology) -> None:
         """Resolve (plan, topology) into the flat or two-level partition, by

@@ -18,7 +18,9 @@ instead of a silent 10+ GB allocation.
 
 Bitwise per-path oracle rule: the canonical CSR entry order (row major,
 ascending column - exactly `np.nonzero(adj)` order) is the reduction order
-of the sparse path.
+of the sparse path. `CSR.apply_delta` mutates it by an `EdgeDelta` in
+O(nnz + delta), bitwise `csr_from_undirected` of the mutated edge set (as
+the reference's does).
 
 `Graph.device_view(device)` uploads the tensors the device Map needs once
 per device (column indices, clamped degrees, SSSP edge weights) and caches
@@ -60,6 +62,108 @@ class CSR:
     @property
     def nnz(self) -> int:
         return int(self.indices.size)
+
+    def apply_delta(self, delta) -> "CSR":
+        """Mutated CSR after an `EdgeDelta` batch, in O(nnz + delta).
+
+        Both orientations of every inserted (deleted) undirected edge are
+        spliced into (dropped from) the canonical entry stream by a sorted
+        merge - untouched rows are copied, never re-sorted, so the result
+        is bitwise identical to `csr_from_undirected` on the mutated edge
+        set. Raises `ValueError` if a deleted edge is absent or an
+        inserted edge already present.
+        """
+        del_pos, ins_pos, ins_rows, ins_cols = csr_delta_entries(self, delta)
+        new_old, new_ins, nnz2 = merge_maps(self.nnz, del_pos, ins_pos)
+        tgt = new_old.copy()
+        tgt[del_pos] = nnz2                  # deleted entries -> trash slot
+        indices2 = np.empty(nnz2 + 1, dtype=np.int32)
+        indices2[tgt] = self.indices
+        indices2[new_ins] = ins_cols
+        indices2 = indices2[:nnz2]
+        rows2 = np.empty(nnz2 + 1, dtype=np.int32)
+        rows2[tgt] = self.rows
+        rows2[new_ins] = ins_rows
+        rows2 = rows2[:nnz2]
+        counts = np.bincount(rows2, minlength=self.n)
+        indptr2 = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr2[1:])
+        return CSR(indptr2, indices2, rows2)
+
+
+def merge_maps(size: int, del_pos: np.ndarray, ins_pos: np.ndarray):
+    """Index bookkeeping for one sorted-merge splice.
+
+    Given a length-`size` sorted sequence, sorted positions `del_pos` of
+    elements to drop and sorted insertion points `ins_pos` (searchsorted
+    convention: an element with point p lands before old element p; ties
+    keep their given order), returns ``(new_old, new_ins, new_size)``:
+    `new_old[a]` is the new index of old element a (meaningful only for
+    survivors - callers scatter deletions to a trash slot, see
+    `CSR.apply_delta`), `new_ins[t]` the new index of inserted element t.
+    O(size + delta), no sorting: the old->new offset changes only at delta
+    positions, so it is one difference-array cumsum.
+    """
+    diff = np.zeros(size + 2, dtype=np.int32)   # |offset| <= |delta|
+    np.add.at(diff, ins_pos, 1)            # +1 from each insert point on
+    np.add.at(diff, del_pos + 1, -1)       # -1 after each deleted element
+    offset = np.cumsum(diff[:size + 1], dtype=np.int32)
+    new_old = np.arange(size, dtype=np.int64) + offset[:size]
+    new_ins = (ins_pos + np.arange(ins_pos.size, dtype=np.int64)
+               - np.searchsorted(del_pos, ins_pos, side="left"))
+    return new_old, new_ins, size - del_pos.size + ins_pos.size
+
+
+def csr_delta_entries(csr: CSR, delta):
+    """Locate an `EdgeDelta`'s directed entries in `csr`'s canonical order.
+
+    Returns ``(del_pos, ins_pos, ins_rows, ins_cols)``: sorted entry
+    positions of the 2 x num_delete deleted directed entries, sorted
+    insertion points of the 2 x num_insert new ones, and the new entries'
+    (row, col) in insertion-point order. Raises `ValueError` on a deleted
+    edge that is absent or an inserted edge already present.
+
+    Both the result (per delta) and the entry-key array (per CSR) are
+    cached: `CSR.apply_delta` and `ShufflePlan.apply_delta` locate the
+    same delta in the same CSR, and the second call must not redo the
+    O(nnz log delta) work.
+    """
+    n = csr.n
+    if delta.n != n:
+        raise ValueError(
+            f"delta is bound to n={delta.n} but the graph has n={n}")
+    cached = csr.__dict__.get("_delta_entries")
+    if cached is not None and cached[0] is delta:
+        return cached[1]
+    key = csr.__dict__.get("_entry_key")
+    if key is None:
+        key = csr.rows.astype(np.int64) * n + csr.indices
+        csr.__dict__["_entry_key"] = key
+    out = []
+    for what, pairs, must_exist in (("delete", delta.delete, True),
+                                    ("insert", delta.insert, False)):
+        if pairs.shape[0] == 0:
+            out.append((np.zeros(0, dtype=np.int64),) * 3)
+            continue
+        dk = np.concatenate([pairs[:, 0] * n + pairs[:, 1],
+                             pairs[:, 1] * n + pairs[:, 0]])
+        dk.sort()
+        pos = np.searchsorted(key, dk)
+        present = (pos < key.size) & (key[np.minimum(pos, key.size - 1)] == dk)
+        offend = ~present if must_exist else present
+        if offend.any():
+            k = int(dk[np.flatnonzero(offend)[0]])
+            u, v = min(k // n, k % n), max(k // n, k % n)
+            raise ValueError(
+                f"{what} edge ({u}, {v}) is "
+                + ("not in the graph" if must_exist
+                   else "already in the graph"))
+        out.append((pos, dk // n, dk % n))
+    (del_pos, _, _), (ins_pos, ins_r, ins_c) = out
+    res = (del_pos, ins_pos,
+           ins_r.astype(np.int32), ins_c.astype(np.int32))
+    csr.__dict__["_delta_entries"] = (delta, res)
+    return res
 
 
 def csr_from_undirected(u: np.ndarray, v: np.ndarray, n: int) -> CSR:

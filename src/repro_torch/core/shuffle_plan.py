@@ -1,17 +1,20 @@
 """Compile-once / execute-many coded Shuffle plan (paper §IV-A), NumPy host side.
 
-A copy of the reference package's `core/shuffle_plan.py` but its repair
-and delta maintenance: the compilers (`compile_plan` from a dense
-adjacency, `compile_plan_csr` from a CSR view, `compile_hierarchical` for
-a two-level `Topology`), the plans' exact bit accounting, their CSR
-bindings (`edge_tables`) and the NumPy executors of every plan mode, dense
-(`execute`, `execute_coded` / `execute_fast` / `execute_uncoded`) and
-sparse (`execute_sparse` and its three forms,
-`HierarchicalPlan.execute_coded_sparse`). The NumPy executors are the
-oracle that the device executors (`device_plan.DevicePlan`, the engine's
-`backend="numpy"`) and the fused exchange are held to. Every array it
-emits is bitwise equal to the reference's for the same (graph,
-allocation).
+A copy of the reference package's `core/shuffle_plan.py`: the compilers
+(`compile_plan` from a dense adjacency, `compile_plan_csr` from a CSR
+view, `compile_hierarchical` for a two-level `Topology`), the plans' exact
+bit accounting, their CSR bindings (`edge_tables`), the NumPy executors of
+every plan mode, dense (`execute`, `execute_coded` / `execute_fast` /
+`execute_uncoded`) and sparse (`execute_sparse` and its three forms,
+`HierarchicalPlan.execute_coded_sparse`), the degraded-mode `repair` after
+servers fail and the O(plan + delta) `apply_delta` after an `EdgeDelta`.
+The NumPy executors are the oracle that the device executors
+(`device_plan.DevicePlan`, the engine's `backend="numpy"`) and the fused
+exchange are held to. Every array it emits is bitwise equal to the
+reference's for the same (graph, allocation), with one departure:
+`apply_delta` also runs on a plan with no deliveries (M = 0, e.g. r = K),
+where the reference's edge-table rebind indexes an empty array
+(`_delta_edge_tables`).
 
 The multicast schedule of the coded scheme is fixed by the graph realization
 and the allocation alone - it never depends on the Map values - so
@@ -48,7 +51,7 @@ from .allocation import Allocation
 from .bitcodec import (T_BITS, floats_to_words, np_words_to_t,
                        segment_bounds, segment_words, t_words_to_np,
                        words_to_floats)
-from .graph_models import CSR
+from .graph_models import CSR, csr_delta_entries, merge_maps
 
 
 def _batch_width(vals: np.ndarray) -> int:
@@ -416,6 +419,344 @@ class ShufflePlan:
             return self.execute_uncoded_sparse(edge_vals, tables)
         raise ValueError(f"unknown plan mode {mode!r}")
 
+    # ---- coded degraded-mode repair ----
+
+    def repair(self, csr: CSR, alloc: Allocation, failed):
+        """Survivors' coded schedule after `failed` servers die, by patching.
+
+        Returns ``(plan, degraded_alloc, stats)`` where `plan` is the coded
+        schedule of the degraded allocation (`faults.degrade_allocation`) and
+        `stats` is a `faults.RepairStats`. Instead of recompiling over all
+        edges, the repair splices two streams into `_compile_missing`:
+
+          * kept entries - the original plan's deliveries whose receiver
+            survived (minus any a recovery re-Map made locally available),
+          * orphan-row entries - the CSR rows of the failed servers' Reduce
+            partitions, recomputed against their new owners' Map sets,
+
+        which is O(plan + edges in failed rows), and then patches the column
+        sender table: a column whose sender died is handed to the
+        lexicographically-first healthy member s' of its (r+1)-group (s'
+        Mapped every batch in the column except its own receiver's, so it can
+        re-encode the same bits; the s'-destined segments it cannot XOR are
+        unicast by a third healthy member and accounted as
+        `stats.handover_bits`). Pairs whose group keeps < 2 healthy members
+        (possible only when |failed| >= r) are demoted to unicast leftovers.
+
+        Contract (the reference's; held here by `tests/test_torch_faults.py`):
+        for |failed| < r the repaired plan is schedule-equal to a fresh
+        `compile_plan_csr` on the degraded allocation - identical arrays
+        except `col_sender`, which
+        fresh compilation would still point at dead servers - and its
+        executors deliver bitwise-identical words. Composition works too:
+        repairing an already-degraded (plan, alloc) treats every server with
+        an empty Map row as dead when choosing stand-ins.
+        """
+        with get_tracer().span(
+                "plan.repair",
+                failed=",".join(str(f) for f in sorted(
+                    {int(f) for f in np.atleast_1d(np.asarray(failed))}))) \
+                as rsp:
+            return self._repair(csr, alloc, failed, rsp)
+
+    def _repair(self, csr: CSR, alloc: Allocation, failed, rsp):
+        from .faults import RepairStats, degrade_allocation
+
+        self._require_schedule()
+        self.check_alloc(alloc)
+        if csr.n != self.n:
+            raise ValueError(
+                f"CSR has n={csr.n}, plan was compiled for n={self.n}")
+        failed = tuple(sorted({int(f) for f in failed}))
+        if any(not 0 <= f < self.K for f in failed):
+            raise ValueError(f"failed servers {failed} out of range "
+                             f"[0, {self.K})")
+        degraded, dstats = degrade_allocation(alloc, failed)
+
+        # Kept deliveries: surviving receivers, minus entries a recovery
+        # re-Map (|failed| >= r only) just made locally available.
+        keep = ~np.isin(self.all_k, failed)
+        keep &= ~degraded.map_sets[self.all_k, self.all_j]
+        kk, ii, jj = self.all_k[keep], self.all_i[keep], self.all_j[keep]
+
+        # Orphan rows (Reduce partitions of the dead): recompute their
+        # missing entries against the new owners' Map sets from the CSR.
+        orows = np.flatnonzero(np.isin(alloc.reduce_owner, failed))
+        if orows.size:
+            starts = csr.indptr[orows]
+            counts = csr.indptr[orows + 1] - starts
+            total = int(counts.sum())
+            offs = np.zeros(orows.size, dtype=np.int64)
+            np.cumsum(counts[:-1], out=offs[1:])
+            e = np.arange(total, dtype=np.int64) \
+                + np.repeat(starts - offs, counts)
+            oi = np.repeat(orows, counts).astype(np.int32)
+            oj = csr.indices[e].astype(np.int32)
+            ok = degraded.reduce_owner[oi].astype(np.int32)
+            miss = ~degraded.map_sets[ok, oj]
+            kk = np.concatenate([kk, ok[miss]])
+            ii = np.concatenate([ii, oi[miss]])
+            jj = np.concatenate([jj, oj[miss]])
+
+        # Healthy = still holds its Map shard (handles repair-of-repaired:
+        # servers that died in an earlier epoch have all-False rows).
+        alive = degraded.map_sets.any(axis=1)
+        alive_mask = int(sum(1 << k for k in np.flatnonzero(alive)))
+        plan = _compile_missing(ii, jj, kk, degraded, True,
+                                survivors=alive_mask)
+        natural_left = int((np.array(
+            [len(s) for s in alloc.subsets])[alloc.batch_of[jj]]
+            != self.r).sum())
+        demoted = int(plan.left_k.size) - natural_left
+
+        handover_bits = _patch_senders(plan, np.uint64(alive_mask))
+        stats = RepairStats(failed=failed,
+                            remapped_vertices=dstats.remapped_vertices,
+                            handover_bits=handover_bits,
+                            demoted_pairs=demoted)
+        _stamp_plan(rsp, plan, int(csr.nnz))
+        rsp.set(handover_bits=handover_bits, demoted_pairs=demoted,
+                remapped_vertices=dstats.remapped_vertices)
+        return plan, degraded, stats
+
+    # ---- dynamic graphs: O(delta) incremental maintenance ----
+
+    def apply_delta(self, csr: CSR, alloc: Allocation, delta, *,
+                    csr_new: CSR | None = None):
+        """Incrementally recompile this plan for one `EdgeDelta` batch.
+
+        Returns ``(plan, stats)`` where `plan` is the schedule of the
+        mutated graph and `stats` a `DeltaStats`. `csr` is the CSR this
+        plan was compiled against (pre-mutation); pass the mutated view as
+        `csr_new` (from `CSR.apply_delta`) to also carry the cached edge
+        tables forward incrementally - the new plan then binds to `csr_new`
+        without the O(nnz log nnz) `_locate_edges` rebuild.
+
+        Cost is O(plan + delta) with **no sorting pass** over plan-sized
+        arrays: the delta's missing triples are classified exactly as
+        `_compile_missing` classifies them (covered / leftover, with the
+        same survivors demotion when `alloc` is degraded), spliced into the
+        already-sorted pair / leftover / delivery streams by sorted merge,
+        and the column + slot tables are rebuilt from the merged pair
+        stream in closed form (`_schedule_from_pairs`) - deleted edges
+        drop their slots, inserted edges land where a fresh lexsort would
+        have put them, so splice order is irrelevant by construction.
+
+        Contract (the reference's; held here by `tests/test_torch_delta.py`):
+        the result is array-identical to a fresh `compile_plan_csr` on the
+        mutated graph - every field bitwise equal, `col_sender` included
+        for a healthy allocation. For a degraded allocation the usual
+        `repair` exception applies: `col_sender` is re-patched to healthy
+        stand-ins (fresh compilation would still point at dead servers)
+        and `stats.handover_bits` is the re-patched unicast total.
+        Composes both ways with `repair` (delta-then-fail, fail-then-delta).
+        """
+        with get_tracer().span(
+                "plan.apply_delta", inserts=delta.num_insert,
+                deletes=delta.num_delete) as sp:
+            return self._apply_delta(csr, alloc, delta, csr_new, sp)
+
+    def _apply_delta(self, csr, alloc, delta, csr_new, sp):
+        self.check_alloc(alloc)
+        if csr.n != self.n:
+            raise ValueError(
+                f"CSR has n={csr.n}, plan was compiled for n={self.n}")
+        if delta.n != self.n:
+            raise ValueError(
+                f"delta is bound to n={delta.n}, plan to n={self.n}")
+        n = np.int64(self.n)
+        K, r = self.K, self.r
+
+        # Classify the delta's missing triples with the same rules (and the
+        # same survivors demotion) a fresh compile on `alloc` would apply.
+        alive = alloc.map_sets.any(axis=1)
+        survivors = (None if bool(alive.all())
+                     else int(sum(1 << k for k in np.flatnonzero(alive))))
+        ins = _delta_stream(delta.insert, alloc, survivors)
+        dels = _delta_stream(delta.delete, alloc, survivors)
+        changed = bool(ins.ak.size or dels.ak.size)
+
+        # Full delivery stream: one sorted merge, shared by both flavors.
+        # The stream's (k, i, j) keys are cached on the plan and carried to
+        # the result by splice, so repeated updates never rebuild them.
+        M = self.all_k.size
+        akey = self.__dict__.get("_delta_akey")
+        if akey is None:
+            akey = ((self.all_k.astype(np.int64) * n + self.all_i) * n
+                    + self.all_j)
+            self.__dict__["_delta_akey"] = akey
+        ikey_a = (ins.ak.astype(np.int64) * n + ins.ai) * n + ins.aj
+        dap = _splice_points(
+            akey, (dels.ak.astype(np.int64) * n + dels.ai) * n + dels.aj,
+            "delivery", expect_present=True)
+        iap = _splice_points(akey, ikey_a, "delivery", expect_present=False)
+        new_old_a, new_ins_a, M2 = merge_maps(M, dap, iap)
+        tgt_a = new_old_a.copy()
+        tgt_a[dap] = M2                  # deleted deliveries -> trash slot
+        # The stream is (k, i, j)-sorted, so the k column stays a sorted
+        # run-length encoding: bump the run bounds by the per-server
+        # insert/delete counts and repeat - no splice, no index traffic.
+        ptr2 = self.ptr + np.concatenate(
+            [[0], np.cumsum(np.bincount(ins.ak, minlength=K)
+                            - np.bincount(dels.ak, minlength=K))])
+        all_k2 = np.repeat(np.arange(K, dtype=self.all_k.dtype),
+                           np.diff(ptr2))
+        all_i2 = _splice(self.all_i, tgt_a, ins.ai, new_ins_a, M2)
+        all_j2 = _splice(self.all_j, tgt_a, ins.aj, new_ins_a, M2)
+
+        if not self.has_schedule:
+            # Missing-set-only plan: the delivery stream IS the plan.
+            e64 = np.zeros(0, dtype=np.int64)
+            pmaps = (e64, e64, 0, e64, e64, 0)
+            empty = np.zeros(0, np.int32)
+            plan2 = ShufflePlan(
+                n=self.n, K=K, r=r,
+                pair_k=empty, pair_i=empty, pair_j=empty,
+                col_width=None, col_sender=empty,
+                col_gm=np.zeros(0, np.uint64), col_rank=empty,
+                slot_pair=np.zeros((0, r), np.int64),
+                slot_shift=np.zeros((0, r), np.uint32),
+                slot_mask=np.zeros((0, r), np.uint32),
+                pair_col=np.zeros((0, r), np.int64),
+                pair_slot=np.zeros((0, r), np.int64),
+                seg_shift=segment_words(r)[0],
+                left_k=empty, left_i=empty, left_j=empty,
+                all_k=all_k2, all_i=all_i2, all_j=all_j2,
+                pos_covered=np.zeros(0, np.int64),
+                pos_left=np.arange(M2, dtype=np.int64), ptr=ptr2)
+        else:
+            plan2, pmaps = self._merge_scheduled(
+                alloc, n, ins, dels, changed,
+                all_k2, all_i2, all_j2, ptr2,
+                new_old_a, new_ins_a)
+        # The (k, i, j) key cache is rebuilt lazily by the next update
+        # (same O(stream) cost as splicing it here, but deferred off this
+        # call's critical path - single updates never pay it).
+
+        handover = 0
+        if changed and self.has_schedule and survivors is not None:
+            handover = _patch_senders(plan2, np.uint64(survivors))
+        stats = DeltaStats(
+            inserted_edges=delta.num_insert, deleted_edges=delta.num_delete,
+            inserted_values=int(ins.ak.size),
+            deleted_values=int(dels.ak.size),
+            demoted_pairs=ins.demoted, handover_bits=handover,
+            schedule_changed=changed)
+
+        # Carry the cached CSR binding forward without re-locating edges.
+        if csr_new is not None:
+            cached = self.__dict__.get("_edge_tables")
+            if (cached is not None and cached[0] is csr
+                    and cached[1] is alloc):
+                tables2 = _delta_edge_tables(
+                    cached[2], csr, csr_new, delta, ins,
+                    self.has_schedule, *pmaps,
+                    tgt_a, new_old_a, new_ins_a, M2)
+                plan2.__dict__["_edge_tables"] = (csr_new, alloc, tables2)
+        _stamp_plan(sp, plan2,
+                    int((csr if csr_new is None else csr_new).nnz))
+        sp.set(inserted_values=stats.inserted_values,
+               deleted_values=stats.deleted_values,
+               demoted_pairs=stats.demoted_pairs, handover_bits=handover)
+        return plan2, stats
+
+    def _merge_scheduled(self, alloc, n, ins, dels, changed,
+                         all_k2, all_i2, all_j2, ptr2,
+                         new_old_a, new_ins_a):
+        """Covered-pair + leftover splice and the closed-form column
+        rebuild, for plans that carry a coded schedule."""
+        K, r = self.K, self.r
+        P, L = self.pair_k.size, self.left_k.size
+        # Group masks and (k, i, j) keys of the pair stream are cached on
+        # the plan (masks per allocation - a degraded allocation regroups)
+        # and carried to the result by splice.
+        gm_cached = self.__dict__.get("_delta_pair_gm")
+        if gm_cached is not None and gm_cached[0] is alloc:
+            pair_gm = gm_cached[1]
+        else:
+            subset_mask = np.array(
+                [sum(1 << s for s in S) for S in alloc.subsets],
+                dtype=np.uint64)
+            pair_gm = (subset_mask[alloc.batch_of[self.pair_j]]
+                       | (np.uint64(1) << self.pair_k.astype(np.uint64)))
+            self.__dict__["_delta_pair_gm"] = (alloc, pair_gm)
+        pkey = self.__dict__.get("_delta_pkey")
+        if pkey is None:
+            pkey = ((self.pair_k.astype(np.int64) * n + self.pair_i) * n
+                    + self.pair_j)
+            self.__dict__["_delta_pkey"] = pkey
+        ikey_p = (ins.ck.astype(np.int64) * n + ins.ci) * n + ins.cj
+        dpp = _pair_splice_points(
+            pair_gm, pkey, dels.cgm,
+            (dels.ck.astype(np.int64) * n + dels.ci) * n + dels.cj,
+            expect_present=True)
+        ipp = _pair_splice_points(pair_gm, pkey, ins.cgm, ikey_p,
+                                  expect_present=False)
+        new_old_p, new_ins_p, P2 = merge_maps(P, dpp, ipp)
+        tgt_p = new_old_p               # new_old_p unused beyond targeting
+        tgt_p[dpp] = P2                 # deleted pairs -> trash slot
+        pair_k2 = _splice(self.pair_k, tgt_p, ins.ck, new_ins_p, P2)
+        pair_i2 = _splice(self.pair_i, tgt_p, ins.ci, new_ins_p, P2)
+        pair_j2 = _splice(self.pair_j, tgt_p, ins.cj, new_ins_p, P2)
+        pair_gm2 = _splice(pair_gm, tgt_p, ins.cgm, new_ins_p, P2)
+
+        lkey = self.__dict__.get("_delta_lkey")
+        if lkey is None:
+            lkey = ((self.left_k.astype(np.int64) * n + self.left_i) * n
+                    + self.left_j)
+            self.__dict__["_delta_lkey"] = lkey
+        ikey_l = (ins.lk.astype(np.int64) * n + ins.li) * n + ins.lj
+        dlp = _splice_points(
+            lkey, (dels.lk.astype(np.int64) * n + dels.li) * n + dels.lj,
+            "leftover", expect_present=True)
+        ilp = _splice_points(lkey, ikey_l, "leftover", expect_present=False)
+        new_old_l, new_ins_l, L2 = merge_maps(L, dlp, ilp)
+        tgt_l = new_old_l               # new_old_l unused beyond targeting
+        tgt_l[dlp] = L2                 # deleted leftovers -> trash slot
+        # (k, i, j)-sorted like the delivery stream: rebuild the k column
+        # as a run-length repeat instead of splicing it.
+        lptr = np.searchsorted(self.left_k, np.arange(K + 1))
+        left_k2 = np.repeat(
+            np.arange(K, dtype=self.left_k.dtype),
+            np.diff(lptr) + np.bincount(ins.lk, minlength=K)
+            - np.bincount(dels.lk, minlength=K))
+        left_i2 = _splice(self.left_i, tgt_l, ins.li, new_ins_l, L2)
+        left_j2 = _splice(self.left_j, tgt_l, ins.lj, new_ins_l, L2)
+
+        # Deleted elements read garbage renumbers here; their trash-marked
+        # targets discard the writes.
+        pos_covered2 = _splice(new_old_a[self.pos_covered], tgt_p,
+                               new_ins_a[ins.cpos_in_a], new_ins_p, P2)
+        pos_left2 = _splice(new_old_a[self.pos_left], tgt_l,
+                            new_ins_a[ins.lpos_in_a], new_ins_l, L2)
+
+        if changed:
+            (col_width, col_sender, col_gm, col_rank, slot_pair,
+             slot_shift, slot_mask, pair_col, pair_slot) = \
+                _schedule_from_pairs(pair_k2, pair_gm2, r)
+        else:
+            # Pair stream untouched: every column table is value-identical,
+            # share the arrays (col_sender keeps any earlier repair patch).
+            col_width, col_sender = self.col_width, self.col_sender
+            col_gm, col_rank = self.col_gm, self.col_rank
+            slot_pair, slot_shift = self.slot_pair, self.slot_shift
+            slot_mask = self.slot_mask
+            pair_col, pair_slot = self.pair_col, self.pair_slot
+        plan2 = ShufflePlan(
+            n=self.n, K=K, r=r,
+            pair_k=pair_k2, pair_i=pair_i2, pair_j=pair_j2,
+            col_width=col_width, col_sender=col_sender, col_gm=col_gm,
+            col_rank=col_rank, slot_pair=slot_pair, slot_shift=slot_shift,
+            slot_mask=slot_mask, pair_col=pair_col, pair_slot=pair_slot,
+            seg_shift=segment_words(r)[0],
+            left_k=left_k2, left_i=left_i2, left_j=left_j2,
+            all_k=all_k2, all_i=all_i2, all_j=all_j2,
+            pos_covered=pos_covered2, pos_left=pos_left2, ptr=ptr2)
+        # pair_gm2 exists anyway (schedule input), so carrying it is free;
+        # the pair/leftover key caches rebuild lazily on the next update.
+        plan2.__dict__["_delta_pair_gm"] = (alloc, pair_gm2)
+        return plan2, (tgt_p, new_ins_p, P2, tgt_l, new_ins_l, L2)
+
 
 def _run_ranks(*keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Per-element run id and rank-within-run of already-sorted key arrays."""
@@ -497,11 +838,20 @@ def _compile_edges(ii: np.ndarray, jj: np.ndarray, alloc: Allocation,
 
 
 def _compile_missing(ii: np.ndarray, jj: np.ndarray, kk: np.ndarray,
-                     alloc: Allocation, schedule: bool) -> ShufflePlan:
+                     alloc: Allocation, schedule: bool,
+                     survivors: int | None = None) -> ShufflePlan:
     """Build a plan from an explicit missing-triple stream (any order).
 
     Everything downstream is lexsorted, so the output arrays depend only on
-    the *set* of (receiver, i, j) triples.
+    the *set* of (receiver, i, j) triples - which is what lets
+    `ShufflePlan.repair` splice kept entries and recomputed orphan-row
+    entries together and still land bitwise on the fresh-compile schedule.
+
+    `survivors` (a bitmask of servers still holding their Map shards)
+    demotes every covered pair whose (r+1)-group retains fewer than two
+    healthy members to a unicast leftover: with < 2 healthy senders the
+    straggler hand-over rule has nobody to stand in, so those pairs are
+    unrecoverable as coded multicast (only reachable when |failed| >= r).
     """
     K, r, n = alloc.K, alloc.r, alloc.n
     if K > 64:
@@ -535,6 +885,9 @@ def _compile_missing(ii: np.ndarray, jj: np.ndarray, kk: np.ndarray,
                            dtype=np.uint64)
     covered = subset_size[bb] == r
     gm = subset_mask[bb] | (np.uint64(1) << kk.astype(np.uint64))
+    if survivors is not None:
+        healthy = np.bitwise_count(gm & np.uint64(survivors))
+        covered &= healthy >= 2
 
     # Leftovers: no (r+1)-group exists for these; unicast (phase-III spill).
     lsel = ~covered
@@ -616,6 +969,415 @@ def _compile_missing(ii: np.ndarray, jj: np.ndarray, kk: np.ndarray,
         left_k=left_k, left_i=left_i, left_j=left_j,
         all_k=all_k, all_i=all_i, all_j=all_j,
         pos_covered=inv[:P], pos_left=inv[P:], ptr=ptr)
+
+
+def _patch_senders(plan: ShufflePlan, alive_mask: np.uint64) -> int:
+    """Reassign dead senders' columns to healthy group members, in place.
+
+    Implements the `straggler_coded_load` hand-over rule at the column
+    level: the stand-in s' is the lowest healthy member of the column's
+    (r+1)-group; it re-encodes the same coded words (it Mapped every batch
+    in the column except its own receiver's), and the s'-destined segments
+    it cannot XOR are unicast by a third healthy member. Returns those
+    unicast overhead bits; the delivered words and the column widths (hence
+    `coded_bits`) are untouched. Columns only reach here with >= 2 healthy
+    members - `_compile_missing` demoted the rest to unicast leftovers.
+    """
+    if plan.col_sender.size == 0:
+        return 0
+    one = np.uint64(1)
+    dead = ((np.uint64(alive_mask) >> plan.col_sender.astype(np.uint64))
+            & one) == 0
+    if not dead.any():
+        return 0
+    healthy = plan.col_gm[dead] & np.uint64(alive_mask)
+    lsb = healthy & (np.uint64(0) - healthy)     # lowest healthy member
+    stand = np.bitwise_count(lsb - one).astype(np.int32)
+    # Overhead: the stand-in's own slot (if present) in each column it
+    # takes over must travel as unicast - it cannot XOR what it is owed.
+    slot_recv = np.append(plan.pair_k, np.int32(-1))[plan.slot_pair[dead]]
+    widths = np.bitwise_count(plan.slot_mask[dead])
+    bits = int(widths[slot_recv == stand[:, None]].sum())
+    plan.col_sender[dead] = stand
+    return bits
+
+
+# ---- incremental (EdgeDelta) plan maintenance ----
+
+@dataclasses.dataclass(frozen=True)
+class DeltaStats:
+    """Accounting of one `ShufflePlan.apply_delta` call.
+
+    `inserted_values` / `deleted_values` count directed deliveries added
+    to / removed from the missing set (0 on both = the delta touched only
+    locally-Mapped edges, so `schedule_changed` is False and the plan
+    arrays are value-identical to the input plan's). `demoted_pairs`
+    counts inserted covered pairs demoted to unicast because their group
+    kept < 2 healthy members (degraded allocations only). `handover_bits`
+    is the re-patched `_patch_senders` unicast total of the NEW plan (0
+    when the allocation is healthy or the schedule is untouched) - for a
+    degraded session it replaces `RepairStats.handover_bits`.
+    """
+
+    inserted_edges: int
+    deleted_edges: int
+    inserted_values: int
+    deleted_values: int
+    demoted_pairs: int
+    handover_bits: int
+    schedule_changed: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class _DeltaStream:
+    """One side (insert or delete) of a delta, as classified triples.
+
+    Missing triples of the delta's directed entries, pre-sorted into each
+    plan stream's own order: covered pairs by (group, receiver, i, j),
+    leftovers and the full stream by (receiver, i, j). `*pos_in_a` locate
+    the covered/leftover elements inside the full stream; `src_a`/`csrc`/
+    `lsrc` carry each element's directed-entry index (the
+    `csr_delta_entries` order) for the incremental edge-table rebind.
+    """
+
+    ck: np.ndarray; ci: np.ndarray; cj: np.ndarray; cgm: np.ndarray
+    lk: np.ndarray; li: np.ndarray; lj: np.ndarray
+    ak: np.ndarray; ai: np.ndarray; aj: np.ndarray
+    cpos_in_a: np.ndarray; lpos_in_a: np.ndarray
+    src_a: np.ndarray; csrc: np.ndarray; lsrc: np.ndarray
+    demoted: int
+
+
+def _delta_stream(pairs: np.ndarray, alloc: Allocation,
+                  survivors: int | None) -> _DeltaStream:
+    """Classify one delta side exactly as `_compile_missing` would."""
+    r = alloc.r
+    u, v = pairs[:, 0], pairs[:, 1]
+    di = np.concatenate([u, v])
+    dj = np.concatenate([v, u])
+    order = np.lexsort((dj, di))     # the csr_delta_entries directed order
+    di, dj = di[order], dj[order]
+    kk = alloc.reduce_owner[di].astype(np.int32)
+    miss = ~alloc.map_sets[kk, dj]
+    src = np.flatnonzero(miss).astype(np.int64)
+    mi = di[miss].astype(np.int32)
+    mj = dj[miss].astype(np.int32)
+    mk = kk[miss]
+    bb = alloc.batch_of[mj]
+    subset_size = np.array([len(s) for s in alloc.subsets], dtype=np.int64)
+    subset_mask = np.array([sum(1 << s for s in S) for S in alloc.subsets],
+                           dtype=np.uint64)
+    covered = subset_size[bb] == r
+    gm = subset_mask[bb] | (np.uint64(1) << mk.astype(np.uint64))
+    demoted = 0
+    if survivors is not None:
+        healthy = np.bitwise_count(gm & np.uint64(survivors))
+        natural = covered.copy()
+        covered &= healthy >= 2
+        demoted = int((natural & ~covered).sum())
+    # One lexsort gives the full (k, i, j) stream; the covered stream's
+    # (gm, k, i, j) order is a stable re-sort of its a-stream subset by
+    # group alone, and the leftover subset needs no re-sort at all.
+    aorder = np.lexsort((mj, mi, mk))
+    cov_a = covered[aorder]
+    cpos_in_a = np.flatnonzero(cov_a)
+    lpos_in_a = np.flatnonzero(~cov_a)
+    cpos_in_a = cpos_in_a[np.argsort(gm[aorder[cpos_in_a]], kind="stable")]
+    cidx = aorder[cpos_in_a]
+    lidx = aorder[lpos_in_a]
+    return _DeltaStream(
+        ck=mk[cidx], ci=mi[cidx], cj=mj[cidx], cgm=gm[cidx],
+        lk=mk[lidx], li=mi[lidx], lj=mj[lidx],
+        ak=mk[aorder], ai=mi[aorder], aj=mj[aorder],
+        cpos_in_a=cpos_in_a, lpos_in_a=lpos_in_a,
+        src_a=src[aorder], csrc=src[cidx], lsrc=src[lidx],
+        demoted=demoted)
+
+
+def _splice(old: np.ndarray, tgt: np.ndarray, ins_vals: np.ndarray,
+            new_ins: np.ndarray, size: int) -> np.ndarray:
+    """Merged array from `merge_maps` bookkeeping (dtype follows `old`).
+
+    `tgt` is `new_old` with every deleted position redirected to the trash
+    slot `size` - a single full-speed scatter then replaces the boolean
+    keep-mask compaction (two O(size) passes instead of four)."""
+    out = np.empty(size + 1, dtype=old.dtype)
+    out[tgt] = old
+    out[new_ins] = ins_vals
+    return out[:size]
+
+
+def _splice_points(sorted_key: np.ndarray, keys: np.ndarray, what: str,
+                   expect_present: bool) -> np.ndarray:
+    """Positions of `keys` in a globally-sorted unique key stream; raises
+    if a deletion is absent from (or an insertion already present in) the
+    stream - that can only mean the plan and the CSR disagree."""
+    pos = np.searchsorted(sorted_key, keys)
+    if sorted_key.size:
+        present = (pos < sorted_key.size) \
+            & (sorted_key[np.minimum(pos, sorted_key.size - 1)] == keys)
+    else:
+        present = np.zeros(keys.size, dtype=bool)
+    bad = ~present if expect_present else present
+    if bad.any():
+        raise RuntimeError(
+            f"delta {'removes' if expect_present else 'adds'} a {what} the "
+            f"plan {'does not schedule' if expect_present else 'already schedules'}"
+            f" - the plan was not compiled against this CSR")
+    return pos
+
+
+def _pair_splice_points(pair_gm: np.ndarray, pair_key: np.ndarray,
+                        gms: np.ndarray, keys: np.ndarray,
+                        expect_present: bool) -> np.ndarray:
+    """`_splice_points` for the covered-pair stream, which is sorted by
+    (group, receiver, i, j): narrow to each delta group's run (groups are
+    ascending) and binary-search the per-group (k, i, j)-sorted keys.
+    Triples are globally unique, so the presence check stays global."""
+    pos = np.empty(keys.size, dtype=np.int64)
+    if keys.size == 0:
+        return pos
+    starts = np.flatnonzero(np.r_[True, gms[1:] != gms[:-1]])
+    ends = np.append(starts[1:], gms.size)
+    for a, b in zip(starts, ends):
+        lo = np.searchsorted(pair_gm, gms[a], side="left")
+        hi = np.searchsorted(pair_gm, gms[a], side="right")
+        pos[a:b] = lo + np.searchsorted(pair_key[lo:hi], keys[a:b])
+    if pair_key.size:
+        present = (pos < pair_key.size) \
+            & (pair_key[np.minimum(pos, pair_key.size - 1)] == keys)
+    else:
+        present = np.zeros(keys.size, dtype=bool)
+    bad = ~present if expect_present else present
+    if bad.any():
+        raise RuntimeError(
+            f"delta {'removes' if expect_present else 'adds'} a covered "
+            f"pair the plan {'does not schedule' if expect_present else 'already schedules'}"
+            f" - the plan was not compiled against this CSR")
+    return pos
+
+
+def _schedule_from_pairs(pair_k: np.ndarray, pair_gm: np.ndarray, r: int):
+    """Column + slot tables of a (group, receiver, i, j)-sorted covered-pair
+    stream, in closed form - no entry lexsort.
+
+    Provably identical to the entry-stream section of `_compile_missing`
+    (the hot lexsorts of a fresh compile), which is what makes
+    `apply_delta` O(plan) instead of O(plan log plan):
+
+      * every (r+1)-group g contributes, per member s, exactly
+        ``R[g, s] = max(len of the other members' receiver runs)`` columns
+        (the rank-c column exists iff some run k != s reaches rank c), and
+        blocks ordered by (g asc, s asc, c asc) ARE the fresh
+        ``lexsort((rank, sender, group))`` column order;
+      * the slots of column (g, s, c) are the rank-c pairs of the group's
+        other receiver runs in ascending-k order, which is exactly the
+        fresh stable tie-break (entry index = pair-major);
+      * a column's width is the max segment length over its receivers,
+        i.e. ``max(seg_len[q-1] if c < max-run-below-s, seg_len[q] if
+        c < max-run-above-s)`` where q is s's position among the members.
+    """
+    P = pair_k.size
+    m = r + 1
+    seg_shift, seg_mask = segment_words(r)
+    seg_len = np.array([b - a for a, b in segment_bounds(r)], dtype=np.int64)
+    if P == 0:
+        z32 = np.zeros(0, np.int32)
+        return (np.zeros(0, np.int64), z32, np.zeros(0, np.uint64), z32,
+                np.zeros((0, r), np.int64), np.zeros((0, r), np.uint32),
+                np.zeros((0, r), np.uint32), np.zeros((0, r), np.int64),
+                np.zeros((0, r), np.int64))
+
+    # Runs of (group, receiver) and groups; the stream is already sorted.
+    newrun = np.empty(P, dtype=bool)
+    newrun[0] = True
+    newrun[1:] = (pair_gm[1:] != pair_gm[:-1]) | (pair_k[1:] != pair_k[:-1])
+    rstart = np.flatnonzero(newrun)
+    rlen = np.diff(np.append(rstart, P))
+    run_gm = pair_gm[rstart]
+    run_k = pair_k[rstart]
+    nrun = rstart.size
+    newg = np.empty(nrun, dtype=bool)
+    newg[0] = True
+    newg[1:] = run_gm[1:] != run_gm[:-1]
+    gid_run = np.cumsum(newg) - 1
+    gfirst = np.flatnonzero(newg)
+    gvals = run_gm[gfirst]
+    G = gvals.size
+
+    # Member decode: every group mask has exactly r+1 bits.
+    bits = ((gvals[:, None] >> np.arange(64, dtype=np.uint64)[None, :])
+            & np.uint64(1)).astype(bool)
+    mem = np.nonzero(bits)[1]
+    assert mem.size == G * m, "group mask without exactly r+1 members"
+    mem = mem.reshape(G, m).astype(np.int32)
+
+    # Per-(group, member) receiver-run lengths and the exclusive
+    # prefix/suffix maxima that bound each sender's column count.
+    qrun = (mem[gid_run] < run_k[:, None]).sum(axis=1)
+    Lmem = np.zeros((G, m), dtype=np.int64)
+    Lmem[gid_run, qrun] = rlen
+    Mlo = np.zeros((G, m), dtype=np.int64)
+    np.maximum.accumulate(Lmem[:, :-1], axis=1, out=Mlo[:, 1:])
+    Mhi = np.zeros((G, m), dtype=np.int64)
+    Mhi[:, :-1] = np.maximum.accumulate(Lmem[:, ::-1], axis=1)[:, -2::-1]
+    Rcols = np.maximum(Mlo, Mhi)
+    Rflat = Rcols.ravel()
+    colstart = np.zeros(G * m + 1, dtype=np.int64)
+    np.cumsum(Rflat, out=colstart[1:])
+    C = int(colstart[-1])
+
+    # Per-column arrays, block by block (g-major, sender asc, rank asc).
+    # A block's width profile is a two-step function of the column rank c
+    # (max(wlo, whi) while c is under both run maxima, then the surviving
+    # side alone), so the whole array is one repeat of 2 segments/block.
+    cs32 = colstart.astype(np.int32) if C < 2**31 else colstart
+    col_rank = (np.arange(C, dtype=cs32.dtype)
+                - np.repeat(cs32[:-1], Rflat)).astype(np.int32, copy=False)
+    col_sender = np.repeat(mem.ravel(), Rflat)
+    col_gm = np.repeat(gvals, Rcols.sum(axis=1))
+    q_blk = np.tile(np.arange(m), G)
+    w_lo = seg_len[np.maximum(q_blk - 1, 0)]
+    w_hi = seg_len[np.minimum(q_blk, r - 1)]
+    Mlo_f, Mhi_f = Mlo.ravel(), Mhi.ravel()
+    mn = np.minimum(Mlo_f, Mhi_f)
+    wvals = np.empty(2 * G * m, dtype=np.int64)
+    wvals[0::2] = np.maximum(w_lo, w_hi)
+    wvals[1::2] = np.where(Mlo_f > Mhi_f, w_lo, w_hi)
+    wlens = np.empty(2 * G * m, dtype=np.int64)
+    wlens[0::2] = mn
+    wlens[1::2] = Rflat - mn
+    col_width = np.repeat(wvals, wlens)
+
+    # Per-entry (pair, segment) columns and slots, all via per-run repeats
+    # (the stream is run-sorted, so every per-entry quantity is either an
+    # arithmetic ramp or a run-constant): segment t's sender is member
+    # t+(t>=q) where q is the receiver's member position, and
+    # cnt[p] = #{members k' < receiver(p) whose run outlasts rank(p)} is a
+    # per-run step function of the rank with breakpoints at the sorted
+    # earlier-run lengths.
+    Lmat = Lmem[gid_run]                                       # [nrun, m]
+    emask = np.arange(m)[None, :] < qrun[:, None]
+    SL = np.sort(np.where(emask, Lmat, np.iinfo(np.int64).max), axis=1)
+    bounds = np.minimum(SL, rlen[:, None])
+    cum = np.concatenate(
+        [np.zeros((nrun, 1), dtype=np.int64), bounds, rlen[:, None]], axis=1)
+    step_vals = (qrun[:, None] - np.arange(m + 1)[None, :]).astype(np.int32)
+
+    pair_colT = np.empty((r, P), dtype=np.int64)
+    pair_slotT = np.empty((r, P), dtype=np.int64)
+    slot_pair = np.full(C * r, P, dtype=np.int64)
+    slot_shift = np.zeros(C * r, dtype=np.uint32)
+    slot_mask = np.zeros(C * r, dtype=np.uint32)
+    sp2 = slot_pair.reshape(C, r)
+    ss2 = slot_shift.reshape(C, r)
+    sm2 = slot_mask.reshape(C, r)
+    arN = np.arange(nrun)
+    if nrun * (m + 2) * 16 < P:
+        # Few huge runs (small K): every per-entry quantity above is a ramp
+        # or a constant over the <= nrun*(m+1) (run, cnt-step) segments -
+        # the mask threshold is itself one of the `bounds` breakpoints - so
+        # the whole scatter loop collapses to strided slice writes with no
+        # index arrays (or index bandwidth) at all.
+        cumL = cum.tolist()
+        stepL = step_vals.tolist()
+        rstartL = rstart.tolist()
+        for t in range(r):
+            eq_run = t + (t >= qrun)
+            base_col = colstart[gid_run * m + eq_run]
+            thr = np.where(t < qrun, Lmat[arN, eq_run], 0)
+            baseL, thrL = base_col.tolist(), thr.tolist()
+            sh, mk = seg_shift[t], seg_mask[t]
+            colrow, slotrow = pair_colT[t], pair_slotT[t]
+            for u in range(nrun):
+                p0, c0, row = rstartL[u], baseL[u], cumL[u]
+                for s_i in range(m + 1):
+                    a, b = row[s_i], row[s_i + 1]
+                    if a >= b:
+                        continue
+                    slot = stepL[u][s_i] - (1 if a < thrL[u] else 0)
+                    sp2[c0 + a:c0 + b, slot] = np.arange(
+                        p0 + a, p0 + b, dtype=np.int64)
+                    ss2[c0 + a:c0 + b, slot] = sh
+                    sm2[c0 + a:c0 + b, slot] = mk
+                    colrow[p0 + a:p0 + b] = np.arange(
+                        c0 + a, c0 + b, dtype=np.int64)
+                    slotrow[p0 + a:p0 + b] = slot
+    else:
+        cnt = np.repeat(step_vals.ravel(), np.diff(cum, axis=1).ravel())
+        idt = np.int32 if C * r < 2**31 and P < 2**31 else np.int64
+        arP = np.arange(P, dtype=idt)
+        flat = np.empty(P, dtype=np.intp)
+        for t in range(r):
+            eq_run = t + (t >= qrun)
+            cs_run = (colstart[gid_run * m + eq_run] - rstart).astype(idt)
+            col_t = np.repeat(cs_run, rlen)
+            np.add(col_t, arP, out=col_t)              # colstart + rank
+            thr_run = (np.where(t < qrun, Lmat[arN, eq_run], 0)
+                       + rstart).astype(idt)
+            # rank < L_sender, sender before receiver <=> arP < threshold
+            slot_t = cnt - (arP < np.repeat(thr_run, rlen))
+            # one intp index buffer; fancy assignment would otherwise
+            # convert the int32 flat index once per scatter
+            np.multiply(col_t, idt(r), out=flat, casting="unsafe")
+            np.add(flat, slot_t, out=flat, casting="unsafe")
+            slot_pair[flat] = arP
+            slot_shift[flat] = seg_shift[t]
+            slot_mask[flat] = seg_mask[t]
+            pair_colT[t] = col_t
+            pair_slotT[t] = slot_t
+    return (col_width, col_sender.astype(np.int32, copy=False), col_gm,
+            col_rank, sp2, ss2, sm2, pair_colT.T, pair_slotT.T)
+
+
+def _delta_edge_tables(tables: PlanEdgeTables, csr: CSR, csr_new: CSR,
+                       delta, ins: _DeltaStream, scheduled: bool,
+                       tgt_p, new_ins_p, P2, tgt_l, new_ins_l, L2,
+                       tgt_a, new_old_a, new_ins_a, M2) -> PlanEdgeTables:
+    """Carry a plan's CSR binding through a delta in O(nnz + delta),
+    without re-running `_locate_edges` / the gather searchsorted: kept
+    entries and deliveries keep their identity and just renumber through
+    the entry/delivery merge maps; new entries self-gather when local and
+    point at their freshly-spliced delivery slot otherwise. `tgt_*` are
+    the trash-marked scatter targets of `_apply_delta` (see `_splice`);
+    deleted elements read garbage renumbers and write them to the trash
+    slot, so no boolean keep pass over nnz-sized arrays is needed."""
+    nnz, nnz2 = csr.nnz, csr_new.nnz
+    del_pos, ins_pos, ins_rows, ins_cols = csr_delta_entries(csr, delta)
+    new_old_e, new_ins_e, nnz2b = merge_maps(nnz, del_pos, ins_pos)
+    assert nnz2b == nnz2, "entry merge disagrees with the mutated CSR"
+
+    if scheduled:
+        pair_e2 = _splice(new_old_e[tables.pair_e], tgt_p,
+                          new_ins_e[ins.csrc], new_ins_p, P2)
+        left_e2 = _splice(new_old_e[tables.left_e], tgt_l,
+                          new_ins_e[ins.lsrc], new_ins_l, L2)
+    else:                       # missing-set-only plan: no pair/left streams
+        pair_e2 = left_e2 = np.zeros(0, dtype=np.int64)
+    all_e2 = _splice(new_old_e[tables.all_e], tgt_a,
+                     new_ins_e[ins.src_a], new_ins_a, M2)
+
+    # Renumber the full gather column branch-free: both the local-entry
+    # and the delivery-slot transforms are computed clamped, then selected.
+    # np.where evaluates both branches, so with no deliveries (M = 0, which
+    # also covers nnz = 0) the clamped delivery index would read past an
+    # empty array: every entry then reads its own Map value.
+    g = tables.gather
+    if new_old_a.size:
+        gfull = np.where(
+            g < nnz,
+            new_old_e[np.minimum(g, nnz - 1)],
+            nnz2 + new_old_a[np.maximum(g - nnz, 0)])
+    else:
+        gfull = new_old_e[g]
+    tgt_e = new_old_e.copy()
+    tgt_e[del_pos] = nnz2                    # deleted entries -> trash slot
+    gather2 = np.empty(nnz2 + 1, dtype=np.int64)
+    gather2[tgt_e] = gfull
+    gnew = new_ins_e.copy()                  # local entries self-gather
+    gnew[ins.src_a] = nnz2 + new_ins_a       # missing ones read deliveries
+    gather2[new_ins_e] = gnew
+    return PlanEdgeTables(pair_e2, left_e2, all_e2, gather2[:nnz2])
 
 
 # ---- hierarchical (topology-aware) two-level plans ----

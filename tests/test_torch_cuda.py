@@ -27,7 +27,10 @@ launch counts and launch errors raising, K2 with direct words (the
 two-level Shuffle's intra-rack deliveries) bitwise its plain version at
 r = 1, 2, 3, 5 and 33, a two-level session (`Topology(4, 2)` and
 `(2, 4)`) on backend="fused" bitwise backend="numpy" and the host plan,
-and the reduced mamba2-370m
+the plan kernels on a repaired plan (`fail`: dead receivers and senders,
+demoted pairs) and the packed K1 / K2 on a rebound session's tables
+(`update`, and with a sender's columns and a receiver's deliveries taken
+out), and the reduced mamba2-370m
 served on the card (the kernel prefill
 against the plain chunked prefill and the decode loop). Whether a card
 exists is decided inside the `cuda` fixture, never at import time.
@@ -444,6 +447,102 @@ def test_plan_kernels_on_session_tables(cuda, K, r):
         want = plan.execute_coded_sparse(bits.view(np.float32), tables).values
         np.testing.assert_array_equal(words.cpu().numpy().view(np.uint32),
                                       want.view(np.uint32).byteswap())
+
+
+@pytest.mark.parametrize("failed", [(1,), (0, 1)])
+def test_plan_kernels_on_a_repaired_plan(cuda, failed):
+    """`fail` on backend="numpy", mode coded: the repaired plan's tables
+    (dead receivers with no deliveries, dead senders with no columns; at
+    |failed| = r re-Mapped vertices and pairs demoted to full-word leftover
+    columns) through the plan kernels, bitwise their plain versions at
+    B = 1 and 4, the delivered words bitwise the NumPy executor's, the
+    state bitwise the healthy session's (sssp), one launch each per
+    iteration, the bits the plan's plus the hand-over."""
+    n = divisible_n(4000, 5, 2)
+    g = graphs.erdos_renyi(n, 8.0 / n, seed=5)
+    eng = engine.compile(algo.sssp(0), g, er_allocation(n, 5, 2), "coded",
+                         path="sparse", device=cuda)
+    healthy = eng.run(10)
+    deg = eng.fail(failed)
+    assert deg.recovery.handover_bits > 0
+    assert (deg.recovery.demoted_pairs > 0) == (len(failed) == 2)
+    assert (np.diff(deg.plan.ptr)[list(failed)] == 0).all()
+    dp = deg.dplan
+    for B in (1, 4):
+        state = torch.rand((g.n, B) if B > 1 else (g.n,), device=cuda)
+        ev = algo.pagerank().map_edge_values_t(deg._dg, state).contiguous()
+        src, ct = dp.coded_source(ev)
+        t = dict(ct._asdict(), src=src, book=dp.book)
+        rng = np.random.default_rng(B)
+        _, words = _hold_plan_kernels(t, torch.from_numpy(_u32_coded(
+            rng, ct.slot_e.shape[0], B)).to(cuda))
+        want = deg.plan.execute_coded_sparse(ev.cpu().numpy(),
+                                             deg.tables).values
+        np.testing.assert_array_equal(words.cpu().numpy().view(np.uint32),
+                                      want.view(np.uint32).byteswap())
+    _build.LAUNCHES.clear()
+    res = deg.run(10)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["xor_encode_plan"] == 10
+    assert _build.LAUNCHES["xor_decode_plan"] == 10
+    assert torch.equal(res.state, healthy.state)
+    assert res.shuffle_bits == 10 * (deg.plan.coded_bits
+                                     + deg.plan.leftover_bits
+                                     + deg.recovery.handover_bits)
+
+
+def test_packed_kernels_on_rebound_tables(cuda):
+    """`update` on backend="fused": the rebound exchange's packed tables
+    through K1 / K2 bitwise their plain versions (B = 1 and 4), the state
+    bitwise a fresh session's on the mutated graph (sssp), one launch each
+    per iteration; then a server's columns and a receiver's deliveries
+    taken out of those tables (a sender with no columns, a receiver with
+    none): K1 / K2 still bitwise their plain versions."""
+    from repro_torch.graphs import EdgeDelta
+
+    g, eng = _session(cuda)
+    rng = np.random.default_rng(3)
+    csr = g.csr
+    dels = sorted({(min(int(csr.rows[e]), int(csr.indices[e])),
+                    max(int(csr.rows[e]), int(csr.indices[e])))
+                   for e in rng.choice(csr.nnz, size=50, replace=False)})
+    have = set(zip(csr.rows.tolist(), csr.indices.tolist()))
+    ins = set()
+    while len(ins) < 50:
+        u, v = (int(x) for x in rng.integers(g.n, size=2))
+        if u != v and (u, v) not in have:
+            ins.add((min(u, v), max(u, v)))
+    eng2 = eng.with_program(algo.sssp(0)).update(
+        EdgeDelta.for_graph(g, insert=sorted(ins), delete=dels))
+    assert eng2.fused is not eng.fused
+    for B in (1, 4):
+        _hold_packed(cuda, eng2.g, eng2, B)
+    _build.LAUNCHES.clear()
+    res = eng2.run(10)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["xor_encode"] == _build.LAUNCHES["xor_decode"] == 10
+    fresh = engine.compile(algo.sssp(0), eng2.g, eng2.alloc, "coded",
+                           path="sparse", backend="fused", device=cuda)
+    assert torch.equal(res.state, fresh.run(10).state)
+    t, fx = dict(eng2.fused.tables), eng2.fused
+    t["enc_e"], t["enc_code"] = t["enc_e"].clone(), t["enc_code"].clone()
+    t["enc_e"][1] = fx.nnz                        # sender 1: no columns
+    t["enc_code"][1] = fx.sched.r + 1
+    ptr = fx.plan.ptr.copy()
+    counts = np.diff(ptr)
+    counts[2] = 0                                 # receiver 2: no deliveries
+    t["ptr"] = _i32(np.concatenate([[0], np.cumsum(counts)]), cuda)
+    ev = algo.pagerank().map_edge_values_t(
+        eng2._dg, torch.rand(eng2.g.n, device=cuda)).contiguous()
+    src = ev.view(torch.int32)
+    enc = (src, t["enc_e"], t["enc_code"], t["book"])
+    buf = xc.xor_encode_packed(*enc)
+    assert torch.equal(buf, xref.xor_encode_packed(*enc))
+    assert not buf[1].any()
+    dec = (src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
+           t["strip_code"], t["book"], t["ptr"])
+    words = xc.xor_decode_packed(*dec, total=int(counts.sum()))
+    assert torch.equal(words, xref.xor_decode_packed(*dec))
 
 
 def test_plan_kernels_on_leftovers_only(cuda):

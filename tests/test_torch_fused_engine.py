@@ -333,22 +333,6 @@ def test_no_fallback_without_cuda(monkeypatch):
                          backend="fused", device=device)
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda eng: eng.run(1, fault_schedule=object()), "Queue 1 #9"),
-    (lambda eng: eng.run(1, checkpoint=object()), "Queue 1 #9"),
-    (lambda eng: eng.fail((0,)), "Queue 1 #9"),
-    (lambda eng: eng.update(object()), "Queue 1 #9"),
-    (lambda eng: t_engine.restore("ckpt", eng.program, eng.g), "Queue 1 #9"),
-], ids=["fault_schedule", "checkpoint", "fail", "update", "restore"])
-def test_unported_options_name_their_roadmap_item(call, match):
-    g, alloc = _case("er")
-    tg, ta = _port(g, alloc)
-    eng = t_engine.compile(t_algo.pagerank(), tg, ta, path="sparse",
-                           backend="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        call(eng)
-
-
 def test_fused_backend_outside_mode_coded_raises_as_the_reference():
     g, alloc = _case("er")
     tg, ta = _port(g, alloc)
