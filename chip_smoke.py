@@ -95,7 +95,27 @@ non-zero before its last line:
      per iteration; `GraphService` with 64 sssp queries through
      max_batch = 4 and one crash, each column bitwise the standalone run's,
      queries/s, latency percentiles and mean batch;
-  8. topology: the two-level (racks x servers) coded Shuffle through
+  8. dist: the fused route with `group=` on a one-rank NCCL process group
+     (a FileStore under build/; NCCL takes one card per rank) on the
+     er-76k and scale sessions: one exchange's delivered words at B = 1
+     and 4, pagerank and sssp(0) for 10 iterations bitwise the virtual
+     route's on the same card with its bits, K1 / K2 / K3 launched on the
+     group route's run (counts reset just before it), both routes' steady
+     time and device busy, and the NCCL collectives' device time per
+     iteration; the group is destroyed at the end;
+  9. table2: karate and er-76k through the port's registry into a fresh
+     cache under build/ (the er-76k edge list synthesized, its sha256 the
+     reference's `ER76K_SHA256`, read back with the largest-CC step),
+     `run_table2` at K = 6, r = 1, 2, 3 with every record but its timings
+     equal to the reference's (`TABLE2_EXPECTED`), the markdown printed;
+     coded pagerank (rtol 1e-5) and sssp(0) (bitwise) for 10 iterations
+     against the host oracle on the registry-loaded er-76k (n = 79,979,
+     padded to 79,980 by `graphs.allocate`, K = 6, r = 2) on backend
+     "numpy" and "fused", exact bits, each route's kernels launched on its
+     run, steady time and device busy; then `examples/port_quickstart.py`
+     and `examples/port_coded_pagerank.py` on the card in parallel
+     subprocesses (300 s timeout each), which must exit 0;
+  10. topology: the two-level (racks x servers) coded Shuffle through
      `engine.compile(..., "coded", path="sparse", topology=Topology(R, S))`
      on backend="fused" (K1 over the R rack buffers, K2 with its direct
      words, "xor_decode_direct") and "numpy" (the plan kernels on the
@@ -113,7 +133,7 @@ non-zero before its last line:
      the flat fused route is the scale phase's, at K = 4), pagerank for 10
      iterations against the oracle: host compile and session build times,
      steady ms per iteration, device busy and idle share, peak memory;
-  9. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
+  11. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
      `ssd_state_scan` (bitwise) against their plain versions at the
      `tests/test_kernels.py` ssd shapes, K6 at ragged shapes in float32
      and bf16, both at the serve shape (G = 128 groups, 32 chunks of 64,
@@ -131,6 +151,12 @@ non-zero before its last line:
      32 new tokens, in the vocabulary). In float32, each layer's chunked
      block against 128 decode steps of it, and a 4-layer prefill of 128
      tokens against the decode loop, within 1e-3 of their max.
+
+Every device busy time and idle share comes from a complete profiler
+window (`profiled_window`): one whose records of the port's kernels differ
+from what the launch counters counted in it, kernel by kernel, is taken
+again, up to three times, and is then reported as not measured with
+`profile_incomplete` set.
 
 The kernel phase also holds K4 (float32 rtol 1e-4 / atol 1e-5, float16
 2e-3) and K5 (rtol 1e-5, atol 1e-6 for standard-normal values, bitwise
@@ -158,9 +184,14 @@ limit, and as its last line
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import hashlib
 import json
+import os
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -196,6 +227,44 @@ TOPO_EXPECTED = {
     (2, 4): (1, 136_994, 0, 4_383_808, 13_163_232, 6_598_736),
     (1, 8): (1, 0, 0, 0, 15_362_752, 0),
 }
+TABLE2_K, TABLE2_R = 6, (1, 2, 3)
+# The reference's Table II records (`repro.experiments.run_table2`) for
+# karate and er-76k at K = 6, r = 1, 2, 3, every field but the timings, in
+# this order: exact values (floats are the reference's, bit for bit).
+TABLE2_FIELDS = ("n", "n_padded", "edges", "density", "uncoded", "coded",
+                 "coded_leftover_unicast", "gain", "uncoded_er",
+                 "coded_er_asymptotic", "coded_er_finite", "lower_bound_er",
+                 "paper_shuffle_speedup", "paper_overall_speedup")
+TABLE2_EXPECTED = {
+    ("karate", 1): (34, 36, 78, 0.12037037037037036, 0.09567901234567901,
+                    0.09567901234567901, 0.0, 1.0, 0.10030864197530864,
+                    0.10030864197530864, 0.10030864197530864,
+                    0.10030864197530864, None, None),
+    ("karate", 2): (34, 60, 78, 0.043333333333333335, 0.029722222222222223,
+                    0.021805555555555557, 0.0, 1.3630573248407643,
+                    0.028888888888888895, 0.014444444444444447,
+                    0.03231272840479022, 0.014444444444444447, None, None),
+    ("karate", 3): (34, 60, 78, 0.043333333333333335, 0.021388888888888888,
+                    0.012725694444444444, 0.0, 1.6807639836289223,
+                    0.021666666666666667, 0.007222222222222223,
+                    0.020209906241079937, 0.007222222222222223, None, None),
+    ("er-76k", 1): (79979, 79980, 320324, 0.00010015131940024266,
+                    8.338481219454651e-05, 8.338481219454651e-05, 0.0, 1.0,
+                    8.345943283353555e-05, 8.345943283353555e-05,
+                    8.345943283353555e-05, 8.345943283353555e-05, None, None),
+    ("er-76k", 2): (79979, 79980, 320324, 0.00010015131940024266,
+                    6.677557111208285e-05, 3.358272676446181e-05, 0.0,
+                    1.9883903883214942, 6.676754626682845e-05,
+                    3.3383773133414225e-05, 3.4042594863626345e-05,
+                    3.3383773133414225e-05, None, None),
+    ("er-76k", 3): (79979, 79980, 320324, 0.00010015131940024266,
+                    5.0139754243387055e-05, 1.741636822840369e-05, 0.0,
+                    2.8788868945487756, 5.007565970012133e-05,
+                    1.669188656670711e-05, 1.7170755633022682e-05,
+                    1.669188656670711e-05, None, None),
+}
+# sha256 of the er-76k edge list the reference's registry synthesizes.
+ER76K_SHA256 = "27885762e4d17be74002eeccaaba4dea08234c772833e2f5ee21e5bcddfb520f"
 REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_encode_dense": "src/repro/kernels/xor_code/xor_code.py:26",
@@ -904,6 +973,102 @@ def slice_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
     return records, info, (g, alloc, plan, oracle["pagerank"])
 
 
+# The kernel each launch counter counts, as torch.profiler names it.
+SYMBOL_OF_COUNTER = {
+    "xor_encode": "xor_encode_packed_kernel",
+    "xor_encode_plan": "xor_encode_packed_kernel",
+    "xor_decode": "xor_decode_packed_kernel",
+    "xor_decode_plan": "xor_decode_packed_kernel",
+    "xor_decode_direct": "xor_decode_packed_kernel",
+    "xor_encode_gather": "xor_encode_gather_kernel",
+    "xor_encode_dense": "xor_encode_dense_kernel",
+    "segment_reduce": "csr_stream_kernel",
+    "spmv_csr": "csr_stream_kernel",
+    "spmv_dense": "spmv_dense_kernel",
+    "ssd_chunk": "ssd_chunk_kernel",
+    "ssd_state_scan": "ssd_state_scan_kernel",
+}
+KERNEL_SYMBOL = re.compile(
+    r"\b(" + "|".join(sorted(set(SYMBOL_OF_COUNTER.values()))) + r")\b")
+PROFILE_TRIES = 3
+
+
+def profiled_window(torch, fn) -> dict:
+    """torch.profiler's device records of one call of `fn` (ended by a
+    synchronize), and the host wall time around it.
+
+    Each window traces a warm-up call of `fn` first and discards it (the
+    profiler's schedule: warmup 1, active 1), since records of a window's
+    first kernels can be lost while tracing starts, and the warm-up keeps
+    the card's clocks up where idle time before the call would let them
+    fall. The window must then hold exactly one record of each launch of
+    the port's kernels that the launch counters (`_build.LAUNCHES`)
+    counted during the active call, kernel by kernel; one that lost (or
+    doubled) a record is taken again, up to PROFILE_TRIES windows in all.
+    Returns {"kernels": [...] or None, "annotations", "wall_s", "tries",
+    "profile_incomplete"}: the device's kernel and copy records, with the
+    ranges marked on the device's timeline (the profiler's step, and
+    torch.distributed's collectives) apart in "annotations", since they
+    overlap the work they cover; kernels None (and the flag True) when no
+    window was complete, so that no partial busy time is reported.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import _build
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        events = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda prof: events.extend(prof.events())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = collections.Counter(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = collections.Counter(_build.LAUNCHES)
+            prof.step()
+        launched.subtract(before)
+        want = collections.Counter()
+        for name, count in launched.items():
+            want[SYMBOL_OF_COUNTER[name]] += count
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        marks = [e for e in device if getattr(e, "is_user_annotation", False)
+                 or e.name.startswith("ProfilerStep")]
+        kernels = sorted((e for e in device if e not in marks),
+                         key=lambda e: e.time_range.start)
+        ours = collections.Counter(m.group(0) for m in map(
+            KERNEL_SYMBOL.search, (e.name for e in kernels)) if m)
+        if kernels and ours == want:
+            return {"kernels": kernels, "annotations": marks, "wall_s": wall,
+                    "tries": tries, "profile_incomplete": False}
+        log(f"profile window {tries}: records of the port's kernels "
+            f"{dict(ours)} for launches {dict(+want)}, {len(kernels)} kernel "
+            f"records in all, the first {[e.name[:40] for e in kernels[:4]]}")
+    return {"kernels": None, "annotations": None, "wall_s": wall,
+            "tries": PROFILE_TRIES, "profile_incomplete": True}
+
+
+def busy_and_idle(kernels) -> tuple[float, float | None]:
+    """Device busy seconds of a window's kernel records, and the idle share
+    over the span from the first kernel's start to the last one's end."""
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / 1e6
+    return busy, (1.0 - busy / span if span > 0 else None)
+
+
+def busy_ms(m: dict) -> str:
+    """A profile's busy ms per iteration for a log line."""
+    b = m.get("device_busy_s_per_iter")
+    return "not measured (profile incomplete)" if b is None else f"{b * 1e3:.4f}"
+
+
 def iteration_profile(torch, eng, iters: int = 10) -> dict:
     """Where an iteration's time goes, from a state already on the card.
 
@@ -912,14 +1077,15 @@ def iteration_profile(torch, eng, iters: int = 10) -> dict:
     median of 5 such runs; host_enqueue_s_per_iter: the same clock read
     before the synchronize, the host's own time to issue the work.
     device_busy_s_per_iter / device_idle_share: from torch.profiler's
-    kernel records over the same call, idle = 1 - busy / (last kernel end
-    - first kernel start); None when the profiler records no kernels.
+    kernel records over the same call (`profiled_window`: a window whose
+    records of the port's kernels are not the counted launches is taken
+    again, and after
+    PROFILE_TRIES incomplete windows both are None with
+    profile_incomplete True), idle = 1 - busy / (last kernel end - first
+    kernel start); profile_tries counts the windows taken.
     phase_s_per_iter: the tracer's synchronised spans (each phase ends
     with a synchronize, so these add up to more than the steady time).
     """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.obs import Tracer, set_tracer
 
     state = torch.as_tensor(eng.program.init(eng.g), device=eng.device)
@@ -935,16 +1101,13 @@ def iteration_profile(torch, eng, iters: int = 10) -> dict:
     out = {"steady_s_per_iter": statistics.median(steady),
            "host_enqueue_s_per_iter": statistics.median(enqueue)}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.run(iters, state=state)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    span = ((max(e.time_range.end for e in kernels)
-             - min(e.time_range.start for e in kernels)) / 1e6
-            if kernels else 0.0)
-    out["device_busy_s_per_iter"] = busy / iters if kernels else None
-    out["device_idle_share"] = 1.0 - busy / span if span > 0 else None
+    win = profiled_window(torch, lambda: eng.run(iters, state=state))
+    out["profile_tries"] = win["tries"]
+    out["profile_incomplete"] = win["profile_incomplete"]
+    out["device_busy_s_per_iter"] = out["device_idle_share"] = None
+    if win["kernels"] is not None:
+        busy, out["device_idle_share"] = busy_and_idle(win["kernels"])
+        out["device_busy_s_per_iter"] = busy / iters
 
     tracer = Tracer(enabled=True)
     prev = set_tracer(tracer)
@@ -964,27 +1127,22 @@ def call_profile(torch, fn, top: int = 6) -> dict:
     """Where one call's time goes: host wall time around it (ended by a
     synchronize), the device's busy time and idle share over the span of
     its kernels, the number of kernels, and the `top` kernels by device
-    time, from torch.profiler's kernel records."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    span = ((max(e.time_range.end for e in kernels)
-             - min(e.time_range.start for e in kernels)) / 1e3 if kernels else 0.0)
+    time, from a complete `profiled_window` (busy, idle and kernels None,
+    profile_incomplete True, when none was)."""
+    win = profiled_window(torch, fn)
+    out = {"wall_ms": win["wall_s"] * 1e3, "profile_tries": win["tries"],
+           "profile_incomplete": win["profile_incomplete"],
+           "device_busy_ms": None, "device_idle_share": None, "kernels": None,
+           "top_ms": None}
+    if win["kernels"] is None:
+        return out
+    busy, out["device_idle_share"] = busy_and_idle(win["kernels"])
     by_name: dict = {}
-    for e in kernels:
+    for e in win["kernels"]:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / span if span > 0 else None,
-            "kernels": len(kernels),
-            "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+    out.update(device_busy_ms=busy * 1e3, kernels=len(win["kernels"]),
+               top_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
@@ -1534,7 +1692,7 @@ def modes_scale(torch, dev, scale: tuple, fused: dict) -> tuple[dict, dict]:
         m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
         log(f"modes phase, scale, numpy {mode}: steady "
             f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
-            f"{(m['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, spans "
+            f"{busy_ms(m)} ms/iter, spans "
             f"{json.dumps({k: v * 1e3 for k, v in m['phase_s_per_iter'].items()})}"
             f" ms, peak {m['peak_mem_bytes']} B, session {m['session_s']:.4f} s,"
             f" first iteration {m['first_iter_s']:.4f} s | {smi}")
@@ -1555,7 +1713,7 @@ def modes_scale(torch, dev, scale: tuple, fused: dict) -> tuple[dict, dict]:
         del eng
     log(f"modes phase, scale, fused: steady "
         f"{fused['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
-        f"{(fused['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, peak "
+        f"{busy_ms(fused)} ms/iter, peak "
         f"{fused['peak_mem_bytes']} B | {smi}")
     return recs, info
 
@@ -2088,8 +2246,8 @@ def elastic_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
             f"{f['first_iter_s'] * 1e3:.3f} ms, steady "
             f"{f['steady_s_per_iter'] * 1e3:.4f} ms/iter (healthy "
             f"{info['healthy']['steady_s_per_iter'] * 1e3:.4f}), device busy "
-            f"{(f['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter (healthy "
-            f"{(info['healthy']['device_busy_s_per_iter'] or 0) * 1e3:.4f}), "
+            f"{busy_ms(f)} ms/iter (healthy "
+            f"{busy_ms(info['healthy'])}), "
             f"demoted {f['demoted_pairs']}, handover {f['handover_bits']} "
             f"bits | {smi}")
         log("elastic phase, plan kernels on the repaired tables: "
@@ -2112,6 +2270,272 @@ def elastic_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
         f"{s['p50_s'] * 1e3:.2f} ms, p95 {s['p95_s'] * 1e3:.2f} ms, p99 "
         f"{s['p99_s'] * 1e3:.2f} ms, mean batch {s['mean_batch']:.2f} | {smi}")
     info["records"] = records
+    return info
+
+
+# ---------------------------------------------------------------------------
+# dist phase: the fused exchange on a torch.distributed group (NCCL, world 1)
+# ---------------------------------------------------------------------------
+
+
+FUSED_KERNELS = ("xor_encode", "xor_decode", "segment_reduce")
+
+
+def pagerank_and_sssp() -> dict:
+    from repro_torch.core import algorithms as algo
+
+    return {"pagerank": algo.pagerank(), "sssp": algo.sssp(0)}
+
+
+def need_launches(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} never launched on {path}")
+
+
+def dist_cell(torch, dev, what: str, cell: tuple, group) -> dict:
+    """The fused exchange on `group` against the virtual route on one
+    session (graph, allocation, plan, oracle pagerank): one exchange's
+    delivered words at B = 1 and 4 and pagerank / sssp for 10 iterations
+    bitwise, exact bits, K1 / K2 / K3 launched on the group route's run
+    (counts reset just before it), steady time, device busy and the NCCL
+    collectives' device time per iteration (their `nccl:` ranges on the
+    device's timeline; one rank's all-gather is a device-to-device
+    copy)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import _build
+
+    g, alloc, plan, want = cell
+    progs = pagerank_and_sssp()
+    info = {}
+    sessions = {}
+    for route, opts in (("virtual", {}), ("group", {"group": group})):
+        t0 = time.perf_counter()
+        sessions[route] = engine.compile(progs["pagerank"], g, alloc, plan=plan,
+                                         path="sparse", backend="fused",
+                                         device=dev, **opts)
+        info[f"{route}_session_s"] = time.perf_counter() - t0
+    virt, grp = sessions["virtual"], sessions["group"]
+    pr = progs["pagerank"]
+    state4 = torch.from_numpy(np.random.default_rng(4).random(
+        (g.n, 4), dtype=np.float32)).to(dev)
+    for st in (torch.as_tensor(pr.init(g), device=dev), state4):
+        ev = pr.map_edge_values_t(virt._dg, st).contiguous()
+        if not torch.equal(grp.fused.exchange(ev), virt.fused.exchange(ev)):
+            raise AssertionError(f"dist {what}: the group's delivered words "
+                                 "differ from the virtual route's")
+    _build.LAUNCHES.clear()
+    runs = {name: grp.with_program(p).run(10) for name, p in progs.items()}
+    torch.cuda.synchronize()
+    info["launches"] = launches = dict(_build.LAUNCHES)
+    need_launches(launches, FUSED_KERNELS, f"the dist {what} path")
+    for name, p in progs.items():
+        ref = virt.with_program(p).run(10)
+        if not torch.equal(runs[name].state.view(torch.int32),
+                           ref.state.view(torch.int32)):
+            raise AssertionError(f"dist {what} {name}: not bitwise the "
+                                 "virtual route's state")
+        if runs[name].shuffle_bits != ref.shuffle_bits:
+            raise AssertionError(f"dist {what} {name}: bits differ")
+    info["pagerank_max_rel_err"] = check_pagerank(
+        runs["pagerank"].state.cpu().numpy(), want, f"dist {what}")
+    for route, eng in sessions.items():
+        info[route] = iteration_profile(torch, eng)
+    state = torch.as_tensor(pr.init(g), device=dev)
+    win = profiled_window(torch, lambda: grp.run(10, state=state))
+    info["nccl_s_per_iter"] = None
+    info["nccl_profile_incomplete"] = win["profile_incomplete"]
+    if win["kernels"] is not None:
+        by_name: dict = {}
+        for e in win["kernels"]:
+            by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                    + e.time_range.elapsed_us() / 1e3 / 10)
+        info["group_ms_per_iter_by_kernel"] = sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]
+        nccl = [e for e in win["annotations"] if e.name.startswith("nccl:")]
+        info["nccl_ranges"] = sorted({e.name for e in nccl})
+        info["nccl_s_per_iter"] = sum(e.time_range.elapsed_us()
+                                      for e in nccl) / 1e6 / 10
+    return info
+
+
+def dist_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
+    """The fused route with `group=` on a one-rank NCCL group (a FileStore
+    under build/, so no port is opened) against the virtual route, on the
+    er-76k session (K = 4, r = 2) and at scale. NCCL needs one card per
+    rank, so one card runs one rank of all K servers; the group is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    store = ROOT / "build" / "dist-store"
+    store.unlink(missing_ok=True)
+    store.parent.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        info = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        for what, cell in (("er-76k", er), ("scale", scale)):
+            c = info[what] = dist_cell(torch, dev, what, cell, dist.group.WORLD)
+            nccl = c["nccl_s_per_iter"]
+            log(f"dist phase, {what}: NCCL world 1 bitwise the virtual route;"
+                f" steady {c['group']['steady_s_per_iter'] * 1e3:.4f} ms/iter "
+                f"(virtual {c['virtual']['steady_s_per_iter'] * 1e3:.4f}), "
+                f"device busy {busy_ms(c['group'])} ms/iter (virtual "
+                f"{busy_ms(c['virtual'])}), NCCL collectives "
+                f"{'not measured' if nccl is None else f'{nccl * 1e3:.4f}'} "
+                f"ms/iter {c.get('nccl_ranges')}, launches {c['launches']} | "
+                f"{smi}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    log(f"dist phase ok: {json.dumps(info)}")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# table2 phase: the paper's Table II through the registry, then the examples
+# ---------------------------------------------------------------------------
+
+
+EXAMPLES = ("port_quickstart.py", "port_coded_pagerank.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def table2_records(cache: pathlib.Path) -> dict:
+    """`run_table2` on karate and er-76k (synthesized into `cache`, written
+    as an edge list, read back with its largest-CC step), every record but
+    its timings held against TABLE2_EXPECTED, the cached file against the
+    reference's sha256."""
+    from repro_torch.experiments import run_table2, to_markdown
+
+    t0 = time.perf_counter()
+    result = run_table2(("karate", "er-76k"), K=TABLE2_K, r_grid=TABLE2_R,
+                        cache_dir=cache, download=False)
+    info = {"run_table2_s": time.perf_counter() - t0,
+            "times": [{k: row[k] for k in ("dataset", "r", "load_s", "compile_s")}
+                      for row in result["rows"]]}
+    digest = hashlib.sha256((cache / "er-76k.edges").read_bytes()).hexdigest()
+    if digest != ER76K_SHA256:
+        raise AssertionError(f"er-76k cache file sha256 {digest} is not the "
+                             "reference's")
+    if len(result["rows"]) != len(TABLE2_EXPECTED):
+        raise AssertionError("table2: wrong number of records")
+    for row in result["rows"]:
+        got = tuple(row[k] for k in TABLE2_FIELDS)
+        want = TABLE2_EXPECTED[(row["dataset"], row["r"])]
+        if got != want:
+            raise AssertionError(f"table2 {row['dataset']} r = {row['r']}: "
+                                 f"{got} is not the reference's {want}")
+    log("table2 phase, the port's Table II, equal to the reference's:\n"
+        + to_markdown(result))
+    return info
+
+
+def table2_engine(torch, dev, cache: pathlib.Path, smi: str) -> dict:
+    """Coded pagerank and sssp for 10 iterations on the registry-loaded
+    er-76k at K = 6, r = 2 (padded by `graphs.allocate`) on backend
+    "numpy" and on "fused" (path "sparse"): pagerank within rtol 1e-5 of
+    the host oracle, sssp bitwise, exact bits, each route's kernels
+    launched (counts reset just before its run), then held against their
+    plain versions at these shapes on pagerank's Map output at B = 1 and a
+    seeded B = 4 one (`hold_session` on fused, `hold_plan_kernels` on
+    numpy), steady time and busy."""
+    from repro_torch import graphs
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+    from repro_torch.experiments import registry
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    g = registry.load("er-76k", cache_dir=cache)
+    gp, alloc = graphs.allocate(g, TABLE2_K, 2)
+    info = {"load_s": time.perf_counter() - t0, "n": g.n, "n_padded": gp.n,
+            "nnz": gp.csr.nnz}
+    t0 = time.perf_counter()
+    plan = compile_plan_csr(gp.csr, alloc)
+    info["compile_s"] = time.perf_counter() - t0
+    progs = pagerank_and_sssp()
+    oracle = {name: algo.reference_run(p, gp, 10) for name, p in progs.items()}
+    bits = (plan.coded_bits + plan.leftover_bits) * 10
+    state4 = torch.from_numpy(np.random.default_rng(4).random(
+        (gp.n, 4), dtype=np.float32)).to(dev)
+    for backend, path, kernels in (("numpy", "auto",
+                                    PLAN_KERNELS + ("segment_reduce",)),
+                                   ("fused", "sparse", FUSED_KERNELS)):
+        t0 = time.perf_counter()
+        eng = engine.compile(progs["pagerank"], gp, alloc, "coded", path=path,
+                             backend=backend, plan=plan, device=dev)
+        m = info[backend] = {"session_s": time.perf_counter() - t0}
+        _build.LAUNCHES.clear()
+        runs = {name: eng.with_program(p).run(10) for name, p in progs.items()}
+        torch.cuda.synchronize()
+        m["launches"] = dict(_build.LAUNCHES)
+        what = f"the table2 er-76k {backend} path"
+        need_launches(m["launches"], kernels, what)
+        m["pagerank_max_rel_err"] = check_pagerank(
+            runs["pagerank"].state.cpu().numpy(), oracle["pagerank"], what)
+        got = runs["sssp"].state.cpu().numpy()
+        if not np.array_equal(got.view(np.uint32), oracle["sssp"].view(np.uint32)):
+            raise AssertionError(f"sssp on {what}: not bitwise the oracle")
+        for name, res in runs.items():
+            if res.shuffle_bits != bits:
+                raise AssertionError(f"{name} on {what}: bits are not exact")
+        pr = progs["pagerank"]
+        for B, st in ((1, torch.as_tensor(pr.init(gp), device=dev)),
+                      (4, state4)):
+            ev = pr.map_edge_values_t(eng._dg, st).contiguous()
+            at = f"{what}, B = {B}"
+            if backend == "fused":
+                err = hold_session(torch, eng, ev, at,
+                                   general_tables(torch, eng))["err"]
+            else:
+                err = dict(zip(PLAN_KERNELS,
+                               hold_plan_kernels(torch, eng.dplan, ev, at)[-1]))
+            m[f"max_abs_err_b{B}"] = err
+        m.update(iteration_profile(torch, eng))
+        log(f"table2 phase, registry er-76k (n = {g.n}, padded {gp.n}, K = "
+            f"{TABLE2_K}, r = 2), {backend}: steady "
+            f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
+            f"{busy_ms(m)} ms/iter, idle {m['device_idle_share']}, launches "
+            f"{m['launches']} | {smi}")
+        del eng, runs
+    return info
+
+
+def run_examples() -> dict:
+    """Both port examples on the card, in parallel subprocesses with a
+    timeout; each must exit 0 (each holds its own states). Every process
+    started here is ended before this returns."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            log(f"--- examples/{name} (exit {proc.returncode})\n{text.strip()}")
+            if proc.returncode != 0:
+                raise AssertionError(f"examples/{name} exited {proc.returncode}")
+            out[name] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"examples_s": out}
+
+
+def table2_phase(torch, dev, smi: str) -> dict:
+    cache = ROOT / "build" / "table2-cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    info = table2_records(cache)
+    info["engine"] = table2_engine(torch, dev, cache, smi)
+    info.update(run_examples())
+    log(f"table2 phase ok: {json.dumps(info)}")
     return info
 
 
@@ -2357,7 +2781,7 @@ def topology_scale(torch, dev, smi: str) -> tuple[dict, dict]:
             del ev
         log(f"topology phase, scale, {key} {backend}: steady "
             f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
-            f"{(m['device_busy_s_per_iter'] or 0) * 1e3:.4f} ms/iter, "
+            f"{busy_ms(m)} ms/iter, "
             f"idle {m['device_idle_share']}, peak {m['peak_mem_bytes']} B,"
             f" session {m['session_s']:.4f} s | {smi}")
         del eng, res
@@ -2819,7 +3243,9 @@ def main() -> int:
         "modes", modes_phase, torch, dev, er, scale, result["scale"])
     result["elastic"] = timed("elastic", elastic_phase, torch, dev, er, scale,
                               smi)
+    result["dist"] = timed("dist", dist_phase, torch, dev, er, scale, smi)
     del er, scale
+    result["table2"] = timed("table2", table2_phase, torch, dev, smi)
     k2d_er, k2d_scale, result["topology"] = timed("topology", topology_phase,
                                                   torch, dev, smi)
     k4, result["dense"] = timed("dense", dense_phase, torch, dev)

@@ -31,6 +31,11 @@ backend="fused" (mode "coded", sparse): the session partitions the plan per
 virtual server and uploads packed tables (`FusedSparseShuffle`); every
 iteration encodes every server's coded buffer with K1's packed form,
 decodes every receiver's deliveries with K2, and Reduces with K3 as above.
+Its option `group` (a `torch.distributed` process group whose size P
+divides K, the counterpart of the reference's `mesh`) runs the flat
+exchange across P processes, each encoding and decoding its own K / P
+servers and gathering the rest (`launch/dist.py`); the Map and the Reduce
+run on every rank, whose states are bitwise one another's.
 
 topology=Topology(R, S) (mode "coded", sparse path, backend "numpy" or
 "fused"): the two-level coded Shuffle of a `HierarchicalPlan`, coded
@@ -115,7 +120,7 @@ PLAN_MODES = ("uncoded", "coded", "coded-fast")
 MODES = ("single",) + PLAN_MODES + ("coded-ref",)
 # Per-backend accepted options (inline or `backend_opts=`), validated up
 # front as the reference does.
-_BACKEND_OPTS = {"numpy": frozenset(), "fused": frozenset(),
+_BACKEND_OPTS = {"numpy": frozenset(), "fused": frozenset({"group"}),
                  "spmv": frozenset({"bm"})}
 
 
@@ -311,7 +316,8 @@ class CompiledEngine:
             return
         if backend == "fused":
             self.fused = fused or FusedSparseShuffle(
-                self.hplan or plan, g.csr, alloc, device=self.device)
+                self.hplan or plan, g.csr, alloc, device=self.device,
+                group=opts.get("group"))
         elif self.hplan is not None:
             self.dplan = HierarchicalDevicePlan(
                 self.hplan, self.device, self.hplan.edge_tables(g.csr, alloc))

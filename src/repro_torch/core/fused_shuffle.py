@@ -40,6 +40,22 @@ encodes the R rack buffers [R, Wx + 1(, B)], and K2 decodes every
 server's deliveries from them, ORing in the intra-rack words through its
 `direct_e` table.
 
+With `group=` (a `torch.distributed` process group of P ranks, P dividing
+K; `launch/dist.py`) the flat exchange runs across processes, the
+counterpart of the reference's one all_gather on its servers mesh. Every
+rank Maps and Reduces the whole graph (replicated, as the reference's
+single controller does); rank p owns the servers ``[p K / P, (p + 1) K /
+P)`` and holds only their rows of the packed tables. Each iteration it
+encodes its servers' buffers with K1, gathers all K buffers [K, W + 1(,
+B)] with one `all_gather_into_tensor` (span `phase.exchange`; the zero
+column W travels with them, so the decode reads the gathered tensor as
+it is), decodes its own receivers' deliveries with K2, and gathers every
+rank's delivered words, padded to the largest rank's count and trimmed
+back, so that every rank holds the [M(, B)] words in the plan's (k, i, j)
+order (span `phase.gather`; like the reference's gather of its
+out_specs, not Shuffle bits). A two-level topology has no multi-process
+route yet.
+
 Nothing returns to the host between Map and Reduce. Delivered words are
 bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
 axis B rides the same tables (column b is bitwise the unbatched exchange
@@ -56,6 +72,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.xor_code.xor_code import xor_decode_packed, xor_encode_packed
+from ..launch.dist import server_shard
 from ..launch.mesh import Topology
 from ..obs import get_registry, get_tracer
 from .allocation import Allocation
@@ -596,6 +613,17 @@ def _count_rack_bits(inter: int, intra: int) -> None:
                 "coded-Shuffle bits moving inside racks").inc(intra)
 
 
+def _all_gather(part: torch.Tensor, shard) -> torch.Tensor:
+    """Every rank's equal-shaped `part`, concatenated in rank order along
+    dim 0, by one `all_gather_into_tensor` on the shard's group."""
+    import torch.distributed as dist
+
+    part = part.contiguous()
+    out = part.new_empty((shard.world * part.shape[0],) + tuple(part.shape[1:]))
+    dist.all_gather_into_tensor(out, part, group=shard.group)
+    return out
+
+
 def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload an index/word table as int32 (uint32 bits kept as-is)."""
     a = np.ascontiguousarray(a)
@@ -628,24 +656,47 @@ class FusedSparseShuffle:
     (`pack_hierarchical`); its bits are `inter_rack_bits +
     intra_rack_bits`, split on the exchange span and in the metrics
     registry. `Topology.flat(K)` is the flat session, with the same tables.
+
+    `group` (a `torch.distributed` process group whose size divides K)
+    runs the flat exchange across its ranks, each encoding and decoding
+    its own servers' rows (see the module docstring); every rank returns
+    the same words. A two-level plan with a group raises
+    `NotImplementedError`.
     """
 
     def __init__(self, plan: ShufflePlan | HierarchicalPlan, csr: CSR,
                  alloc: Allocation, *, topology: Topology | None = None,
-                 device: str | torch.device | None = "cuda"):
+                 device: str | torch.device | None = "cuda", group=None):
         self.device = resolve_device(device)
         self.nnz = csr.nnz
+        self.group = group
         self._bind(plan, csr, alloc, topology)
         self._upload()
 
     def _upload(self) -> None:
-        """Upload the packed tables of the bound plan to the device."""
+        """Upload the packed tables of the bound plan to the device: this
+        rank's servers' rows of them when the exchange runs on a group."""
         self.M = int(self.plan.all_k.size)
-        p, dev = self.packed, self.device
-        self.tables = {name: _upload(getattr(p, name), dev) for name in (
+        p, dev, ptr = self.packed, self.device, self.plan.ptr
+        rows = slice(None)
+        if self.shard is not None:
+            sh = self.shard
+            lo, hi = sh.servers.start, sh.servers.stop
+            rows = slice(lo, hi)
+            ptr = ptr[lo:hi + 1] - ptr[lo]
+            counts = np.diff(self.plan.ptr[::sh.per_rank])    # [P] per rank
+            self.M_local, self.M_pad = int(ptr[-1]), int(counts.max(initial=0))
+            # Rank q's words sit at [q M_pad, q M_pad + counts[q]) of the
+            # gathered tensor; None when no rank pads.
+            keep = (np.arange(self.M_pad)[None, :] < counts[:, None]).ravel()
+            self._trim = (None if keep.all() else
+                          torch.from_numpy(np.flatnonzero(keep)).to(dev))
+        self.tables = {name: _upload(
+            np.ascontiguousarray(getattr(p, name)[rows]), dev) for name in (
             "enc_e", "enc_code", "dec_pos", "dec_code", "strip_e",
-            "strip_code", "book")}
-        self.tables["ptr"] = _i32(self.plan.ptr, dev)
+            "strip_code")}
+        self.tables["book"] = _upload(p.book, dev)
+        self.tables["ptr"] = _i32(ptr, dev)
         if p.direct_e is not None:
             self.tables["direct_e"] = _upload(p.direct_e, dev)
 
@@ -664,7 +715,7 @@ class FusedSparseShuffle:
         """
         with get_tracer().span("fused.rebind", nnz=csr.nnz):
             ex = object.__new__(FusedSparseShuffle)
-            ex.device, ex.nnz = self.device, csr.nnz
+            ex.device, ex.nnz, ex.group = self.device, csr.nnz, self.group
             ex._bind(plan, csr, alloc, self.topology)
             if (ex.hplan is None) != (self.hplan is None):
                 raise ValueError("rebind cannot switch between the flat and "
@@ -691,6 +742,13 @@ class FusedSparseShuffle:
                 "a non-flat Topology needs a HierarchicalPlan "
                 "(core.shuffle_plan.compile_hierarchical), got a flat "
                 "ShufflePlan")
+        self.shard = None
+        if self.group is not None:
+            if isinstance(plan, HierarchicalPlan):
+                raise NotImplementedError(
+                    "the two-level exchange has no multi-process route "
+                    "(group=) yet: ROADMAP Queue 1 #7b")
+            self.shard = server_shard(self.group, plan.K, self.device)
         self.topology = topology
         if isinstance(plan, HierarchicalPlan):
             self.hplan, self.plan = plan, plan.flat
@@ -726,6 +784,7 @@ class FusedSparseShuffle:
     def _exchange_bits(self, src: torch.Tensor, swap: bool) -> torch.Tensor:
         t, tr = self.tables, get_tracer()
         B = 1 if src.dim() == 1 else int(src.shape[1])
+        sh = self.shard
         with tr.span("phase.encode", backend="fused", B=B, nnz=self.nnz):
             buf = xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"],
                                     swap=swap)
@@ -735,7 +794,11 @@ class FusedSparseShuffle:
         if self.hplan is not None:
             inter, intra = (b * B for b in self.rack_bits)
             attrs.update(inter_rack_bits=inter, intra_rack_bits=intra)
+        if sh is not None:
+            attrs.update(ranks=sh.world)
         with tr.span("phase.exchange", **attrs):
+            if sh is not None:
+                buf = _all_gather(buf, sh)
             self._sync(tr)
         if self.hplan is not None:
             _count_rack_bits(inter, intra)
@@ -743,7 +806,19 @@ class FusedSparseShuffle:
             words = xor_decode_packed(
                 src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
                 t["strip_code"], t["book"], t["ptr"], swap=swap,
-                total=self.M, direct_e=t.get("direct_e"))
+                total=self.M if sh is None else self.M_local,
+                direct_e=t.get("direct_e"))
+            self._sync(tr)
+        if sh is None:
+            return words
+        with tr.span("phase.gather", B=B, deliveries=self.M, ranks=sh.world):
+            pad = self.M_pad - self.M_local
+            if pad:
+                words = torch.cat([words, words.new_zeros(
+                    (pad,) + tuple(words.shape[1:]))])
+            words = _all_gather(words, sh)
+            if self._trim is not None:
+                words = words.index_select(0, self._trim)
             self._sync(tr)
         return words
 

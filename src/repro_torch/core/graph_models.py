@@ -433,3 +433,13 @@ class Graph:
         return Graph(model=self.model, params=params,
                      csr=CSR(indptr, csr.indices, csr.rows),
                      dense_limit=self.dense_limit)
+
+
+def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
+    """ER(n, p) drawn densely, every edge present independently w.p. p:
+    the reference's dense sampler (`core.graph_models.erdos_renyi`), draw
+    for draw, so a seed gives both packages the same graph. The O(edges)
+    streaming sampler of `repro_torch.graphs` draws another graph."""
+    rng = np.random.default_rng(seed)
+    upper = np.triu(rng.random((n, n)) < p, 1)
+    return Graph(upper | upper.T, "er", {"n": n, "p": p, "seed": seed})

@@ -30,7 +30,9 @@ r = 1, 2, 3, 5 and 33, a two-level session (`Topology(4, 2)` and
 the plan kernels on a repaired plan (`fail`: dead receivers and senders,
 demoted pairs) and the packed K1 / K2 on a rebound session's tables
 (`update`, and with a sender's columns and a receiver's deliveries taken
-out), and the reduced mamba2-370m
+out), the packed K1 / K2 on each rank's rows of a P-rank group's tables
+(P = 2 and 4, K = 4 and 8, no process group needed) and the fused route on
+a one-rank NCCL group bitwise the virtual route, and the reduced mamba2-370m
 served on the card (the kernel prefill
 against the plain chunked prefill and the decode loop). Whether a card
 exists is decided inside the `cuda` fixture, never at import time.
@@ -981,3 +983,84 @@ def test_mamba2_served_on_the_card(cuda):
     torch.testing.assert_close(step, plain, rtol=0, atol=1e-4 * scale)
     out = serve.generate(cfg, params, toks[:, :4].cpu().numpy(), 6, device=cuda)
     assert out.shape == (2, 6) and out.min() >= 0 and out.max() < cfg.vocab
+
+
+def test_nccl_world_one_group_is_the_virtual_route(cuda, tmp_path):
+    """The fused exchange on a one-rank NCCL group (FileStore, no port):
+    words, states and bits bitwise the virtual route's, K1 / K2 launched."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        g, virt = _session(cuda)
+        grp = engine.compile(algo.pagerank(), g, virt.alloc, plan=virt.plan,
+                             path="sparse", backend="fused", device=cuda,
+                             group=dist.group.WORLD)
+        pr = algo.pagerank()
+        ev = pr.map_edge_values_t(virt._dg, torch.as_tensor(
+            pr.init(g), device=cuda)).contiguous()
+        assert torch.equal(grp.fused.exchange(ev), virt.fused.exchange(ev))
+        for p in (pr, algo.sssp(0)):
+            _build.LAUNCHES.clear()
+            a = grp.with_program(p).run(5)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["xor_encode"] == 5
+            assert _build.LAUNCHES["xor_decode"] == 5
+            b = virt.with_program(p).run(5)
+            assert torch.equal(a.state.view(torch.int32), b.state.view(torch.int32))
+            assert a.shuffle_bits == b.shuffle_bits
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_exchanges(monkeypatch, g, eng, P, dev):
+    """The group route's sessions of `eng`'s plan for the P ranks of a
+    group, built in this one process: `server_shard` answers each rank's
+    share, so each session uploads its servers' rows of the packed tables
+    and its ptr rebased to them, as it would on a P-rank group."""
+    from repro_torch.core import fused_shuffle as fs
+    from repro_torch.launch.dist import ServerShard
+
+    ranks = []
+    for p in range(P):
+        monkeypatch.setattr(fs, "server_shard", lambda group, K, device, p=p:
+                            ServerShard(group, P, p, K))
+        ranks.append(fs.FusedSparseShuffle(eng.plan, g.csr, eng.alloc,
+                                           device=dev, group="one rank"))
+    return ranks
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K,r,P", [(4, 2, 2), (4, 2, 4), (8, 3, 2), (8, 3, 4)])
+def test_packed_kernels_on_each_ranks_rows(cuda, monkeypatch, K, r, P, B):
+    """The shapes the group route gives K1 and K2, without a process
+    group: K1 on each rank's K / P server rows, the buffers concatenated
+    in rank order (what the all-gather hands every rank), then K2 for each
+    rank's receivers on the K senders' buffer. Each launch is bitwise its
+    plain version, the buffer bitwise the whole session's K1 and the
+    words, concatenated in rank order, bitwise the virtual route's."""
+    g, eng = _session(cuda, n=2000, K=K, r=r)
+    ev, words = _hold_packed(cuda, g, eng, B)
+    src, t = ev.view(torch.int32), eng.fused.tables
+    whole = xc.xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"])
+    ranks = _rank_exchanges(monkeypatch, g, eng, P, cuda)
+    bufs = []
+    for rk in ranks:
+        t = rk.tables
+        assert t["enc_e"].shape[0] == K // P
+        enc = (src, t["enc_e"], t["enc_code"], t["book"])
+        bufs.append(xc.xor_encode_packed(*enc))
+        assert torch.equal(bufs[-1], xref.xor_encode_packed(*enc))
+    buf = torch.cat(bufs)
+    assert torch.equal(buf, whole)
+    got = []
+    for rk in ranks:
+        t = rk.tables
+        dec = (src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
+               t["strip_code"], t["book"], t["ptr"])
+        got.append(xc.xor_decode_packed(*dec, total=rk.M_local))
+        assert torch.equal(got[-1], xref.xor_decode_packed(*dec))
+    assert torch.equal(torch.cat(got), words)

@@ -176,7 +176,7 @@ def test_spmv_with_program_and_run_batch():
     (dict(backend="spmv", backend_opts={"interpret": True}),
      r"accepted: \['bm'\]"),
     (dict(backend="spmv", bm=48), "power of two"),
-    (dict(backend="fused", bm=8), r"accepted: \(none\)"),
+    (dict(backend="fused", bm=8), r"accepted: \['group'\]"),
     (dict(backend="fused", mode="single"), "use mode='coded'"),
     (dict(backend="fused", mode="uncoded"), "use mode='coded'"),
     (dict(backend="fused", mode="coded-fast"), "use mode='coded'"),
