@@ -150,7 +150,28 @@ non-zero before its last line:
      plain chunked prefill's; `serve.generate` (B = 4, 32-token prompts,
      32 new tokens, in the vocabulary). In float32, each layer's chunked
      block against 128 decode steps of it, and a 4-layer prefill of 128
-     tokens against the decode loop, within 1e-3 of their max.
+     tokens against the decode loop, within 1e-3 of their max;
+  12. lm: the attention families at full width, bf16 weights from a
+     seeded generator. gemma2-27b (46 layers, d_model 4,608, 32 / 16
+     heads, softcaps 50 / 30, window 4,096): `decode.prefill` of B = 2
+     prompts of 5,120 tokens (so the local layers' window cuts), last
+     logits finite, with the prefill's time, peak memory, FLOP share of
+     the bf16 peak, a local and a global layer's cost and the float32
+     q k^T product's per layer; `serve.generate` at B = 4, 32 + 32 tokens;
+     in float32 at 4 layers, the prefill of 128 tokens (softcapped, as
+     `tests/test_archs.py` caps the forward) against 128 decode steps,
+     within 1e-3 of max|logit|. zamba2-1.2b (38 Mamba2 layers, shared
+     attention before each segment of 6): K6 (rtol 1e-4) and K7 (bitwise)
+     against their plain versions at its serve shape (G = 256 groups,
+     32 chunks of 64, P = N = 64, B / C shared by 64 heads) with their
+     records; `decode.prefill` of B = 4 x 2,048 through K6 / K7 (38
+     launches each, counted on that run); each SSM layer's kernel block
+     against its plain block (2^-6 * max|y|, state 1e-3 * max|h|) and the
+     prefill within twice bf16's own distance of the plain one;
+     `serve.generate` at B = 4, 32 + 32. Then gemma-7b, gemma3-27b,
+     internlm2-20b, hubert-xlarge (bidirectional frames) and internvl2-1b
+     (256 patches, then 768 text tokens) at full width and 2 layers: one
+     prefill of B = 1 at 1,024 positions each, logits finite.
 
 Every device busy time and idle share comes from a complete profiler
 window (`profiled_window`): one whose records of the port's kernels differ
@@ -177,7 +198,9 @@ packed tables, with the count on the unpacked layout and K1's general form
 timed on it kept in the full records; K6 and K7 at the serve shape with
 launches from the bf16 prefill, K6 on the serve path's inputs, its bound
 counting bf16 reads and the bf16 tensor-core rate, with its float32-input
-record logged and kept in the full records), the card's name and power
+record logged and kept in the full records; zamba2's K6 / K7 records, at
+its serve shape with launches from its prefill, logged by the lm phase and
+kept in the full records as `kernels_zamba2`), the card's name and power
 limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -3002,23 +3025,30 @@ def rel_err(a, b) -> float:
 
 
 def lockstep(params, cfg, x, other) -> list[tuple[float, float]]:
-    """Each layer's block on the same input through the kernel path and
-    through `other(lp, hn)` (another path computing the same block), the
-    stack advanced by the kernel path's output: per layer, the max
-    difference of the block outputs and of the final SSM states, each
+    """Each SSM layer's block on the same input through the kernel path
+    and through `other(lp, hn)` (another path computing the same block),
+    the stack advanced by the kernel path's output (and, for the hybrid,
+    by the shared attention block before each segment): per SSM layer, the
+    max difference of the block outputs and of the final SSM states, each
     relative to the max of `other`'s. Free of the amplification across
     layers that the end-to-end logits carry."""
+    import torch
+
     from repro_torch.models import ssm, transformer as tfm
     from repro_torch.models.layers import rms_norm
 
+    positions = torch.arange(x.shape[1], device=x.device).expand(*x.shape[:2])
     out = []
-    for i in range(cfg.n_layers):
-        lp = tfm.layer(params["layers"], i)
-        hn = rms_norm(x, lp["norm"], cfg.norm_eps)
-        y, (_, h) = ssm.mamba2_block(lp["mixer"], cfg, hn)
-        y0, h0 = other(lp["mixer"], hn)
-        out.append((rel_err(y, y0), rel_err(h, h0)))
-        x = x + y
+    for a, b in tfm.hybrid_segments(cfg):
+        if cfg.family == "hybrid" and cfg.attn_every:
+            x, _ = tfm.block_forward(params["shared_attn"], cfg, x, positions, -1)
+        for i in range(a, b):
+            lp = tfm.layer(params["layers"], i)
+            hn = rms_norm(x, lp["norm"], cfg.norm_eps)
+            y, (_, h) = ssm.mamba2_block(lp["mixer"], cfg, hn)
+            y0, h0 = other(lp["mixer"], hn)
+            out.append((rel_err(y, y0), rel_err(h, h0)))
+            x = x + y
     return out
 
 
@@ -3036,7 +3066,6 @@ def serve_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
     """
     from repro_torch import configs
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.kernels import _build
     from repro_torch.launch import serve
     from repro_torch.models import decode as dec
     from repro_torch.models import ssm, transformer as tfm
@@ -3057,33 +3086,9 @@ def serve_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_B, SERVE_L))).to(dev)
     batch = {"tokens": toks}
 
-    def plain_block(lp, hn):
-        y, (_, h) = ssm.mamba2_block(lp, cfg, hn, use_kernel=False)
-        return y, h
+    pre, params32, plain32 = held_ssm_prefill(torch, dev, params, cfg, batch)
+    info.update(pre)
     with torch.inference_mode():
-        plain = dec.prefill(params, cfg, batch, use_kernel=False)
-        dec.prefill(params, cfg, batch)                          # warm up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        # The main path: reset the counts, prefill, read the counts.
-        _build.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        logits = dec.prefill(params, cfg, batch)
-        torch.cuda.synchronize()
-        times = [time.perf_counter() - t0]
-        launches = dict(_build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
-        for _ in range(2):
-            t0 = time.perf_counter()
-            dec.prefill(params, cfg, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        dec.prefill(params, cfg, batch, use_kernel=False)
-        torch.cuda.synchronize()
-        info["plain_prefill_s"] = time.perf_counter() - t0
-        params32 = cast_params(params, torch.float32)
-        plain32 = dec.prefill(params32, cfg, batch, use_kernel=False)
         # The amplification, for the record: float32 through the kernels,
         # and float32 with the embeddings moved by 1e-6 of themselves.
         info["f32_prefill_max_rel_err"] = rel_err(
@@ -3098,54 +3103,16 @@ def serve_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
             params32, rms_norm(x32, params32["final_norm"], cfg.norm_eps)[:, -1]),
             plain32)
         del x32
-        steps = lockstep(params, cfg, tfm._embed_inputs(params, cfg, batch),
-                         plain_block)
-    for name in ("ssd_chunk", "ssd_state_scan"):
-        if launches.get(name, 0) != cfg.n_layers:
-            raise AssertionError(f"{name} launched {launches.get(name, 0)} "
-                                 f"times in the prefill, not {cfg.n_layers}")
-    if logits.shape != (SERVE_B, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} "
-                             f"or values not finite")
-    info["prefill_max_rel_err"] = rel_err(logits, plain)
-    info["bf16_noise_max_rel_err"] = rel_err(plain, plain32)
-    info["lockstep_block_max_rel_err"] = max(y for y, _ in steps)
-    info["lockstep_state_max_rel_err"] = max(h for _, h in steps)
-    if info["lockstep_block_max_rel_err"] > BF16_BLOCK_TOL or \
-            info["lockstep_state_max_rel_err"] > STATE_TOL:
-        raise AssertionError(f"a kernel block is off the plain block: {steps}")
-    if info["prefill_max_rel_err"] > 2 * info["bf16_noise_max_rel_err"]:
-        raise AssertionError(
-            f"kernel prefill off the plain prefill by "
-            f"{info['prefill_max_rel_err']} of max|logit|, more than twice "
-            f"bf16's own {info['bf16_noise_max_rel_err']}")
+    launches = info["prefill_launches"]
     rec6["launches"], rec7["launches"] = launches["ssd_chunk"], launches["ssd_state_scan"]
-    info["prefill_launches"] = launches
-    info["prefill_s"] = statistics.median(times)
-    info["prefill_tokens_per_s"] = SERVE_B * SERVE_L / info["prefill_s"]
-    info["prefill_peak_mem_bytes"] = peak
 
-    prompts = rng.integers(0, cfg.vocab, (GEN_B, GEN_PROMPT))
-    serve.generate(cfg, params, prompts[:, :2], 2, device=dev)   # warm up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = serve.generate(cfg, params, prompts, GEN_NEW, device=dev)
-    gen_s = time.perf_counter() - t0
-    if out.shape != (GEN_B, GEN_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
-        raise AssertionError(f"generate: shape {out.shape} or tokens outside "
-                             f"[0, {cfg.vocab})")
-    info["decode_ms_per_step"] = gen_s / (GEN_PROMPT + GEN_NEW - 1) * 1e3
-    info["generate_s"] = gen_s
-    cache = dec.init_cache(cfg, ShapeSpec("profile", 2, GEN_B, "decode"),
-                           device=dev)
-    one = {"tokens": torch.from_numpy(prompts[:, :1]).to(dev)}
+    gen = timed_generate(torch, dev, serve, cfg, params, rng)
     with torch.inference_mode():
-        dec.decode_step(params, cfg, cache, one)
-        info["decode_step_profile"] = call_profile(
-            torch, lambda: dec.decode_step(params, cfg, cache, one))
+        info["decode_step_profile"] = decode_profile(
+            torch, dev, dec, cfg, params, gen.pop("prompts"))
         info["prefill_profile"] = call_profile(
             torch, lambda: dec.prefill(params, cfg, batch))
-    del cache
+    info.update(gen)
 
     # float32: every layer's chunked (kernel) block against 128 decode
     # steps of the same block, over all 48 layers; end to end, prefill
@@ -3191,9 +3158,387 @@ def serve_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
         f"({info['prefill_s'] * 1e3:.3f} ms) | {smi}")
     log(f"serve: decode B={GEN_B}: {info['decode_ms_per_step']:.3f} ms per "
         f"decoded token (one lockstep step) | {smi}")
-    log(f"serve: peak device memory of the prefill {peak} bytes | {smi}")
+    log(f"serve: peak device memory of the prefill "
+        f"{info['prefill_peak_mem_bytes']} bytes | {smi}")
     log(f"serve phase ok: {json.dumps(info)}")
     return rec6, rec7, info
+
+
+# ---------------------------------------------------------------------------
+# lm phase: the attention families at full width
+# ---------------------------------------------------------------------------
+
+LM_DENSE = "gemma2-27b"
+LM_HYBRID = "zamba2-1.2b"
+LM_PREFILL_B, LM_PREFILL_L = 2, 5_120     # past gemma2's window of 4,096
+LM_OTHERS = ("gemma-7b", "gemma3-27b", "internlm2-20b", "hubert-xlarge",
+             "internvl2-1b")
+LM_OTHER_L, LM_OTHER_DEPTH = 1_024, 2
+
+
+def attention_flops(cfg, B: int, S: int) -> int:
+    """The attention products of one prefill: q k^T and the PV product over
+    the whole [S, S] tile of every attention layer (the mask skips no
+    work), 2 * 2 * B * H * S^2 * head_dim each."""
+    n_attn = cfg.n_layers
+    if cfg.family == "hybrid":
+        n_attn = -(-cfg.n_layers // cfg.attn_every)
+    return n_attn * 4 * B * cfg.n_heads * S * S * cfg.head_dim
+
+
+def prefill_flops(cfg, B: int, S: int) -> dict:
+    """A prefill's bf16 work as the FLOP share counts it: 2 x active
+    params x tokens, plus the attention products (the SSD scan and the
+    elementwise work not counted); and that work at the card's bf16 peak."""
+    from repro_torch.launch.roofline import card_of
+
+    flops = 2 * cfg.active_param_count() * B * S + attention_flops(cfg, B, S)
+    return {"flops": flops, "bf16_peak_ms": flops / card_of("cuda").bf16_flops * 1e3}
+
+
+def timed_prefill(torch, dev, dec, params, cfg, batch, reps: int = 3) -> dict:
+    """A warm-up prefill, then `reps` timed ones (each ended by a
+    synchronize) with the peak device memory over them. The first timed
+    prefill is the main path: the launch counts are reset just before it
+    and read just after it. Returns its logits and the figures."""
+    from repro_torch.kernels import _build
+
+    dec.prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(reps):
+        if i == 0:
+            _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = dec.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            logits, launches = out, dict(_build.LAUNCHES)
+    return {"logits": logits, "prefill_launches": launches,
+            "prefill_s": statistics.median(times), "prefill_times_s": times,
+            "prefill_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def held_ssm_prefill(torch, dev, params, cfg, batch) -> tuple[dict, object, object]:
+    """The "ssm" / hybrid bf16 prefill through K6 / K7 (`timed_prefill`:
+    one launch of each per SSM layer, counted on the main path's run) held
+    to the plain chunked prefill: each SSM layer's kernel block against
+    its plain block in lockstep (2^-6 * max|y|, final state 1e-3 *
+    max|h|), and the last logits within twice bf16's own distance from
+    the float32 plain prefill on the same weights cast to float32 (made
+    after the timed prefills, so their peak memory is the bf16 model's).
+    Returns the figures, those float32 params and their plain logits."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models import ssm, transformer as tfm
+
+    def plain_block(lp, hn):
+        y, (_, h) = ssm.mamba2_block(lp, cfg, hn, use_kernel=False)
+        return y, h
+    with torch.inference_mode():
+        plain = dec.prefill(params, cfg, batch, use_kernel=False)
+        info = timed_prefill(torch, dev, dec, params, cfg, batch)
+        t0 = time.perf_counter()
+        dec.prefill(params, cfg, batch, use_kernel=False)
+        torch.cuda.synchronize()
+        info["plain_prefill_s"] = time.perf_counter() - t0
+        params32 = cast_params(params, torch.float32)
+        plain32 = dec.prefill(params32, cfg, batch, use_kernel=False)
+        steps = lockstep(params, cfg, tfm._embed_inputs(params, cfg, batch),
+                         plain_block)
+    logits, launches = info.pop("logits"), info["prefill_launches"]
+    for name in ("ssd_chunk", "ssd_state_scan"):
+        if launches.get(name, 0) != cfg.n_layers:
+            raise AssertionError(f"{cfg.name}: {name} launched "
+                                 f"{launches.get(name, 0)} times in the "
+                                 f"prefill, not {cfg.n_layers}")
+    B, S = batch["tokens"].shape
+    check_logits(logits, (B, cfg.vocab), f"{cfg.name} prefill")
+    info["prefill_max_rel_err"] = rel_err(logits, plain)
+    info["bf16_noise_max_rel_err"] = rel_err(plain, plain32)
+    info["lockstep_block_max_rel_err"] = max(y for y, _ in steps)
+    info["lockstep_state_max_rel_err"] = max(h for _, h in steps)
+    if info["lockstep_block_max_rel_err"] > BF16_BLOCK_TOL or \
+            info["lockstep_state_max_rel_err"] > STATE_TOL:
+        raise AssertionError(f"{cfg.name}: a kernel block is off the plain "
+                             f"block: {steps}")
+    if info["prefill_max_rel_err"] > 2 * info["bf16_noise_max_rel_err"]:
+        raise AssertionError(
+            f"{cfg.name}: kernel prefill off the plain prefill by "
+            f"{info['prefill_max_rel_err']} of max|logit|, more than twice "
+            f"bf16's own {info['bf16_noise_max_rel_err']}")
+    info["prefill_tokens_per_s"] = B * S / info["prefill_s"]
+    return info, params32, plain32
+
+
+def check_logits(logits, shape, what: str) -> None:
+    import torch
+
+    if tuple(logits.shape) != shape or not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: logits of shape {tuple(logits.shape)} "
+                             f"(want {shape}) or not finite")
+
+
+def timed_generate(torch, dev, serve, cfg, params, rng) -> dict:
+    """`serve.generate` at GEN_B x (GEN_PROMPT + GEN_NEW) after a short
+    warm-up: ms per lockstep step, tokens in the vocabulary."""
+    prompts = rng.integers(0, cfg.vocab, (GEN_B, GEN_PROMPT))
+    serve.generate(cfg, params, prompts[:, :2], 2, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.generate(cfg, params, prompts, GEN_NEW, device=dev)
+    gen_s = time.perf_counter() - t0
+    if out.shape != (GEN_B, GEN_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError(f"{cfg.name} generate: shape {out.shape} or "
+                             f"tokens outside [0, {cfg.vocab})")
+    return {"generate_s": gen_s,
+            "decode_ms_per_step": gen_s / (GEN_PROMPT + GEN_NEW - 1) * 1e3,
+            "prompts": prompts}
+
+
+def decode_profile(torch, dev, dec, cfg, params, prompts) -> dict:
+    """A profile of one lockstep decode step at GEN_B (position 0 of a
+    cache of GEN_PROMPT + GEN_NEW positions)."""
+    from repro_torch.configs.base import ShapeSpec
+
+    cache = dec.init_cache(cfg, ShapeSpec("profile", GEN_PROMPT + GEN_NEW,
+                                          GEN_B, "decode"), device=dev)
+    one = {"tokens": torch.from_numpy(prompts[:, :1]).to(dev)}
+    return call_profile(torch, lambda: dec.decode_step(params, cfg, cache, one))
+
+
+def dense_layer_costs(torch, params, cfg, x) -> dict:
+    """ms per layer of the bf16 prefill at x's shape (CUDA events, median
+    of 3): a local and a global block, the attention of each, and the
+    float32 q k^T product of one layer (every query chunk of 1,024 against
+    the whole key axis, TF32 off, as `attend` runs it)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm
+
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    out = {}
+    for i, w in enumerate(tfm.windows(cfg)[:2]):
+        lp = tfm.layer(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        kind = "local" if w > 0 else "global"
+        out[f"block_{kind}_ms"] = time_ms(torch, lambda: tfm.block_forward(
+            lp, cfg, x, positions, w), reps=3, warmup=1)
+        out[f"attention_{kind}_ms"] = time_ms(torch, lambda: tfm.gqa_forward(
+            lp["attn"], cfg, h, positions, w), reps=3, warmup=1)
+    G, hq, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    chunk = min(S, 1024)
+    q = torch.randn((B, G, hq, chunk, D), device=x.device)
+    kt = torch.randn((B, G, 1, D, S), device=x.device)
+    out["qk_float32_ms_per_layer"] = time_ms(
+        torch, lambda: torch.matmul(q, kt), reps=3, warmup=1) * (S // chunk)
+    out["qk_float32_flops_per_layer"] = 2 * B * cfg.n_heads * S * S * D
+    return out
+
+
+def lm_dense(torch, dev, smi: str) -> dict:
+    """gemma2-27b at full width and depth in bf16: prefill B = 2 x 5,120,
+    generate 4 x (32 + 32); then float32 at 4 layers, the prefill of 128
+    tokens (softcapped) against 128 decode steps."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import _softcap, init_params
+
+    cfg = configs.get(LM_DENSE)
+    rng = np.random.default_rng(22)
+    t0 = time.perf_counter()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "window": cfg.window, "params": sum(p.numel() for p in params.parameters()),
+            "init_s": time.perf_counter() - t0,
+            "allocated_after_init_bytes": torch.cuda.memory_allocated(dev)}
+    B, L = LM_PREFILL_B, LM_PREFILL_L
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, L))).to(dev)
+    batch = {"tokens": toks}
+    with torch.inference_mode():
+        pre = timed_prefill(torch, dev, dec, params, cfg, batch)
+        check_logits(pre.pop("logits"), (B, cfg.vocab), f"{cfg.name} prefill")
+        info.update(pre)
+        info["prefill_tokens_per_s"] = B * L / info["prefill_s"]
+        info.update(prefill_flops(cfg, B, L))
+        info["bf16_peak_share"] = info["bf16_peak_ms"] / (info["prefill_s"] * 1e3)
+        info["layer_costs"] = dense_layer_costs(
+            torch, params, cfg, tfm._embed_inputs(params, cfg, batch))
+        info["prefill_profile"] = call_profile(
+            torch, lambda: dec.prefill(params, cfg, batch))
+    gen = timed_generate(torch, dev, serve, cfg, params, rng)
+    with torch.inference_mode():
+        info["decode_step_profile"] = decode_profile(
+            torch, dev, dec, cfg, params, gen.pop("prompts"))
+    info.update(gen)
+
+    # float32 at full width, 4 layers: the prefill (softcapped, as
+    # tests/test_archs.py caps the forward) against the decode loop.
+    p4 = cast_params(params, torch.float32, CONSIST_DEPTH)
+    del params
+    torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, n_layers=CONSIST_DEPTH)
+    ctoks = toks[:, :CONSIST_L]
+    with torch.inference_mode():
+        want = _softcap(dec.prefill(p4, cfg4, {"tokens": ctoks}),
+                        cfg.logit_softcap)
+        cache = dec.init_cache(cfg4, ShapeSpec("consist", CONSIST_L, B, "decode"),
+                               dtype=torch.float32, device=dev)
+        for i in range(CONSIST_L):
+            step, cache = dec.decode_step(p4, cfg4, cache,
+                                          {"tokens": ctoks[:, i:i + 1]})
+    info["f32_decode_vs_prefill_max_rel_err"] = rel_err(step, want)
+    if info["f32_decode_vs_prefill_max_rel_err"] > CONSIST_TOL or \
+            not torch.isfinite(step).all():
+        raise AssertionError(f"{cfg.name}: float32 decode steps off the "
+                             f"softcapped prefill: {json.dumps(info)}")
+    del p4, cache
+    torch.cuda.empty_cache()
+    log(f"lm: {cfg.name} prefill B={B} L={L}: {info['prefill_tokens_per_s']:.1f} "
+        f"tokens/s ({info['prefill_s'] * 1e3:.3f} ms), "
+        f"{info['bf16_peak_share'] * 100:.1f}% of the bf16 peak, peak device "
+        f"memory {info['prefill_peak_mem_bytes']} bytes | {smi}")
+    log(f"lm: {cfg.name} decode B={GEN_B}: {info['decode_ms_per_step']:.3f} ms "
+        f"per decoded token | {smi}")
+    log(f"lm: {cfg.name} per layer: {json.dumps(info['layer_costs'])} | {smi}")
+    return info
+
+
+def zamba2_kernel_records(torch, dev, cfg) -> tuple[dict, dict]:
+    """K6 and K7 against their plain versions at zamba2's serve shape
+    (B = 4 sequences x 64 heads, L = 2,048 in 32 chunks of 64, P = N = 64;
+    bf16 x, B and C shared by the 64 heads of a sequence), and their
+    records there."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_k
+
+    s = cfg.ssm
+    nh = s.n_heads(cfg.d_model)
+    G, Ch, Q, P, N = SERVE_B * nh, SERVE_L // s.chunk, s.chunk, s.head_dim, s.d_state
+    args = ssd_chunk_inputs(torch, dev, np.random.default_rng(38), G, Ch, Q, P,
+                            N, torch.bfloat16, nh)
+    err6 = check_ssd_chunk(torch, args, f"{cfg.name}'s serve shape")
+    _, S, Gd, _ = ssd_k.ssd_chunk(*args)
+    check_state_scan(torch, Gd, S, None, f"{cfg.name}'s serve shape")
+    rec6 = kernel_record(torch, "ssd_chunk", lambda: ssd_k.ssd_chunk(*args),
+                         lambda: ssd_ref.ssd_chunk(*args), None, err6,
+                         *k6_cost(args), rate="bf16")
+    rec7 = kernel_record(torch, "ssd_state_scan",
+                         lambda: ssd_k.ssd_state_scan(Gd, S),
+                         lambda: ssd_ref.ssd_state_scan(Gd, S), None, 0.0,
+                         4 * (2 * G * Ch * N * P + G * Ch + G * N * P),
+                         2 * G * Ch * N * P)
+    shape = dict(G=G, Ch=Ch, Q=Q, P=P, N=N, heads=nh, dtype="bfloat16")
+    rec6["shape"], rec7["shape"] = shape, dict(shape, dtype="float32")
+    return rec6, rec7
+
+
+def lm_hybrid(torch, dev, smi: str) -> tuple[list[dict], dict]:
+    """zamba2-1.2b at full width and depth in bf16: K6 / K7 held at its
+    shape, prefill B = 4 x 2,048 through them (one launch each per SSM
+    layer), each SSM layer's kernel block against its plain block, the
+    prefill against the plain prefill, generate 4 x (32 + 32)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params
+
+    cfg = configs.get(LM_HYBRID)
+    rec6, rec7 = zamba2_kernel_records(torch, dev, cfg)
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "shared_attention_blocks": len(tfm.hybrid_segments(cfg)),
+            "params": sum(p.numel() for p in params.parameters()),
+            "init_s": time.perf_counter() - t0}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_B, SERVE_L))).to(dev)
+    batch = {"tokens": toks}
+    pre, params32, plain32 = held_ssm_prefill(torch, dev, params, cfg, batch)
+    info.update(pre)
+    launches = info["prefill_launches"]
+    rec6["launches"], rec7["launches"] = launches["ssd_chunk"], launches["ssd_state_scan"]
+    with torch.inference_mode():
+        info["prefill_profile"] = call_profile(
+            torch, lambda: dec.prefill(params, cfg, batch))
+    info.update(prefill_flops(cfg, SERVE_B, SERVE_L))
+    info["bf16_peak_share"] = info["bf16_peak_ms"] / (info["prefill_s"] * 1e3)
+    gen = timed_generate(torch, dev, serve, cfg, params, rng)
+    with torch.inference_mode():
+        info["decode_step_profile"] = decode_profile(
+            torch, dev, dec, cfg, params, gen.pop("prompts"))
+    info.update(gen)
+    del params, params32, plain32
+    torch.cuda.empty_cache()
+    log(f"lm: {cfg.name} K6 / K7 at its serve shape: "
+        f"{json.dumps([rec6, rec7])}")
+    log(f"lm: {cfg.name} prefill B={SERVE_B} L={SERVE_L}: "
+        f"{info['prefill_tokens_per_s']:.1f} tokens/s "
+        f"({info['prefill_s'] * 1e3:.3f} ms), {info['bf16_peak_share'] * 100:.1f}% "
+        f"of the bf16 peak, peak device memory "
+        f"{info['prefill_peak_mem_bytes']} bytes | {smi}")
+    log(f"lm: {cfg.name} decode B={GEN_B}: {info['decode_ms_per_step']:.3f} ms "
+        f"per decoded token | {smi}")
+    return [rec6, rec7], info
+
+
+def lm_others(torch, dev) -> dict:
+    """Each other ported config at full width and LM_OTHER_DEPTH layers:
+    one bf16 prefill of B = 1 at LM_OTHER_L positions (hubert's frames,
+    internvl2's patches then text tokens), logits finite."""
+    from repro_torch import configs
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params
+
+    out = {}
+    for arch in LM_OTHERS:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=LM_OTHER_DEPTH)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = init_params(tfm.model_spec(cfg), gen, dtype=torch.bfloat16,
+                             device=dev)
+        bf16 = dict(dtype=torch.bfloat16, device=dev, generator=gen)
+        n_tok = LM_OTHER_L - (cfg.num_patches if cfg.frontend == "vision" else 0)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (1, n_tok), device=dev,
+                                         generator=gen)}
+        if cfg.frontend == "audio":
+            batch = {"frames": torch.randn((1, LM_OTHER_L, cfg.d_model), **bf16)}
+        elif cfg.frontend == "vision":
+            batch["patches"] = torch.randn((1, cfg.num_patches, cfg.d_model), **bf16)
+        with torch.inference_mode():
+            pre = timed_prefill(torch, dev, dec, params, cfg, batch, reps=1)
+        check_logits(pre.pop("logits"), (1, cfg.vocab), f"{arch} prefill")
+        out[arch] = dict(pre, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                         kinds=list(cfg.layer_kinds()), window=cfg.window,
+                         causal=not cfg.encoder_only, frontend=cfg.frontend)
+        del params, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(torch, dev, smi: str) -> tuple[list[dict], dict]:
+    """gemma2-27b, zamba2-1.2b and the other attention configs (module
+    docstring, phase 12). Returns zamba2's K6 / K7 records (launches from
+    its bf16 prefill) and the phase's info."""
+    torch.cuda.empty_cache()
+    info = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
+    info["dense"] = lm_dense(torch, dev, smi)
+    recs, info["hybrid"] = lm_hybrid(torch, dev, smi)
+    info["others"] = lm_others(torch, dev)
+    log(f"lm phase ok: {json.dumps(info)}")
+    return recs, info
 
 
 def main() -> int:
@@ -3250,6 +3595,8 @@ def main() -> int:
                                                   torch, dev, smi)
     k4, result["dense"] = timed("dense", dense_phase, torch, dev)
     k6, k7, result["serve"] = timed("serve", serve_phase, torch, dev, smi)
+    result["kernels_zamba2"], result["lm"] = timed("lm", lm_phase, torch, dev,
+                                                   smi)
     log(f"phase wall times (s): {json.dumps(wall)}")
     records += plan_er + [k2d_er, k4, k5_er, k6, k7]
     scale_records += [k5_scale] + plan_scale + [k2d_scale]

@@ -2,9 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
 
-The port of the reference's `launch/serve.py` for the "ssm" family, on one
-card (no mesh). `main` serves the config's `reduced()` form with seeded
-random weights, as the reference does.
+The port of the reference's `launch/serve.py` for every ported family
+(dense, audio, vision, "ssm", hybrid), on one card (no mesh). `main` serves
+the config's `reduced()` form with seeded random weights, as the reference
+does; like the reference it adds no guard for encoder-only configs.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ def generate(cfg: ModelConfig, params, prompts, max_new: int, *,
     The prompt is fed token by token through the decode path (cache fill),
     then generation continues greedily, or by sampling from the softmax
     with a `torch.Generator` seeded with `seed` (its bits are not JAX's).
+    The attention caches are written in place, step by step (the
+    reference donates its cache to each step).
     `params` must live on `device` (default the card, which raises without
     one).
     """

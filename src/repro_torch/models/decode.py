@@ -1,5 +1,5 @@
-"""Serving path of the "ssm" family: state cache layout, prefill and the
-decode step. The port of the SSM part of the reference's `models/decode.py`.
+"""Serving path: KV / state cache layout, prefill and the decode step for
+every ported family. The port of the reference's `models/decode.py`.
 
 Cache tensors are stacked over layers (leading L axis). Decode is
 lockstep-batched: every sequence is at the same position.
@@ -11,30 +11,47 @@ import torch
 from ..configs.base import ModelConfig, ShapeSpec
 from ..device import resolve_device
 from . import ssm as ssm_mod
-from .layers import rms_norm
-from .transformer import (_embed_inputs, check_family, forward_hidden,
-                          hybrid_segments, layer, logits_of)
+from .layers import _softcap, rms_norm
+from .transformer import (block_decode, check_family, embed_scale,
+                          forward_hidden, hybrid_segments, layer, logits_of,
+                          windows)
 
 
 # ---------------- cache layout ----------------
 
+def _attn_cache_struct(cfg: ModelConfig, L: int, B: int, S: int) -> dict:
+    """The GQA cache (one card has no tensor axis: the reference's layout
+    with tp_size() = 1)."""
+    axes = ("layers", "batch", "act_seq", "act_kv", None)
+    return {"k": ((L, B, S, cfg.n_kv_heads, cfg.head_dim), axes),
+            "v": ((L, B, S, cfg.n_kv_heads, cfg.head_dim), axes)}
+
+
 def cache_struct(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """{name: (shape, logical_axes)} for every cache tensor."""
     check_family(cfg)
-    B = shape.global_batch
-    s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
-    nh = s.n_heads(cfg.d_model)
-    return {"conv": ((cfg.n_layers, B, s.conv_width - 1, di + 2 * s.d_state),
-                     ("layers", "batch", None, "inner")),
-            "ssm": ((cfg.n_layers, B, nh, s.d_state, s.head_dim),
-                    ("layers", "batch", "act_heads", None, None))}
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        nh = s.n_heads(cfg.d_model)
+        out = {"conv": ((cfg.n_layers, B, s.conv_width - 1, di + 2 * s.d_state),
+                        ("layers", "batch", None, "inner")),
+               "ssm": ((cfg.n_layers, B, nh, s.d_state, s.head_dim),
+                       ("layers", "batch", "act_heads", None, None))}
+        if cfg.family == "hybrid" and cfg.attn_every:
+            n_attn = len(hybrid_segments(cfg))
+            out |= {f"attn_{k}": v for k, v in
+                    _attn_cache_struct(cfg, n_attn, B, S).items()}
+        return out
+    return _attn_cache_struct(cfg, cfg.n_layers, B, S)
 
 
 def init_cache(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16,
                device: str | torch.device | None = "cuda") -> dict:
-    """Zero caches: conv in `dtype` (the working dtype), ssm in float32,
-    and the position `pos` (an int32 scalar), on `device`."""
+    """Zero caches: "ssm" in float32, the others (k / v, conv) in `dtype`
+    (the working dtype), and the position `pos` (an int32 scalar), on
+    `device`."""
     dev = resolve_device(device)
     out = {name: torch.zeros(sh, dtype=torch.float32 if "ssm" in name else dtype,
                              device=dev)
@@ -45,9 +62,21 @@ def init_cache(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16,
 
 # ---------------- decode step ----------------
 
-def _ssm_decode_scan(params, cfg, x, cache):
+def _attn_decode_scan(params, cfg, x, pos, cache):
+    for i, w in enumerate(windows(cfg)):
+        x, _ = block_decode(layer(params["layers"], i), cfg, x, pos,
+                            {"k": cache["k"][i], "v": cache["v"][i]}, w)
+    return x, {"k": cache["k"], "v": cache["v"]}
+
+
+def _ssm_decode_scan(params, cfg, x, pos, cache):
+    use_shared = cfg.family == "hybrid" and cfg.attn_every
     new_conv, new_ssm = [], []
-    for a, b in hybrid_segments(cfg):
+    for j, (a, b) in enumerate(hybrid_segments(cfg)):
+        if use_shared:
+            x, _ = block_decode(params["shared_attn"], cfg, x, pos,
+                                {"k": cache["attn_k"][j],
+                                 "v": cache["attn_v"][j]}, -1)
         for i in range(a, b):
             lp = layer(params["layers"], i)
             hn = rms_norm(x, lp["norm"], cfg.norm_eps)
@@ -56,33 +85,45 @@ def _ssm_decode_scan(params, cfg, x, cache):
             x = x + out
             new_conv.append(nconv)
             new_ssm.append(nssm)
-    return x, {"conv": torch.stack(new_conv), "ssm": torch.stack(new_ssm)}
+    new_cache = {"conv": torch.stack(new_conv), "ssm": torch.stack(new_ssm)}
+    if use_shared:
+        new_cache |= {"attn_k": cache["attn_k"], "attn_v": cache["attn_v"]}
+    return x, new_cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
     """One token for every sequence. batch = {'tokens': [B, 1]}.
 
-    Returns (logits [B, vocab] float32, new_cache with pos + 1); the cache
-    passed in is left as it was.
+    Returns (logits [B, vocab] float32, softcapped where the config says,
+    and new_cache with pos + 1). The attention caches ("k" / "v", the
+    hybrid's "attn_k" / "attn_v") are written in place at pos and returned
+    as the same tensors, as the reference's `generate` donates its cache;
+    "conv", "ssm" and "pos" are new tensors, and the old ones are left as
+    they were.
     """
-    x = _embed_inputs(params, cfg, batch)
-    x, new_cache = _ssm_decode_scan(params, cfg, x, cache)
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = params["embed"][tokens] * embed_scale(cfg)
+    pos = cache["pos"].expand(B, 1)
+    if cfg.family in ("ssm", "hybrid"):
+        x, new_cache = _ssm_decode_scan(params, cfg, x, pos, cache)
+    else:
+        x, new_cache = _attn_decode_scan(params, cfg, x, pos, cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_of(params, x)
-    if cfg.logit_softcap:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    logits = _softcap(logits_of(params, x), cfg.logit_softcap)
     new_cache["pos"] = cache["pos"] + 1
     return logits[:, 0], new_cache
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, *, use_kernel: bool = True):
+def prefill(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
+            use_kernel: bool = True):
     """Full-sequence forward for serving; returns last-position logits
-    [B, vocab] float32.
+    [B, vocab] float32, without the `logit_softcap`, as the reference's.
 
     The reference computes the logits of every position and keeps the
     last; the port projects only the last position's hidden state, the
     same numbers without the [B, S, vocab] tensor (1.6 GB at B = 4,
-    S = 2,048 for mamba2-370m).
+    S = 2,048 for mamba2-370m; 10 GB at B = 2, S = 5,120 for gemma2-27b).
     """
-    x = forward_hidden(params, cfg, batch, use_kernel=use_kernel)
+    x = forward_hidden(params, cfg, batch, chunk=chunk, use_kernel=use_kernel)
     return logits_of(params, x[:, -1])

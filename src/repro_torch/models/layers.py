@@ -1,11 +1,14 @@
-"""Shared layers of the port's model path: declarative params, RMSNorm.
+"""Shared layers of the port's model path: declarative params, RMSNorm,
+RoPE, GQA attention (global / local, softcap, bidirectional), the chunked
+prefill attention, GeGLU. The port of the reference's `models/layers.py`.
 
-The part of the reference's `models/layers.py` that the Mamba2 serving path
-needs. Params are declared as `ParamSpec` trees (one source of truth for
-shape, logical axes and init) and held in a `Params` module under the
-reference's keys, so ``p["layers"]["mixer"]["in_proj"]`` names the same
-tensor in both packages. Attention, RoPE, GeGLU and the cross-entropy wait
-for the dense families (ROADMAP Queue 1 #12).
+Params are declared as `ParamSpec` trees (one source of truth for shape,
+logical axes and init) and held in a `Params` module under the reference's
+keys, so ``p["layers"]["mixer"]["in_proj"]`` names the same tensor in both
+packages. The attention is plain PyTorch ops in the reference's arithmetic
+(float32 scores and softmax, a softcap, -1e30 at masked entries), not
+`F.scaled_dot_product_attention`, which has no softcap. The cross-entropy
+is training and waits for ROADMAP Queue 1 #12 (e).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import math
 from typing import Iterator, Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -82,29 +86,40 @@ def init_params(spec, generator: torch.Generator, dtype=torch.bfloat16,
     the reference), `ssm_dt` = log(expm1(U(0.001, 0.1))), `ssm_a` =
     log(U(1, 16)), zeros, ones; drawn in float32, then cast to `dtype`.
 
-    `generator` must live on `device` (default the card, which raises
-    without one). The bits are not JAX's for the same seed.
+    A stacked leaf (leading axis "layers") is drawn one layer at a time
+    into a preallocated leaf of `dtype`, so its float32 draw never exists
+    whole (gemma2-27b's stacked `w_gate` is 31 GB in float32, 15.6 GB in
+    bf16). `generator` must live on `device` (default the card, which
+    raises without one). The bits are not JAX's for the same seed.
     """
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}; make the generator on the same device")
     f32 = dict(dtype=torch.float32, device=dev, generator=generator)
+
+    def draw(p: ParamSpec, shape: tuple[int, ...]) -> torch.Tensor:
+        """One float32 draw of `shape` in `p`'s distribution."""
+        if p.init == "ssm_dt":
+            u = torch.rand(shape, **f32).mul_(0.1 - 0.001).add_(0.001)
+            return torch.expm1(u).log_()
+        if p.init == "ssm_a":
+            return torch.rand(shape, **f32).mul_(16.0 - 1.0).add_(1.0).log_()
+        fan_in = p.shape[0] if len(p.shape) > 1 else p.shape[-1]
+        return torch.randn(shape, **f32).div_(math.sqrt(fan_in))
+
     out = []
     for path, p in _leaves(spec):
         if p.init == "zeros":
             v = torch.zeros(p.shape, dtype=dtype, device=dev)
         elif p.init == "ones":
             v = torch.ones(p.shape, dtype=dtype, device=dev)
-        elif p.init == "ssm_dt":
-            u = torch.rand(p.shape, **f32) * (0.1 - 0.001) + 0.001
-            v = torch.log(torch.expm1(u)).to(dtype)
-        elif p.init == "ssm_a":
-            u = torch.rand(p.shape, **f32) * (16.0 - 1.0) + 1.0
-            v = torch.log(u).to(dtype)
+        elif p.axes[0] == "layers":
+            v = torch.empty(p.shape, dtype=dtype, device=dev)
+            for i in range(p.shape[0]):
+                v[i].copy_(draw(p, p.shape[1:]))
         else:
-            fan_in = p.shape[0] if len(p.shape) > 1 else p.shape[-1]
-            v = (torch.randn(p.shape, **f32) / math.sqrt(fan_in)).to(dtype)
+            v = draw(p, p.shape).to(dtype)
         out.append((path, v))
     return Params(_nest(out))
 
@@ -117,3 +132,91 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, D]; positions [..., S] (broadcastable). Angles in
+    float32, frequencies theta ** (-i / half); out in x's dtype."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq          # [..., S, half]
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _mask(qpos, kpos, *, causal: bool, window: int | None) -> torch.Tensor:
+    """[..., Sq, Sk] bool validity mask from absolute positions. window:
+    None or <= 0 means global (the reference's -1 of a global layer)."""
+    diff = qpos[..., :, None] - kpos[..., None, :]
+    m = diff >= 0 if causal else torch.ones(diff.shape, dtype=torch.bool,
+                                            device=diff.device)
+    if window is not None and window > 0:
+        m = m & (diff < window)
+    return m
+
+
+def attend(q, k, v, qpos, kpos, *, causal=True, window=None, softcap=None,
+           kv_valid=None, kt=None, vt=None):
+    """q [B, Sq, H, D]; k / v [B, Sk, G, D] (G kv heads, H % G == 0).
+
+    Scores q k^T in float32 (both upcast first) / sqrt(D), softcapped;
+    masked entries -1e30; softmax in float32; the probabilities cast to
+    v's dtype for the PV product. kv_valid [B, Sk] masks keys too. kt
+    [B, G, D, Sk] / vt [B, G, Sk, Dv]: k / v already transposed (the
+    chunked prefill transposes once for all its chunks). The v head dim
+    may differ from q's. Returns [B, Sq, H, Dv] in v's dtype.
+    """
+    B, Sq, H, D = q.shape
+    if kt is None:
+        kt = k.permute(0, 2, 3, 1)
+    if vt is None:
+        vt = v.permute(0, 2, 1, 3)
+    G = kt.shape[1]
+    qg = q.reshape(B, Sq, G, H // G, D).permute(0, 2, 3, 1, 4)  # [B,G,h,Sq,D]
+    scores = torch.matmul(qg.to(torch.float32),
+                          kt.to(torch.float32)[:, :, None])      # [B,G,h,Sq,Sk]
+    scores.div_(math.sqrt(D))
+    if softcap is not None:           # _softcap, in place on the score tile
+        scores.div_(softcap).tanh_().mul_(softcap)
+    m = _mask(qpos, kpos, causal=causal, window=window)[:, None, None]
+    if kv_valid is not None:
+        m = m & kv_valid[:, None, None, None, :]
+    scores.masked_fill_(~m, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    del scores
+    out = torch.matmul(w.to(vt.dtype), vt[:, :, None])           # [B,G,h,Sq,Dv]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vt.shape[-1])
+
+
+def chunked_attend(q, k, v, qpos, kpos, *, chunk=1024, **kw):
+    """The prefill's attention over query chunks of `chunk` positions, each
+    against the whole key axis, so the float32 score tile is
+    [B, H, chunk, Sk] instead of [B, H, S, S]. S <= chunk takes one
+    `attend`; otherwise S must be a multiple of `chunk`."""
+    B, S, H, D = q.shape
+    if S <= chunk:
+        return attend(q, k, v, qpos, kpos, **kw)
+    assert S % chunk == 0, (S, chunk)
+    kt = k.permute(0, 2, 3, 1)        # transposed once for every chunk
+    vt = v.permute(0, 2, 1, 3)
+    return torch.cat([attend(q[:, a:a + chunk], None, None,
+                             qpos[:, a:a + chunk], kpos, kt=kt, vt=vt, **kw)
+                      for a in range(0, S, chunk)], dim=1)
+
+
+def geglu(x, w_gate, w_up, w_down, act: str = "silu"):
+    """Gated MLP: (act(x W_g) * (x W_u)) W_d; "gelu" is the tanh form,
+    `jax.nn.gelu`'s default."""
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return torch.matmul(a * u, w_down)

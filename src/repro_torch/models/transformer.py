@@ -1,12 +1,13 @@
-"""Model assembly for the "ssm" family: param specs, the layer stack, the
-full-sequence forward. The port of the SSM part of the reference's
-`models/transformer.py`.
+"""Model assembly: param specs, the layer stacks and the full-sequence
+forward for the dense, audio, vision, "ssm" and hybrid families. The port
+of the reference's `models/transformer.py`.
 
-The reference scans over stacked params (`jax.lax.scan`); here the stack
-is a Python loop over the layer axis of the same stacked tensors. Its
-`constrain` and sharding rules are no-ops without a mesh, and one card has
-none, so they are dropped. Attention, MoE, MLA and the hybrid, audio and
-vision families raise `NotImplementedError` (ROADMAP Queue 1 #12).
+The reference scans over stacked params (`jax.lax.scan`); here each stack
+is a Python loop over the layer axis of the same stacked tensors, and the
+per-layer window is a Python int (-1 = global). Its `constrain` and
+`tp_size` sharding calls are no-ops without a mesh, and one card has none,
+so they are dropped, as is `remat` (training). MoE and MLA configs raise
+`NotImplementedError` (ROADMAP Queue 1 #12 (c)).
 """
 from __future__ import annotations
 
@@ -16,20 +17,47 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import ssm as ssm_mod
-from .layers import ParamSpec, rms_norm
+from .layers import (ParamSpec, attend, chunked_attend, geglu, rms_norm,
+                     rope)
 
-NOT_PORTED = "ROADMAP Queue 1 #12"
+NOT_PORTED = "ROADMAP Queue 1 #12 (c)"
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port has model code for `cfg` (the "ssm" family)."""
-    if cfg.family != "ssm" or cfg.frontend is not None:
+    """Raise unless the port has model code for `cfg`: every family but
+    the MoE and MLA configs."""
+    if cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r}) "
-            f"is not ported; the port runs the 'ssm' family ({NOT_PORTED})")
+            f"{cfg.name}: MoE and MLA (moe={cfg.moe is not None}, "
+            f"mla={cfg.mla is not None}) are not ported ({NOT_PORTED})")
 
 
 # ---------------- param specs ----------------
+
+def attn_spec(cfg: ModelConfig) -> dict:
+    d, H, G, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "q": ParamSpec((d, H, Dh), ("embed", "heads", None)),
+        "k": ParamSpec((d, G, Dh), ("embed", "kv_heads", None)),
+        "v": ParamSpec((d, G, Dh), ("embed", "kv_heads", None)),
+        "o": ParamSpec((H, Dh, d), ("heads", None, "embed")),
+    }
+
+
+def dense_ffn_spec(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": ParamSpec((d, f), ("embed", "mlp")),
+        "w_up": ParamSpec((d, f), ("embed", "mlp")),
+        "w_down": ParamSpec((f, d), ("mlp", "embed")),
+    }
+
+
+def block_spec(cfg: ModelConfig) -> dict:
+    return {"attn_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
+            "ffn_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
+            "attn": attn_spec(cfg), "ffn": dense_ffn_spec(cfg)}
+
 
 def ssm_block_spec(cfg: ModelConfig) -> dict:
     return {"norm": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
@@ -45,14 +73,112 @@ def _stacked(spec, L: int):
 def model_spec(cfg: ModelConfig) -> dict:
     check_family(cfg)
     d = cfg.d_model
-    return {
+    spec: dict = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed")),
         "final_norm": ParamSpec((d,), ("embed",), "zeros"),
-        "layers": _stacked(ssm_block_spec(cfg), cfg.n_layers),
     }
+    if cfg.family in ("ssm", "hybrid"):
+        spec["layers"] = _stacked(ssm_block_spec(cfg), cfg.n_layers)
+        if cfg.family == "hybrid" and cfg.attn_every:
+            spec["shared_attn"] = block_spec(cfg)
+    else:
+        spec["layers"] = _stacked(block_spec(cfg), cfg.n_layers)
+    if cfg.frontend == "vision":
+        spec["patch_proj"] = ParamSpec((d, d), ("embed", None))
+    if cfg.frontend == "audio":
+        spec["frame_proj"] = ParamSpec((d, d), ("embed", None))
+    return spec
+
+
+# ---------------- attention block ----------------
+
+def windows(cfg: ModelConfig) -> list[int]:
+    """Each layer's attention window: cfg.window for a local layer, -1 for
+    a global one (the reference's `_window_arr`)."""
+    return [cfg.window if kind == "local" else -1 for kind in cfg.layer_kinds()]
+
+
+def _heads(x, w):
+    """x [B, T, d] @ w [d, H, Dh] -> [B, T, H, Dh] (one matmul)."""
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(
+        *x.shape[:2], *w.shape[1:])
+
+
+def _out(o, w):
+    """o [B, T, H, Dh] @ w [H, Dh, d] -> [B, T, d] (one matmul), in the
+    promoted dtype as the reference's einsum (a float32 cache gives a
+    float32 o beside bf16 weights)."""
+    dt = torch.promote_types(o.dtype, w.dtype)
+    return torch.matmul(o.reshape(*o.shape[:2], -1).to(dt),
+                        w.reshape(-1, w.shape[-1]).to(dt))
+
+
+def gqa_forward(p, cfg: ModelConfig, x, positions, window: int, *, chunk=1024):
+    """Prefill attention over x [B, T, d]. window: -1 = global. Returns
+    (out [B, T, d], (k, v))."""
+    q = rope(_heads(x, p["q"]), positions, cfg.rope_theta)
+    k = rope(_heads(x, p["k"]), positions, cfg.rope_theta)
+    v = _heads(x, p["v"])
+    out = chunked_attend(q, k, v, positions, positions, chunk=chunk,
+                         causal=not cfg.encoder_only, window=window,
+                         softcap=cfg.attn_softcap)
+    return _out(out, p["o"]), (k, v)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, window: int):
+    """x [B, 1, d]; cache_k / v [B, Smax, G, Dh]; pos [B, 1] the current
+    position (the same in every row). Writes this token's k / v into the
+    caches at pos, in place, and returns (out [B, 1, d], cache_k, cache_v),
+    the same tensors."""
+    q = rope(_heads(x, p["q"]), pos, cfg.rope_theta)
+    k = rope(_heads(x, p["k"]), pos, cfg.rope_theta)
+    v = _heads(x, p["v"])
+    t = pos[:1, 0].long()
+    cache_k.index_copy_(1, t, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, t, v.to(cache_v.dtype))
+    kpos = torch.arange(cache_k.shape[1], device=x.device)[None]
+    out = attend(q, cache_k, cache_v, pos, kpos, causal=True, window=window,
+                 softcap=cfg.attn_softcap, kv_valid=kpos <= t)
+    return _out(out, p["o"]), cache_k, cache_v
+
+
+def _ffn(p, cfg: ModelConfig, x):
+    return geglu(x, p["w_gate"], p["w_up"], p["w_down"], act=cfg.act)
+
+
+def block_forward(p, cfg, x, positions, window: int, *, chunk=1024):
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    attn_out, kv = gqa_forward(p["attn"], cfg, h, positions, window,
+                               chunk=chunk)
+    x = x + attn_out
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + _ffn(p["ffn"], cfg, h), kv
+
+
+def block_decode(p, cfg, x, pos, cache: dict, window: int):
+    """One token through a block; cache {"k", "v"} is written in place."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    attn_out, ck, cv = gqa_decode(p["attn"], cfg, h, pos, cache["k"],
+                                  cache["v"], window)
+    x = x + attn_out.to(x.dtype)       # cache dtype may differ (f32 serving)
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + _ffn(p["ffn"], cfg, h), {"k": ck, "v": cv}
 
 
 # ---------------- stacks ----------------
+
+def layer(tree, i: int) -> dict:
+    """Layer i of a stacked param tree (views, no copies)."""
+    return {k: layer(tree[k], i) if not isinstance(tree[k], torch.Tensor)
+            else tree[k][i] for k in tree.keys()}
+
+
+def _attn_stack(params, cfg: ModelConfig, x, positions, *, chunk=1024):
+    for i, w in enumerate(windows(cfg)):
+        x, _ = block_forward(layer(params["layers"], i), cfg, x, positions, w,
+                             chunk=chunk)
+    return x
+
 
 def hybrid_segments(cfg: ModelConfig) -> list[tuple[int, int]]:
     """Layer ranges between shared-attention insertion points (zamba2):
@@ -64,14 +190,13 @@ def hybrid_segments(cfg: ModelConfig) -> list[tuple[int, int]]:
             for s in range(0, cfg.n_layers, cfg.attn_every)]
 
 
-def layer(tree, i: int) -> dict:
-    """Layer i of a stacked param tree (views, no copies)."""
-    return {k: layer(tree[k], i) if not isinstance(tree[k], torch.Tensor)
-            else tree[k][i] for k in tree.keys()}
-
-
-def _ssm_stack(params, cfg: ModelConfig, x, *, use_kernel: bool = True):
+def _ssm_stack(params, cfg: ModelConfig, x, positions, *, chunk=1024,
+               use_kernel: bool = True):
+    use_shared = cfg.family == "hybrid" and cfg.attn_every
     for a, b in hybrid_segments(cfg):
+        if use_shared:
+            x, _ = block_forward(params["shared_attn"], cfg, x, positions, -1,
+                                 chunk=chunk)
         for i in range(a, b):
             lp = layer(params["layers"], i)
             hn = rms_norm(x, lp["norm"], cfg.norm_eps)
@@ -81,21 +206,39 @@ def _ssm_stack(params, cfg: ModelConfig, x, *, use_kernel: bool = True):
     return x
 
 
+def embed_scale(cfg: ModelConfig) -> float:
+    """sqrt(d_model) rounded to bf16, as the reference scales embeddings
+    (`transformer.py:276`), held as a Python float: the product keeps the
+    embeddings' dtype, as JAX's promotion does."""
+    return float(torch.tensor(math.sqrt(cfg.d_model)).to(torch.bfloat16))
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch: dict):
-    """Token embeddings times sqrt(d_model) rounded to bf16, as the
-    reference scales them (`transformer.py:283`). The factor is a Python
-    float holding that bf16 value: the product keeps the embeddings' dtype,
-    as JAX's promotion does, and no tensor is copied to the card."""
+    """The stack's input [B, S, d]: audio frames through `frame_proj`,
+    vision patches through `patch_proj` followed by the scaled text
+    embeddings, or the scaled token embeddings."""
     check_family(cfg)
-    scale = float(torch.tensor(math.sqrt(cfg.d_model)).to(torch.bfloat16))
-    return params["embed"][batch["tokens"]] * scale
+    if cfg.frontend == "audio":
+        return torch.matmul(batch["frames"], params["frame_proj"])
+    te = params["embed"][batch["tokens"]] * embed_scale(cfg)
+    if cfg.frontend == "vision":
+        pe = torch.matmul(batch["patches"], params["patch_proj"])
+        return torch.cat([pe, te.to(pe.dtype)], dim=1)
+    return te
 
 
-def forward_hidden(params, cfg: ModelConfig, batch: dict, *,
+def forward_hidden(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
                    use_kernel: bool = True):
-    """Embed + stack + final norm -> hidden [B, S, d] (no logits)."""
+    """Embed + stack + final norm -> hidden [B, S, d] (no logits).
+    `use_kernel` picks K6 / K7 or their plain versions in the SSM blocks."""
     x = _embed_inputs(params, cfg, batch)
-    x = _ssm_stack(params, cfg, x, use_kernel=use_kernel)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _ssm_stack(params, cfg, x, positions, chunk=chunk,
+                       use_kernel=use_kernel)
+    else:
+        x = _attn_stack(params, cfg, x, positions, chunk=chunk)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -105,7 +248,10 @@ def logits_of(params, x) -> torch.Tensor:
     return torch.matmul(x, params["embed"].transpose(0, 1)).to(torch.float32)
 
 
-def forward(params, cfg: ModelConfig, batch: dict, *, use_kernel: bool = True):
-    """Full-sequence forward -> logits [B, S, vocab] (fp32)."""
-    return logits_of(params, forward_hidden(params, cfg, batch,
+def forward(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
+            use_kernel: bool = True):
+    """Full-sequence forward -> logits [B, S, vocab] (fp32). Like the
+    reference's, these logits carry no `logit_softcap`; `decode_step`'s
+    do."""
+    return logits_of(params, forward_hidden(params, cfg, batch, chunk=chunk,
                                             use_kernel=use_kernel))

@@ -32,10 +32,13 @@ demoted pairs) and the packed K1 / K2 on a rebound session's tables
 (`update`, and with a sender's columns and a receiver's deliveries taken
 out), the packed K1 / K2 on each rank's rows of a P-rank group's tables
 (P = 2 and 4, K = 4 and 8, no process group needed) and the fused route on
-a one-rank NCCL group bitwise the virtual route, and the reduced mamba2-370m
-served on the card (the kernel prefill
-against the plain chunked prefill and the decode loop). Whether a card
-exists is decided inside the `cuda` fixture, never at import time.
+a one-rank NCCL group bitwise the virtual route, the reduced mamba2-370m
+and zamba2-1.2b served on the card (the kernel prefill against the plain
+chunked prefill and the decode loop), `launch.serve.main` for gemma2-27b,
+zamba2-1.2b and mamba2-370m, and `init_params` drawing gemma2-27b's
+stacked `w_gate` within the bf16 leaf plus two float32 layers of memory.
+Whether a card exists is decided inside the `cuda` fixture, never at
+import time.
 """
 import numpy as np
 import pytest
@@ -983,6 +986,68 @@ def test_mamba2_served_on_the_card(cuda):
     torch.testing.assert_close(step, plain, rtol=0, atol=1e-4 * scale)
     out = serve.generate(cfg, params, toks[:, :4].cpu().numpy(), 6, device=cuda)
     assert out.shape == (2, 6) and out.min() >= 0 and out.max() < cfg.vocab
+
+
+def test_zamba2_served_on_the_card(cuda):
+    """The reduced hybrid: the kernel prefill (K6 / K7 once per SSM layer)
+    against the plain chunked prefill and the decode loop, with the shared
+    attention's caches written in place."""
+    cfg = configs.get("zamba2-1.2b").reduced()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=cuda).manual_seed(0),
+                         dtype=torch.float32, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 32))).to(cuda)
+    _build.LAUNCHES.clear()
+    got = dec.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_chunk"] == cfg.n_layers
+    assert _build.LAUNCHES["ssd_state_scan"] == cfg.n_layers
+    plain = dec.prefill(params, cfg, {"tokens": toks}, use_kernel=False)
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4 * scale)
+    cache = dec.init_cache(cfg, ShapeSpec("s", 32, 2, "decode"),
+                           dtype=torch.float32, device=cuda)
+    attn_k = cache["attn_k"]
+    for i in range(32):
+        step, cache = dec.decode_step(params, cfg, cache,
+                                      {"tokens": toks[:, i:i + 1]})
+    assert cache["attn_k"] is attn_k and torch.count_nonzero(attn_k[:, :, 31]) > 0
+    torch.testing.assert_close(step, plain, rtol=0, atol=1e-4 * scale)
+
+
+def test_init_params_draws_a_stacked_leaf_layer_by_layer(cuda):
+    """gemma2-27b's stacked `w_gate` [46, 4,608, 36,864] in bf16 (15.6 GB):
+    the draw raises the peak by no more than the leaf plus two float32
+    layers (drawn whole in float32 it would take 31 GB more)."""
+    cfg = configs.get("gemma2-27b")
+    spec = {"w_gate": tfm._stacked(tfm.dense_ffn_spec(cfg),
+                                   cfg.n_layers)["w_gate"]}
+    L, (d, f) = cfg.n_layers, (cfg.d_model, cfg.d_ff)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    p = init_params(spec, torch.Generator(device=cuda).manual_seed(0),
+                    dtype=torch.bfloat16, device=cuda)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda) - base
+    w = p["w_gate"]
+    assert w.shape == (L, d, f) and w.dtype == torch.bfloat16
+    assert rise <= L * d * f * 2 + 2 * d * f * 4, rise
+    for i in (0, L - 1):
+        assert abs(float(w[i].float().std()) * np.sqrt(L) - 1.0) < 0.01
+    del p, w
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b", "mamba2-370m"])
+def test_serve_main_on_the_card(cuda, arch, capsys):
+    """`launch.serve.main` with its defaults (the card; the config's
+    `reduced()` form, as the reference serves it)."""
+    serve.main(["--arch", arch])
+    out = capsys.readouterr().out
+    assert out.startswith("generated:")
 
 
 def test_nccl_world_one_group_is_the_virtual_route(cuda, tmp_path):

@@ -122,13 +122,18 @@ def test_model_spec_is_the_references(reduced):
         jdec.cache_struct(cj, JShape("s", 16, 3, "decode"))
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "zamba2-1.2b", "hubert-xlarge"])
-def test_other_families_are_not_ported(arch):
+@pytest.mark.parametrize("what", ["model_spec", "cache_struct"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+def test_other_families_are_not_ported(arch, what):
+    """MoE and MLA configs raise, naming the roadmap item; every other
+    family is ported (`tests/test_torch_lm.py`)."""
     cfg = configs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        tfm.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        dec.cache_struct(cfg, ShapeSpec("s", 8, 1, "decode"))
+    call = {"model_spec": lambda: tfm.model_spec(cfg),
+            "cache_struct": lambda: dec.cache_struct(
+                cfg, ShapeSpec("s", 8, 1, "decode"))}[what]
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #12 \(c\)"):
+        call()
 
 
 def test_hybrid_segments_match():
@@ -259,7 +264,15 @@ def test_mamba2_block_float32(cfgs, weights, use_kernel, S, with_state):
         lpt, cfg, torch.from_numpy(u), use_kernel=use_kernel,
         state=None if state_np is None else tuple(map(torch.from_numpy, state_np)))
     assert _rel(yt, yj) < 1e-5
-    assert _rel(ct, cj) == 0.0
+    # The new conv state's rows carried over from the given state (zeros
+    # without one) are copies: bitwise. The rows of this call's `in_proj`
+    # product may differ by the BLAS path's summation order (1 ulp
+    # measured at S = 1): within 1e-6 of max|conv state|.
+    cj = np.asarray(cj)
+    carried = max(0, cj.shape[1] - S)
+    assert np.array_equal(ct[:, :carried].numpy(), cj[:, :carried])
+    assert np.abs(ct[:, carried:].numpy() - cj[:, carried:]).max() <= \
+        1e-6 * np.abs(cj).max()
     assert _rel(st, sj) < 1e-5
 
 
