@@ -171,7 +171,24 @@ non-zero before its last line:
      `serve.generate` at B = 4, 32 + 32. Then gemma-7b, gemma3-27b,
      internlm2-20b, hubert-xlarge (bidirectional frames) and internvl2-1b
      (256 patches, then 768 text tokens) at full width and 2 layers: one
-     prefill of B = 1 at 1,024 positions each, logits finite.
+     prefill of B = 1 at 1,024 positions each, logits finite. Then the MoE
+     and MLA configs at full width, bf16: deepseek-v2-236b (d_model 5,120,
+     128 heads, MLA ranks 1,536 / 512, 160 experts top-6, 2 shared) at 4
+     layers and llama4-maverick-400b-a17b (40 / 8 heads, 128 experts
+     top-1, a shared expert) at one dense + MoE unit, each freed before
+     the next: `decode.prefill` of B = 2 x 4,096, logits finite, with its
+     time, peak memory and FLOP share; the first MoE layer's costs (block,
+     attention, the MoE FFN and its routing, dispatch, expert products,
+     combine and shared expert, CUDA events) with the share of (token, k)
+     dropped at capacity factor 1.25; `moe_ffn` against its one-hot plain
+     version `moe_ffn_onehot` on 256 of that layer's input rows (the same
+     dispatch tensor, outputs within 2^-7 of max|y|, two runs bitwise);
+     `serve.generate` at B = 4, 32 + 32 tokens. deepseek-v2 then in
+     float32 at 1 and 2 layers (capacity factor E / top_k, so the prefill
+     drops nothing, as the decode steps do not): the prefill of 2 x 128
+     tokens against 128 decode steps, within 1e-3 of max|logit|. llama4:
+     `moe_ffn_ep` on a one-rank NCCL group against `moe_ffn` at capacity
+     factor 8, within 2^-7 of max|y|.
 
 Every device busy time and idle share comes from a complete profiler
 window (`profiled_window`): one whose records of the port's kernels differ
@@ -3174,16 +3191,31 @@ LM_PREFILL_B, LM_PREFILL_L = 2, 5_120     # past gemma2's window of 4,096
 LM_OTHERS = ("gemma-7b", "gemma3-27b", "internlm2-20b", "hubert-xlarge",
              "internvl2-1b")
 LM_OTHER_L, LM_OTHER_DEPTH = 1_024, 2
+LM_MLA = "deepseek-v2-236b"
+LM_MOE = "llama4-maverick-400b-a17b"
+LM_MOE_B, LM_MOE_L = 2, 4_096            # both MoE prefills: 8,192 tokens
+LM_MLA_DEPTH = 4                          # deepseek-v2: 32.8 GB of bf16 weights
+LM_MLA_F32_DEPTH = 2                      # its float32 copy: 34 GB beside them
+LM_MOE_DEPTH = 2                          # llama4: one dense + MoE unit, 35.5 GB
+MOE_HOLD_T = 256                          # index form vs one-hot plain version
+MOE_HOLD_TOL = 2.0 ** -7                  # their bf16 outputs: share of max|y|
+MOE_EP_CF = 8.0                           # the reference's EP test's factor
 
 
 def attention_flops(cfg, B: int, S: int) -> int:
     """The attention products of one prefill: q k^T and the PV product over
     the whole [S, S] tile of every attention layer (the mask skips no
-    work), 2 * 2 * B * H * S^2 * head_dim each."""
+    work), 2 * B * H * S^2 * the head dim of each (MLA: q k^T over
+    nope + rope = 192, PV over v_head_dim = 128)."""
     n_attn = cfg.n_layers
     if cfg.family == "hybrid":
         n_attn = -(-cfg.n_layers // cfg.attn_every)
-    return n_attn * 4 * B * cfg.n_heads * S * S * cfg.head_dim
+    if cfg.mla:
+        m = cfg.mla
+        dims = m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim
+    else:
+        dims = 2 * cfg.head_dim
+    return n_attn * 2 * B * cfg.n_heads * S * S * dims
 
 
 def prefill_flops(cfg, B: int, S: int) -> dict:
@@ -3528,15 +3560,277 @@ def lm_others(torch, dev) -> dict:
     return out
 
 
+def moe_layer_costs(torch, lp, cfg, x, window: int) -> tuple[dict, object]:
+    """ms of one MoE layer of the bf16 prefill, x [B, S, d] its input, at
+    its attention window (CUDA events, median of 3): the block, its attention (MLA or GQA), the
+    MoE FFN and its stages (routing, dispatch, the expert products, the
+    combine, the shared expert); with the capacity, the share of (token,
+    k) assignments dropped at the config's capacity factor and the expert
+    products' FLOPs. Returns the figures and the MoE FFN's input."""
+    from repro_torch.models import mla, moe, transformer as tfm
+    from repro_torch.models.layers import geglu, rms_norm
+
+    B, S, d = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    if cfg.mla:
+        def attn():
+            return mla.mla_attention(lp["attn"], cfg, h, positions)
+    else:
+        def attn():
+            return tfm.gqa_forward(lp["attn"], cfg, h, positions, window)
+
+    def ms(fn):
+        return time_ms(torch, fn, reps=3, warmup=1)
+    out = {"block_ms": ms(lambda: tfm.block_forward(lp, cfg, x, positions,
+                                                    window, moe_layer=True)),
+           "attention_ms": ms(attn)}
+    hf = rms_norm(x + attn()[0], lp["ffn_norm"], cfg.norm_eps)
+    p, E = lp["ffn"], cfg.moe.num_experts
+    xt = hf.reshape(B * S, d)
+    r = moe.route(p, cfg, xt)
+    xe = moe.dispatch(xt, r, E)
+    w = (p["w_gate"], p["w_up"], p["w_down"])
+    ye = moe.experts(xe, *w)
+    out.update(
+        moe_ffn_ms=ms(lambda: moe.moe_ffn(p, cfg, hf)),
+        route_ms=ms(lambda: moe.route(p, cfg, xt)),
+        dispatch_ms=ms(lambda: moe.dispatch(xt, r, E)),
+        experts_ms=ms(lambda: moe.experts(xe, *w)),
+        combine_ms=ms(lambda: moe.combine(ye, r)),
+        shared_ms=ms(lambda: geglu(hf, p["shared_gate"], p["shared_up"],
+                                   p["shared_down"], act=cfg.act))
+        if cfg.moe.num_shared else None,
+        capacity=r.C, dropped_share=float((~r.keep).float().mean()),
+        experts_flops=6 * E * r.C * d * cfg.moe.d_ff_expert)
+    return out, hf
+
+
+def hold_moe(torch, p, cfg, h) -> dict:
+    """The index form (`moe_ffn`) against the one-hot plain version
+    (`moe_ffn_onehot`) on rows h [1, MOE_HOLD_T, d] of a full-width MoE
+    layer's input: the routing of the same logits equal (the dispatch
+    tensor: every kept (token, expert, slot)), two runs of the index form
+    bitwise equal, and its output within MOE_HOLD_TOL of max|y| of the
+    plain version's (the combine sums a token's k rows in k order, the
+    plain einsum all E * C in its own; bf16 rounds a difference to a unit
+    in the last place); with both times."""
+    from repro_torch.models import moe
+
+    xt = h.reshape(-1, h.shape[-1])
+    logits = moe.router_logits(p, xt)
+    r = moe.route_logits(logits, cfg.moe, moe._capacity(xt.shape[0], cfg.moe))
+    disp, _ = moe.onehot_dispatch_combine(xt, logits, cfg.moe, r.C)
+    if not torch.equal(disp != 0, moe.dispatch_mask(r, cfg.moe.num_experts)):
+        raise AssertionError(f"{cfg.name}: the index routing is not the one-hot "
+                             f"plain version's")
+    a, b = moe.moe_ffn(p, cfg, h), moe.moe_ffn(p, cfg, h)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{cfg.name}: moe_ffn does not repeat bitwise")
+    plain = moe.moe_ffn_onehot(p, cfg, h)
+    err = rel_err(a, plain)
+    if err > MOE_HOLD_TOL or not torch.isfinite(a).all():
+        raise AssertionError(f"{cfg.name}: moe_ffn off its one-hot plain "
+                             f"version by {err} of max|y|")
+    return {"tokens": xt.shape[0], "capacity": r.C,
+            "dropped": int((~r.keep).sum()), "max_rel_err": err,
+            "bitwise_plain": torch.equal(a, plain),
+            "ms": time_ms(torch, lambda: moe.moe_ffn(p, cfg, h), reps=5, warmup=1),
+            "plain_ms": time_ms(torch, lambda: moe.moe_ffn_onehot(p, cfg, h),
+                                reps=5, warmup=1)}
+
+
+def ep_one_rank(torch, p, cfg, h) -> dict:
+    """`moe_ffn_ep` on a one-rank NCCL group (a FileStore under build/, so
+    no port is opened) against `moe_ffn` on the same rows at capacity
+    factor MOE_EP_CF (the reference's EP test's): within MOE_HOLD_TOL of
+    max|y|, whether bitwise logged. The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_EP_CF))
+    cfg_ep = dataclasses.replace(cfg8, moe=dataclasses.replace(cfg8.moe, ep=True))
+    want = moe.moe_ffn(p, cfg8, h)
+    store = ROOT / "build" / "ep-store"
+    store.unlink(missing_ok=True)
+    store.parent.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        got = moe.moe_ffn(p, cfg_ep, h, group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "tokens": h.shape[0] * h.shape[1], "capacity_factor": MOE_EP_CF}
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    out.update(max_rel_err=rel_err(got, want), bitwise=torch.equal(got, want))
+    if out["max_rel_err"] > MOE_HOLD_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name}: moe_ffn_ep on one NCCL rank off "
+                             f"moe_ffn: {out}")
+    return out
+
+
+def moe_model_bf16(torch, dev, cfg, seed: int) -> tuple[object, dict, dict, object]:
+    """A MoE config at full width in bf16 from a seeded generator: the
+    prefill of LM_MOE_B x LM_MOE_L tokens (`timed_prefill`, logits finite)
+    with its FLOP share, the first MoE layer's costs on the prefill's
+    input to it (`moe_layer_costs`), the index form held against the
+    one-hot plain version on MOE_HOLD_T of its FFN's input rows
+    (`hold_moe`), profiles of a prefill and a decode step, and
+    `serve.generate` at GEN_B x (GEN_PROMPT + GEN_NEW). Returns the
+    params, the figures, that layer's FFN params and those rows."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    e = cfg.moe
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
+            "experts": [e.num_experts, e.top_k, e.num_shared, e.d_ff_expert],
+            "params": sum(p.numel() for p in params.parameters()),
+            "init_s": time.perf_counter() - t0,
+            "allocated_after_init_bytes": torch.cuda.memory_allocated(dev)}
+    B, L = LM_MOE_B, LM_MOE_L
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, L))).to(dev)}
+    with torch.inference_mode():
+        pre = timed_prefill(torch, dev, dec, params, cfg, batch)
+        check_logits(pre.pop("logits"), (B, cfg.vocab), f"{cfg.name} prefill")
+        info.update(pre)
+        info["prefill_tokens_per_s"] = B * L / info["prefill_s"]
+        info.update(prefill_flops(cfg, B, L))
+        info["bf16_peak_share"] = info["bf16_peak_ms"] / (info["prefill_s"] * 1e3)
+        x = tfm._embed_inputs(params, cfg, batch)
+        positions = torch.arange(L, device=dev).expand(B, L)
+        for lp, w, moe_layer, _, _ in tfm.attn_layers(params, cfg):
+            if moe_layer:          # lp: the first MoE layer, x its input
+                break
+            x, _ = tfm.block_forward(lp, cfg, x, positions, w)
+        info["layer_costs"], hf = moe_layer_costs(torch, lp, cfg, x, w)
+        rows = hf[:1, :MOE_HOLD_T].clone()
+        del x, hf
+        info["moe_hold"] = hold_moe(torch, lp["ffn"], cfg, rows)
+        info["prefill_profile"] = call_profile(
+            torch, lambda: dec.prefill(params, cfg, batch))
+    gen = timed_generate(torch, dev, serve, cfg, params, rng)
+    with torch.inference_mode():
+        info["decode_step_profile"] = decode_profile(
+            torch, dev, dec, cfg, params, gen.pop("prompts"))
+    info.update(gen)
+    return params, info, lp["ffn"], rows
+
+
+def log_moe_model(info: dict, smi: str) -> None:
+    """The `lm:` lines of a MoE model: prefill, decode, per layer, hold."""
+    name, B, L = info["arch"], LM_MOE_B, LM_MOE_L
+    log(f"lm: {name} ({info['n_layers']} layers) prefill B={B} L={L}: "
+        f"{info['prefill_tokens_per_s']:.1f} tokens/s "
+        f"({info['prefill_s'] * 1e3:.3f} ms), {info['bf16_peak_share'] * 100:.1f}% "
+        f"of the bf16 peak, peak device memory {info['prefill_peak_mem_bytes']} "
+        f"bytes | {smi}")
+    log(f"lm: {name} decode B={GEN_B}: {info['decode_ms_per_step']:.3f} ms per "
+        f"decoded token | {smi}")
+    log(f"lm: {name} first MoE layer: {json.dumps(info['layer_costs'])} | {smi}")
+    log(f"lm: {name} moe_ffn vs moe_ffn_onehot: {json.dumps(info['moe_hold'])} "
+        f"| {smi}")
+
+
+def lm_mla(torch, dev, smi: str) -> dict:
+    """deepseek-v2-236b at full width, LM_MLA_DEPTH layers, in bf16
+    (`moe_model_bf16`); then a float32 copy of LM_MLA_F32_DEPTH layers: the
+    prefill of LM_MOE_B x CONSIST_L tokens against CONSIST_L decode steps,
+    within CONSIST_TOL of max|logit|."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import decode as dec
+    from repro_torch.models.layers import _softcap
+
+    cfg = dataclasses.replace(configs.get(LM_MLA), n_layers=LM_MLA_DEPTH)
+    params, info, _, _ = moe_model_bf16(torch, dev, cfg, seed=23)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    p2 = cast_params(params, torch.float32, LM_MLA_F32_DEPTH)
+    info["f32_copy_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del params
+    torch.cuda.empty_cache()
+    # At capacity factor E / top_k every expert has C >= T slots, so the
+    # prefill drops nothing. At 1.25 the prefill (C from its 256 tokens)
+    # and the decode steps (C = 8 at T = B, nothing dropped) would be
+    # different functions.
+    # Held at 1 layer and at LM_MLA_F32_DEPTH, to see where a distance
+    # grows.
+    e = cfg.moe
+    B = LM_MOE_B
+    ctoks = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab, (B, CONSIST_L))).to(dev)
+    errs = info["f32_decode_vs_prefill_max_rel_err_by_depth"] = {}
+    for depth in (1, LM_MLA_F32_DEPTH):
+        cfg2 = dataclasses.replace(cfg, n_layers=depth, moe=dataclasses.replace(
+            e, capacity_factor=e.num_experts / e.top_k))
+        with torch.inference_mode():
+            want = _softcap(dec.prefill(p2, cfg2, {"tokens": ctoks}),
+                            cfg.logit_softcap)
+            cache = dec.init_cache(cfg2, ShapeSpec("consist", CONSIST_L, B,
+                                                   "decode"),
+                                   dtype=torch.float32, device=dev)
+            for i in range(CONSIST_L):
+                step, cache = dec.decode_step(p2, cfg2, cache,
+                                              {"tokens": ctoks[:, i:i + 1]})
+        errs[depth] = rel_err(step, want)
+        if errs[depth] > CONSIST_TOL or not torch.isfinite(step).all():
+            raise AssertionError(f"{cfg.name}: float32 decode steps off the "
+                                 f"prefill at {depth} layers: {errs}")
+    info["f32_decode_vs_prefill_max_rel_err"] = errs[LM_MLA_F32_DEPTH]
+    del p2, cache
+    torch.cuda.empty_cache()
+    log_moe_model(info, smi)
+    log(f"lm: {cfg.name} float32 ({LM_MLA_F32_DEPTH} layers, capacity factor "
+        f"{e.num_experts / e.top_k:g}) decode vs prefill of {CONSIST_L} tokens: "
+        f"{info['f32_decode_vs_prefill_max_rel_err']:.3e} of max|logit| "
+        f"(by depth {json.dumps(errs)}); peak "
+        f"with both copies {info['f32_copy_peak_bytes']} bytes | {smi}")
+    return info
+
+
+def lm_moe(torch, dev, smi: str) -> dict:
+    """llama4-maverick-400b-a17b at full width, one dense + MoE unit, in
+    bf16 (`moe_model_bf16`); then `moe_ffn_ep` on a one-rank NCCL group
+    against `moe_ffn` (`ep_one_rank`)."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get(LM_MOE), n_layers=LM_MOE_DEPTH)
+    params, info, ffn, rows = moe_model_bf16(torch, dev, cfg, seed=25)
+    info["ep_one_rank"] = ep_one_rank(torch, ffn, cfg, rows)
+    del params, ffn, rows
+    torch.cuda.empty_cache()
+    log_moe_model(info, smi)
+    log(f"lm: {cfg.name} moe_ffn_ep on one NCCL rank vs moe_ffn: "
+        f"{json.dumps(info['ep_one_rank'])} | {smi}")
+    return info
+
+
 def lm_phase(torch, dev, smi: str) -> tuple[list[dict], dict]:
-    """gemma2-27b, zamba2-1.2b and the other attention configs (module
-    docstring, phase 12). Returns zamba2's K6 / K7 records (launches from
+    """gemma2-27b, zamba2-1.2b, the other attention configs, then
+    deepseek-v2-236b and llama4-maverick-400b-a17b (module docstring,
+    phase 12). Returns zamba2's K6 / K7 records (launches from
     its bf16 prefill) and the phase's info."""
     torch.cuda.empty_cache()
     info = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
     info["dense"] = lm_dense(torch, dev, smi)
     recs, info["hybrid"] = lm_hybrid(torch, dev, smi)
     info["others"] = lm_others(torch, dev)
+    info["mla"] = lm_mla(torch, dev, smi)
+    info["moe"] = lm_moe(torch, dev, smi)
     log(f"lm phase ok: {json.dumps(info)}")
     return recs, info
 

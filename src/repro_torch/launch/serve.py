@@ -2,8 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
 
-The port of the reference's `launch/serve.py` for every ported family
-(dense, audio, vision, "ssm", hybrid), on one card (no mesh). `main` serves
+The port of the reference's `launch/serve.py` for every family (dense,
+MoE and MLA, audio, vision, "ssm", hybrid), on one card (no mesh). `main` serves
 the config's `reduced()` form with seeded random weights, as the reference
 does; like the reference it adds no guard for encoder-only configs.
 """

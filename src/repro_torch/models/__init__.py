@@ -1,1 +1,2 @@
-"""Model code of the port: the Mamba2 ("ssm" family) serving path."""
+"""Model code of the port: every LM family's serving path (dense, MoE and
+MLA, audio, vision, Mamba2 "ssm", hybrid) and the expert-parallel MoE."""

@@ -1,5 +1,5 @@
 """Serving path: KV / state cache layout, prefill and the decode step for
-every ported family. The port of the reference's `models/decode.py`.
+every family. The port of the reference's `models/decode.py`.
 
 Cache tensors are stacked over layers (leading L axis). Decode is
 lockstep-batched: every sequence is at the same position.
@@ -12,24 +12,30 @@ from ..configs.base import ModelConfig, ShapeSpec
 from ..device import resolve_device
 from . import ssm as ssm_mod
 from .layers import _softcap, rms_norm
-from .transformer import (block_decode, check_family, embed_scale,
+from .transformer import (attn_layers, block_decode, embed_scale,
                           forward_hidden, hybrid_segments, layer, logits_of,
-                          windows)
+                          moe_interleave)
 
 
 # ---------------- cache layout ----------------
 
 def _attn_cache_struct(cfg: ModelConfig, L: int, B: int, S: int) -> dict:
     """The GQA cache (one card has no tensor axis: the reference's layout
-    with tp_size() = 1)."""
+    with tp_size() = 1), or MLA's latent and rope-key caches, whose
+    sequence axis the reference always shards over the tensor axis."""
+    if cfg.mla:
+        m = cfg.mla
+        axes = ("layers", "batch", "act_seq_tp", None)
+        return {"lat": ((L, B, S, m.kv_lora_rank), axes),
+                "rope": ((L, B, S, m.qk_rope_head_dim), axes)}
     axes = ("layers", "batch", "act_seq", "act_kv", None)
     return {"k": ((L, B, S, cfg.n_kv_heads, cfg.head_dim), axes),
             "v": ((L, B, S, cfg.n_kv_heads, cfg.head_dim), axes)}
 
 
 def cache_struct(cfg: ModelConfig, shape: ShapeSpec) -> dict:
-    """{name: (shape, logical_axes)} for every cache tensor."""
-    check_family(cfg)
+    """{name: (shape, logical_axes)} for every cache tensor: the dense /
+    MoE interleave's caches are "dense_*" and "moe_*"."""
     B, S = shape.global_batch, shape.seq_len
     if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
@@ -44,13 +50,21 @@ def cache_struct(cfg: ModelConfig, shape: ShapeSpec) -> dict:
             out |= {f"attn_{k}": v for k, v in
                     _attn_cache_struct(cfg, n_attn, B, S).items()}
         return out
-    return _attn_cache_struct(cfg, cfg.n_layers, B, S)
+    unit = moe_interleave(cfg)
+    L = cfg.n_layers // unit
+    if unit == 1:
+        return _attn_cache_struct(cfg, L, B, S)
+    out = {}
+    for part in ("dense", "moe"):
+        out |= {f"{part}_{k}": v for k, v in
+                _attn_cache_struct(cfg, L, B, S).items()}
+    return out
 
 
 def init_cache(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16,
                device: str | torch.device | None = "cuda") -> dict:
-    """Zero caches: "ssm" in float32, the others (k / v, conv) in `dtype`
-    (the working dtype), and the position `pos` (an int32 scalar), on
+    """Zero caches: "ssm" in float32, the others (k / v, lat / rope, conv)
+    in `dtype` (the working dtype), and the position `pos` (an int32 scalar), on
     `device`."""
     dev = resolve_device(device)
     out = {name: torch.zeros(sh, dtype=torch.float32 if "ssm" in name else dtype,
@@ -63,10 +77,12 @@ def init_cache(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16,
 # ---------------- decode step ----------------
 
 def _attn_decode_scan(params, cfg, x, pos, cache):
-    for i, w in enumerate(windows(cfg)):
-        x, _ = block_decode(layer(params["layers"], i), cfg, x, pos,
-                            {"k": cache["k"][i], "v": cache["v"][i]}, w)
-    return x, {"k": cache["k"], "v": cache["v"]}
+    keys = ("lat", "rope") if cfg.mla else ("k", "v")
+    for lp, w, moe_layer, prefix, i in attn_layers(params, cfg):
+        x, _ = block_decode(lp, cfg, x, pos,
+                            {k: cache[prefix + k][i] for k in keys}, w,
+                            moe_layer=moe_layer)
+    return x, {name: v for name, v in cache.items() if name != "pos"}
 
 
 def _ssm_decode_scan(params, cfg, x, pos, cache):
@@ -95,9 +111,10 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
     """One token for every sequence. batch = {'tokens': [B, 1]}.
 
     Returns (logits [B, vocab] float32, softcapped where the config says,
-    and new_cache with pos + 1). The attention caches ("k" / "v", the
-    hybrid's "attn_k" / "attn_v") are written in place at pos and returned
-    as the same tensors, as the reference's `generate` donates its cache;
+    and new_cache with pos + 1). The attention caches ("k" / "v", MLA's
+    "lat" / "rope", the interleave's "dense_*" / "moe_*", the hybrid's
+    "attn_k" / "attn_v") are written in place at pos and returned as the
+    same tensors, as the reference's `generate` donates its cache;
     "conv", "ssm" and "pos" are new tensors, and the old ones are left as
     they were.
     """

@@ -213,6 +213,24 @@ def chunked_attend(q, k, v, qpos, kpos, *, chunk=1024, **kw):
                       for a in range(0, S, chunk)], dim=1)
 
 
+def split_heads(x, w):
+    """x [B, T, r] @ w [r, H, Dh] -> [B, T, H, Dh] (one matmul), in the
+    promoted dtype as the reference's einsum (MLA expands a float32 latent
+    cache through bf16 weights)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.reshape(w.shape[0], -1).to(dt)).reshape(
+        *x.shape[:2], *w.shape[1:])
+
+
+def merge_heads(o, w):
+    """o [B, T, H, Dh] @ w [H, Dh, d] -> [B, T, d] (one matmul), in the
+    promoted dtype as the reference's einsum (a float32 cache gives a
+    float32 o beside bf16 weights)."""
+    dt = torch.promote_types(o.dtype, w.dtype)
+    return torch.matmul(o.reshape(*o.shape[:2], -1).to(dt),
+                        w.reshape(-1, w.shape[-1]).to(dt))
+
+
 def geglu(x, w_gate, w_up, w_down, act: str = "silu"):
     """Gated MLP: (act(x W_g) * (x W_u)) W_d; "gelu" is the tanh form,
     `jax.nn.gelu`'s default."""

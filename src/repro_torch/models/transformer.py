@@ -1,13 +1,14 @@
 """Model assembly: param specs, the layer stacks and the full-sequence
-forward for the dense, audio, vision, "ssm" and hybrid families. The port
-of the reference's `models/transformer.py`.
+forward for every family (dense, MoE, audio, vision, "ssm", hybrid). The
+port of the reference's `models/transformer.py`.
 
 The reference scans over stacked params (`jax.lax.scan`); here each stack
 is a Python loop over the layer axis of the same stacked tensors, and the
-per-layer window is a Python int (-1 = global). Its `constrain` and
-`tp_size` sharding calls are no-ops without a mesh, and one card has none,
-so they are dropped, as is `remat` (training). MoE and MLA configs raise
-`NotImplementedError` (ROADMAP Queue 1 #12 (c)).
+per-layer window is a Python int (-1 = global). A stack of llama4's
+dense / MoE interleave holds two stacked trees, "dense" and "moe", one
+layer of each per unit. Its `constrain` and `tp_size` sharding calls are
+no-ops without a mesh, and one card has none, so they are dropped, as is
+`remat` (training).
 """
 from __future__ import annotations
 
@@ -16,20 +17,11 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (ParamSpec, attend, chunked_attend, geglu, rms_norm,
-                     rope)
-
-NOT_PORTED = "ROADMAP Queue 1 #12 (c)"
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port has model code for `cfg`: every family but
-    the MoE and MLA configs."""
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA (moe={cfg.moe is not None}, "
-            f"mla={cfg.mla is not None}) are not ported ({NOT_PORTED})")
+from .layers import (ParamSpec, attend, chunked_attend, geglu, merge_heads,
+                     rms_norm, rope, split_heads)
 
 
 # ---------------- param specs ----------------
@@ -53,10 +45,11 @@ def dense_ffn_spec(cfg: ModelConfig) -> dict:
     }
 
 
-def block_spec(cfg: ModelConfig) -> dict:
+def block_spec(cfg: ModelConfig, *, moe_layer: bool) -> dict:
     return {"attn_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
             "ffn_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
-            "attn": attn_spec(cfg), "ffn": dense_ffn_spec(cfg)}
+            "attn": mla_mod.mla_spec(cfg) if cfg.mla else attn_spec(cfg),
+            "ffn": moe_mod.moe_spec(cfg) if moe_layer else dense_ffn_spec(cfg)}
 
 
 def ssm_block_spec(cfg: ModelConfig) -> dict:
@@ -70,8 +63,12 @@ def _stacked(spec, L: int):
     return {k: _stacked(v, L) for k, v in spec.items()}
 
 
+def moe_interleave(cfg: ModelConfig) -> int:
+    """Layers per stack unit (llama4: dense / MoE alternation -> 2)."""
+    return cfg.moe_every if cfg.moe else 1
+
+
 def model_spec(cfg: ModelConfig) -> dict:
-    check_family(cfg)
     d = cfg.d_model
     spec: dict = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed")),
@@ -80,9 +77,18 @@ def model_spec(cfg: ModelConfig) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         spec["layers"] = _stacked(ssm_block_spec(cfg), cfg.n_layers)
         if cfg.family == "hybrid" and cfg.attn_every:
-            spec["shared_attn"] = block_spec(cfg)
+            spec["shared_attn"] = block_spec(cfg, moe_layer=False)
     else:
-        spec["layers"] = _stacked(block_spec(cfg), cfg.n_layers)
+        unit = moe_interleave(cfg)
+        n_units = cfg.n_layers // unit
+        if unit == 1:
+            spec["layers"] = _stacked(block_spec(cfg, moe_layer=bool(cfg.moe)),
+                                      n_units)
+        else:
+            spec["layers"] = {
+                "dense": _stacked(block_spec(cfg, moe_layer=False), n_units),
+                "moe": _stacked(block_spec(cfg, moe_layer=True), n_units),
+            }
     if cfg.frontend == "vision":
         spec["patch_proj"] = ParamSpec((d, d), ("embed", None))
     if cfg.frontend == "audio":
@@ -98,31 +104,16 @@ def windows(cfg: ModelConfig) -> list[int]:
     return [cfg.window if kind == "local" else -1 for kind in cfg.layer_kinds()]
 
 
-def _heads(x, w):
-    """x [B, T, d] @ w [d, H, Dh] -> [B, T, H, Dh] (one matmul)."""
-    return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(
-        *x.shape[:2], *w.shape[1:])
-
-
-def _out(o, w):
-    """o [B, T, H, Dh] @ w [H, Dh, d] -> [B, T, d] (one matmul), in the
-    promoted dtype as the reference's einsum (a float32 cache gives a
-    float32 o beside bf16 weights)."""
-    dt = torch.promote_types(o.dtype, w.dtype)
-    return torch.matmul(o.reshape(*o.shape[:2], -1).to(dt),
-                        w.reshape(-1, w.shape[-1]).to(dt))
-
-
 def gqa_forward(p, cfg: ModelConfig, x, positions, window: int, *, chunk=1024):
     """Prefill attention over x [B, T, d]. window: -1 = global. Returns
     (out [B, T, d], (k, v))."""
-    q = rope(_heads(x, p["q"]), positions, cfg.rope_theta)
-    k = rope(_heads(x, p["k"]), positions, cfg.rope_theta)
-    v = _heads(x, p["v"])
+    q = rope(split_heads(x, p["q"]), positions, cfg.rope_theta)
+    k = rope(split_heads(x, p["k"]), positions, cfg.rope_theta)
+    v = split_heads(x, p["v"])
     out = chunked_attend(q, k, v, positions, positions, chunk=chunk,
                          causal=not cfg.encoder_only, window=window,
                          softcap=cfg.attn_softcap)
-    return _out(out, p["o"]), (k, v)
+    return merge_heads(out, p["o"]), (k, v)
 
 
 def gqa_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, window: int):
@@ -130,39 +121,56 @@ def gqa_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, window: int):
     position (the same in every row). Writes this token's k / v into the
     caches at pos, in place, and returns (out [B, 1, d], cache_k, cache_v),
     the same tensors."""
-    q = rope(_heads(x, p["q"]), pos, cfg.rope_theta)
-    k = rope(_heads(x, p["k"]), pos, cfg.rope_theta)
-    v = _heads(x, p["v"])
+    q = rope(split_heads(x, p["q"]), pos, cfg.rope_theta)
+    k = rope(split_heads(x, p["k"]), pos, cfg.rope_theta)
+    v = split_heads(x, p["v"])
     t = pos[:1, 0].long()
     cache_k.index_copy_(1, t, k.to(cache_k.dtype))
     cache_v.index_copy_(1, t, v.to(cache_v.dtype))
     kpos = torch.arange(cache_k.shape[1], device=x.device)[None]
     out = attend(q, cache_k, cache_v, pos, kpos, causal=True, window=window,
                  softcap=cfg.attn_softcap, kv_valid=kpos <= t)
-    return _out(out, p["o"]), cache_k, cache_v
+    return merge_heads(out, p["o"]), cache_k, cache_v
 
 
-def _ffn(p, cfg: ModelConfig, x):
+def _ffn(p, cfg: ModelConfig, x, *, moe_layer: bool):
+    if moe_layer:
+        return moe_mod.moe_ffn(p, cfg, x)
     return geglu(x, p["w_gate"], p["w_up"], p["w_down"], act=cfg.act)
 
 
-def block_forward(p, cfg, x, positions, window: int, *, chunk=1024):
+def block_forward(p, cfg, x, positions, window: int, *, moe_layer=False,
+                  chunk=1024):
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    attn_out, kv = gqa_forward(p["attn"], cfg, h, positions, window,
-                               chunk=chunk)
+    if cfg.mla:
+        attn_out, kv = mla_mod.mla_attention(p["attn"], cfg, h, positions,
+                                             chunk=chunk)
+    else:
+        attn_out, kv = gqa_forward(p["attn"], cfg, h, positions, window,
+                                   chunk=chunk)
     x = x + attn_out
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + _ffn(p["ffn"], cfg, h), kv
+    return x + _ffn(p["ffn"], cfg, h, moe_layer=moe_layer), kv
 
 
-def block_decode(p, cfg, x, pos, cache: dict, window: int):
-    """One token through a block; cache {"k", "v"} is written in place."""
+def block_decode(p, cfg, x, pos, cache: dict, window: int, *, moe_layer=False):
+    """One token through a block; the cache ({"k", "v"}, or MLA's {"lat",
+    "rope"}) is written in place."""
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    attn_out, ck, cv = gqa_decode(p["attn"], cfg, h, pos, cache["k"],
-                                  cache["v"], window)
+    if cfg.mla:
+        kv_valid = torch.arange(cache["lat"].shape[1], device=x.device)[None] \
+            <= pos[:1, 0].long()
+        attn_out, lat, rp = mla_mod.mla_decode(p["attn"], cfg, h, pos,
+                                               cache["lat"], cache["rope"],
+                                               kv_valid=kv_valid)
+        new_cache = {"lat": lat, "rope": rp}
+    else:
+        attn_out, ck, cv = gqa_decode(p["attn"], cfg, h, pos, cache["k"],
+                                      cache["v"], window)
+        new_cache = {"k": ck, "v": cv}
     x = x + attn_out.to(x.dtype)       # cache dtype may differ (f32 serving)
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + _ffn(p["ffn"], cfg, h), {"k": ck, "v": cv}
+    return x + _ffn(p["ffn"], cfg, h, moe_layer=moe_layer), new_cache
 
 
 # ---------------- stacks ----------------
@@ -173,9 +181,25 @@ def layer(tree, i: int) -> dict:
             else tree[k][i] for k in tree.keys()}
 
 
+def attn_layers(params, cfg: ModelConfig):
+    """Each attention layer in order, as (layer params, window, moe_layer,
+    cache prefix, index in its stack): one stack, or llama4's units of a
+    dense then a MoE layer, whose caches are "dense_*" / "moe_*" (the
+    reference's windows at offsets 0 / 1, stride `moe_interleave`)."""
+    unit, w = moe_interleave(cfg), windows(cfg)
+    if unit == 1:
+        for i in range(cfg.n_layers):
+            yield layer(params["layers"], i), w[i], bool(cfg.moe), "", i
+        return
+    for i in range(cfg.n_layers // unit):
+        for off, part in enumerate(("dense", "moe")):
+            yield (layer(params["layers"][part], i), w[i * unit + off],
+                   part == "moe", f"{part}_", i)
+
+
 def _attn_stack(params, cfg: ModelConfig, x, positions, *, chunk=1024):
-    for i, w in enumerate(windows(cfg)):
-        x, _ = block_forward(layer(params["layers"], i), cfg, x, positions, w,
+    for lp, w, moe_layer, _, _ in attn_layers(params, cfg):
+        x, _ = block_forward(lp, cfg, x, positions, w, moe_layer=moe_layer,
                              chunk=chunk)
     return x
 
@@ -217,7 +241,6 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     """The stack's input [B, S, d]: audio frames through `frame_proj`,
     vision patches through `patch_proj` followed by the scaled text
     embeddings, or the scaled token embeddings."""
-    check_family(cfg)
     if cfg.frontend == "audio":
         return torch.matmul(batch["frames"], params["frame_proj"])
     te = params["embed"][batch["tokens"]] * embed_scale(cfg)

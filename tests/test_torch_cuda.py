@@ -35,8 +35,13 @@ out), the packed K1 / K2 on each rank's rows of a P-rank group's tables
 a one-rank NCCL group bitwise the virtual route, the reduced mamba2-370m
 and zamba2-1.2b served on the card (the kernel prefill against the plain
 chunked prefill and the decode loop), `launch.serve.main` for gemma2-27b,
-zamba2-1.2b and mamba2-370m, and `init_params` drawing gemma2-27b's
-stacked `w_gate` within the bf16 leaf plus two float32 layers of memory.
+zamba2-1.2b, mamba2-370m, deepseek-v2-236b and llama4-maverick-400b-a17b,
+`init_params` drawing gemma2-27b's stacked `w_gate` within the bf16 leaf
+plus two float32 layers of memory, the MoE FFN's routing with tied gates
+(the lower index first, as on the CPU), `moe_ffn` bitwise repeatable and
+against its one-hot plain version at 160 experts top-6, the reduced
+deepseek-v2 and llama4 served with MLA's caches written in place, and
+`moe_ffn_ep` on a one-rank NCCL group.
 Whether a card exists is decided inside the `cuda` fixture, never at
 import time.
 """
@@ -1041,13 +1046,140 @@ def test_init_params_draws_a_stacked_leaf_layer_by_layer(cuda):
     torch.cuda.empty_cache()
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b", "mamba2-370m",
+                                  "deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
 def test_serve_main_on_the_card(cuda, arch, capsys):
     """`launch.serve.main` with its defaults (the card; the config's
     `reduced()` form, as the reference serves it)."""
     serve.main(["--arch", arch])
     out = capsys.readouterr().out
     assert out.startswith("generated:")
+
+
+def _moe_cfg(E=160, k=6, cf=1.25, **kw):
+    """The reduced deepseek-v2 with deepseek-v2's routing width (160
+    experts, top-6) unless told otherwise."""
+    import dataclasses
+
+    cfg = configs.get("deepseek-v2-236b").reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=E, top_k=k, capacity_factor=cf, **kw))
+
+
+def _moe_params(cfg, dev, dtype=torch.float32, seed=0):
+    from repro_torch.models import moe
+
+    return init_params(moe.moe_spec(cfg), torch.Generator(device=dev).manual_seed(seed),
+                       dtype=dtype, device=dev)
+
+
+def test_moe_routing_ties_go_to_the_lower_index_on_the_card(cuda):
+    """Router columns copied in pairs (every gate ties with its pair): the
+    card's routing is the CPU's on the same logits, the lower index first,
+    for 4,096 tokens over 160 experts."""
+    from repro_torch.models import moe
+
+    cfg = _moe_cfg()
+    p = _moe_params(cfg, cuda)
+    p["router"][:, 1::2] = p["router"][:, 0::2]
+    xt = torch.randn((4096, cfg.d_model), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+    logits = moe.router_logits(p, xt)
+    assert torch.equal(logits[:, 0::2], logits[:, 1::2])
+    r = moe.route_logits(logits, cfg.moe, moe._capacity(4096, cfg.moe))
+    r_cpu = moe.route_logits(logits.cpu(), cfg.moe, r.C)
+    assert torch.equal(r.topi.cpu(), r_cpu.topi)
+    assert torch.equal(r.keep.cpu(), r_cpu.keep) and torch.equal(r.pos.cpu(), r_cpu.pos)
+    assert (r.topi[:, 0::2] % 2 == 0).all()
+    assert torch.equal(r.topi[:, 1::2], r.topi[:, 0::2] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_repeats_bitwise_and_matches_onehot_on_the_card(cuda, dtype):
+    """160 experts top-6 on 512 tokens (capacity factor 1.25, so some are
+    dropped): two runs bitwise equal, the routing the one-hot plain
+    version's, the outputs within 1e-5 (float32) / 2^-7 (bf16) of
+    max|y|."""
+    from repro_torch.models import moe
+
+    cfg = _moe_cfg()
+    p = _moe_params(cfg, cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 256, cfg.d_model), device=cuda, generator=g).to(dtype)
+    a, b = moe.moe_ffn(p, cfg, x), moe.moe_ffn(p, cfg, x)
+    assert torch.equal(a, b)
+    xt = x.reshape(-1, cfg.d_model)
+    logits = moe.router_logits(p, xt)
+    r = moe.route_logits(logits, cfg.moe, moe._capacity(xt.shape[0], cfg.moe))
+    assert not bool(r.keep.all())
+    disp, _ = moe.onehot_dispatch_combine(xt, logits, cfg.moe, r.C)
+    assert torch.equal(disp != 0, moe.dispatch_mask(r, cfg.moe.num_experts))
+    plain = moe.moe_ffn_onehot(p, cfg, x)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    scale = float(plain.float().abs().max())
+    torch.testing.assert_close(a.float(), plain.float(), rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama4-maverick-400b-a17b"])
+def test_moe_and_mla_served_on_the_card(cuda, arch):
+    """The reduced config in float32 at capacity factor E / top_k (so the
+    prefill drops nothing, as the decode steps do not): 32 decode steps
+    against the prefill, the attention caches (MLA's lat / rope, or the
+    interleave's dense_* / moe_*) written in place."""
+    import dataclasses
+
+    cfg = configs.get(arch).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=cuda).manual_seed(0),
+                         dtype=torch.float32, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 32))).to(cuda)
+    want = dec.prefill(params, cfg, {"tokens": toks})
+    cache = dec.init_cache(cfg, ShapeSpec("s", 32, 2, "decode"),
+                           dtype=torch.float32, device=cuda)
+    before = {k: v for k, v in cache.items() if k != "pos"}
+    assert set(before) == ({"lat", "rope"} if cfg.mla else
+                           {"dense_k", "dense_v", "moe_k", "moe_v"})
+    for i in range(32):
+        step, cache = dec.decode_step(params, cfg, cache,
+                                      {"tokens": toks[:, i:i + 1]})
+    for k, v in before.items():
+        assert cache[k] is v and torch.count_nonzero(v[:, :, 31]) > 0
+    scale = float(want.abs().max())
+    torch.testing.assert_close(step, want, rtol=0, atol=1e-4 * scale)
+
+
+def test_moe_ffn_ep_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """`moe_ffn_ep` on a one-rank NCCL group (the all-to-alls are copies)
+    against `moe_ffn` on the card, at capacity factor 8 with llama4's
+    routing width (128 experts, top-1), as the reference's test."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe, moe_ep
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    cfg = _moe_cfg(E=128, k=1, cf=8.0)
+    p = _moe_params(cfg, cuda)
+    x = torch.randn((4, 64, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    want = moe.moe_ffn(p, cfg, x)
+    cfg_ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep=True))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        got = moe.moe_ffn(p, cfg_ep, x, group=dist.group.WORLD)
+        assert torch.equal(got, moe_ep.moe_ffn_ep(p, cfg_ep, x,
+                                                  group=dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * scale)
 
 
 def test_nccl_world_one_group_is_the_virtual_route(cuda, tmp_path):

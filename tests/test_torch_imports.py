@@ -38,7 +38,9 @@ def test_walk_covers_the_examples_and_experiments():
             "src/repro_torch/experiments/registry.py",
             "src/repro_torch/experiments/__main__.py",
             "src/repro_torch/graphs/io.py",
-            "src/repro_torch/launch/dist.py"} <= names
+            "src/repro_torch/launch/dist.py",
+            "src/repro_torch/models/moe.py", "src/repro_torch/models/moe_ep.py",
+            "src/repro_torch/models/mla.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT))

@@ -1,5 +1,5 @@
-"""The port's dense, audio, vision and hybrid families against the JAX
-package, on the CPU.
+"""The port's dense, MoE / MLA, audio, vision and hybrid families against
+the JAX package, on the CPU.
 
 Each config's `reduced()` form (window 8, so S = 16-32 cuts the local
 layers; the prefill runs in chunks of 8, so the chunked attention runs)
@@ -19,7 +19,11 @@ The reference's `forward` (so `prefill`) carries no `logit_softcap`;
 softcapped forward, as `tests/test_archs.py` does. Decode and generate are
 skipped where `tests/test_archs.py` skips them (encoder-only or with a
 frontend): those configs are left out of the decode parametrizations.
+The MoE configs' routing is held exactly in `tests/test_torch_moe.py`;
+here their logits are held like every other config's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,7 +45,8 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 
 ARCHS = ["gemma-7b", "gemma2-27b", "gemma3-27b", "internlm2-20b",
-         "hubert-xlarge", "internvl2-1b", "zamba2-1.2b"]
+         "hubert-xlarge", "internvl2-1b", "zamba2-1.2b", "deepseek-v2-236b",
+         "llama4-maverick-400b-a17b"]
 DECODE_ARCHS = [a for a in ARCHS if not configs.get(a).encoder_only
                 and configs.get(a).frontend is None]
 F32_TOL = 1e-4
@@ -106,6 +111,14 @@ def _spec_leaves(spec):
 
 # ---------------- specs, caches, windows ----------------
 
+def _stub(spec):
+    """A spec tree with an empty tensor [shape[0], 0] at each leaf: enough
+    for `tfm.attn_layers` to walk the stacks without the weights."""
+    if hasattr(spec, "shape") and hasattr(spec, "axes"):
+        return torch.empty((spec.shape[0], 0))
+    return {k: _stub(v) for k, v in spec.items()}
+
+
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_spec_and_cache_struct_are_the_references(arch, reduced):
@@ -125,6 +138,17 @@ def test_windows_are_the_references(arch, reduced):
         cj, ct = cj.reduced(), ct.reduced()
     assert tfm.windows(ct) == np.asarray(jtfm._window_arr(cj, cj.n_layers)).tolist()
     assert tfm.hybrid_segments(ct) == jtfm.hybrid_segments(cj)
+    if ct.family not in ("ssm", "hybrid"):     # the stack's layer order
+        unit = jtfm.moe_interleave(cj)
+        n = cj.n_layers // unit
+        want = [np.asarray(jtfm._window_arr(cj, n, off, unit)).tolist()
+                for off in range(unit)]
+        got = [(w, moe_layer) for _, w, moe_layer, _, _ in tfm.attn_layers(
+            _stub(tfm.model_spec(ct)), ct)]
+        assert [w for w, _ in got] == [want[j][i] for i in range(n)
+                                       for j in range(unit)]
+        assert [m for _, m in got] == [bool(ct.moe) and (unit == 1 or j == 1)
+                                       for i in range(n) for j in range(unit)]
 
 
 def test_convert_carries_the_new_trees(models):
@@ -132,7 +156,9 @@ def test_convert_carries_the_new_trees(models):
     leaves cross as `nn.Module` attributes under the reference's keys,
     bitwise for bf16 weights."""
     want = {"zamba2-1.2b": "shared_attn.attn.q", "hubert-xlarge": "frame_proj",
-            "internvl2-1b": "patch_proj", "gemma2-27b": "layers.attn.o"}
+            "internvl2-1b": "patch_proj", "gemma2-27b": "layers.attn.o",
+            "deepseek-v2-236b": "layers.attn.kv_b",
+            "llama4-maverick-400b-a17b": "layers.moe.ffn.w_gate"}
     for arch, name in want.items():
         pj, pt = models(arch)["bfloat16"]
         tree = _tree_np(pj)
@@ -236,9 +262,16 @@ def test_decode_steps_match_reference(models, arch):
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_decode_loop_is_the_softcapped_forward(models, arch):
     """Each decode step's logits are the forward's at that position, with
-    the `logit_softcap` that only the decode step applies."""
+    the `logit_softcap` that only the decode step applies. A MoE config
+    runs at capacity factor E / top_k, so C >= T and the forward drops no
+    (token, k): otherwise the forward (C from its B * 16 tokens) and the
+    decode steps (C = 8 at T = B, nothing dropped) are different
+    functions."""
     _, ct = models(arch)["cfg"]
     _, pt = models(arch)["float32"]
+    if ct.moe:
+        ct = dataclasses.replace(ct, moe=dataclasses.replace(
+            ct.moe, capacity_factor=ct.moe.num_experts / ct.moe.top_k))
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, ct.vocab, (B, 16)))
     full = tfm.forward(pt, ct, {"tokens": toks}, chunk=CHUNK)
     if ct.logit_softcap:
@@ -261,9 +294,11 @@ def test_generate_greedy_tokens_equal_the_references(models, arch):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b", "deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
 def test_decode_writes_the_attention_caches_in_place(models, arch):
-    """k / v (the hybrid's attn_k / attn_v) come back as the same tensors,
+    """k / v (the hybrid's attn_k / attn_v, MLA's lat / rope, the dense /
+    MoE interleave's dense_* / moe_*) come back as the same tensors,
     written at pos; conv / ssm / pos are new and the old ones untouched."""
     _, ct = models(arch)["cfg"]
     _, pt = models(arch)["float32"]
@@ -271,8 +306,8 @@ def test_decode_writes_the_attention_caches_in_place(models, arch):
                         device="cpu")
     before = {k: v.clone() for k, v in c0.items()}
     _, c1 = dec.decode_step(pt, ct, c0, {"tokens": torch.ones((2, 1), dtype=torch.int64)})
-    attn = [k for k in c0 if k in ("k", "v", "attn_k", "attn_v")]
-    assert len(attn) == 2
+    attn = [k for k in c0 if k not in ("conv", "ssm", "pos")]
+    assert len(attn) == (4 if ct.moe_every > 1 else 2), attn
     for k in attn:
         assert c1[k] is c0[k]
         assert torch.count_nonzero(c1[k][:, :, 0]) > 0
@@ -283,7 +318,8 @@ def test_decode_writes_the_attention_caches_in_place(models, arch):
     assert int(c1["pos"]) == 1
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-1.2b", "deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
 def test_serve_main_on_the_cpu(arch, capsys):
     serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                 "--prompt-len", "4", "--max-new", "3"])
@@ -302,3 +338,11 @@ def test_full_configs_keep_their_head_counts():
     cfg = configs.get("zamba2-1.2b")
     assert len(tfm.hybrid_segments(cfg)) == 7 and cfg.ssm.d_state == 64
     assert cfg.ssm.n_heads(cfg.d_model) == 64
+    cfg = configs.get("deepseek-v2-236b")
+    assert (cfg.n_heads, cfg.mla.kv_lora_rank, cfg.mla.q_lora_rank,
+            cfg.moe.num_experts, cfg.moe.top_k, tfm.moe_interleave(cfg)) == \
+        (128, 512, 1536, 160, 6, 1)
+    cfg = configs.get("llama4-maverick-400b-a17b")
+    assert got["llama4-maverick-400b-a17b"][:3] == (40, 8, 128)
+    assert (cfg.moe.num_experts, cfg.moe.top_k, tfm.moe_interleave(cfg)) == \
+        (128, 1, 2)

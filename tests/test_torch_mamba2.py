@@ -122,20 +122,6 @@ def test_model_spec_is_the_references(reduced):
         jdec.cache_struct(cj, JShape("s", 16, 3, "decode"))
 
 
-@pytest.mark.parametrize("what", ["model_spec", "cache_struct"])
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
-                                  "llama4-maverick-400b-a17b"])
-def test_other_families_are_not_ported(arch, what):
-    """MoE and MLA configs raise, naming the roadmap item; every other
-    family is ported (`tests/test_torch_lm.py`)."""
-    cfg = configs.get(arch).reduced()
-    call = {"model_spec": lambda: tfm.model_spec(cfg),
-            "cache_struct": lambda: dec.cache_struct(
-                cfg, ShapeSpec("s", 8, 1, "decode"))}[what]
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #12 \(c\)"):
-        call()
-
-
 def test_hybrid_segments_match():
     for arch in ("zamba2-1.2b", ARCH):
         for cfg in (configs.get(arch), configs.get(arch).reduced()):
