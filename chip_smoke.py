@@ -112,9 +112,10 @@ non-zero before its last line:
      against the host oracle on the registry-loaded er-76k (n = 79,979,
      padded to 79,980 by `graphs.allocate`, K = 6, r = 2) on backend
      "numpy" and "fused", exact bits, each route's kernels launched on its
-     run, steady time and device busy; then `examples/port_quickstart.py`
-     and `examples/port_coded_pagerank.py` on the card in parallel
-     subprocesses (300 s timeout each), which must exit 0;
+     run, steady time and device busy; then `examples/port_quickstart.py`,
+     `port_coded_pagerank.py`, `port_serve_lm.py` and `port_train_lm.py`
+     on the card in parallel subprocesses (300 s timeout each), which must
+     exit 0;
   10. topology: the two-level (racks x servers) coded Shuffle through
      `engine.compile(..., "coded", path="sparse", topology=Topology(R, S))`
      on backend="fused" (K1 over the R rack buffers, K2 with its direct
@@ -188,7 +189,26 @@ non-zero before its last line:
      drops nothing, as the decode steps do not): the prefill of 2 x 128
      tokens against 128 decode steps, within 1e-3 of max|logit|. llama4:
      `moe_ffn_ep` on a one-rank NCCL group against `moe_ffn` at capacity
-     factor 8, within 2^-7 of max|y|.
+     factor 8, within 2^-7 of max|y|;
+  13. train: `launch.train.train` at full width, bf16 weights drawn from
+     seed 0 on the card, AdamW with float32 moments: mamba2-370m (48
+     layers) for 3 steps of 16 x 4,096 tokens (train_4k's length, its
+     global batch of 256 cut to 16, as 2 microbatches of 8), zamba2-1.2b
+     (38 layers and the shared attention block) for 2 steps of 4 x 2,048.
+     The training path runs the plain chunked SSD (K6 / K7 take no
+     gradient; their launches, counted on that run, must be 0). Losses
+     finite, every leaf finite and every leaf of 65,536 elements or more
+     changed (the share changed of each leaf logged); the global gradient norm, the
+     forward, backward and optimizer times of one step (CUDA events),
+     seconds per step, tokens/s, the bf16 FLOP share of 6 x params x
+     tokens, peak memory, a kernel profile of one step (top kernels,
+     device idle share) and one SSM layer's forward and backward (CUDA
+     events, and its aten ops by device time). The restart contract at full width and 2 layers:
+     2 steps, a checkpoint, a fresh `train(...)` restored from it for 2
+     more, against 4 steps straight through, losses within rel 1e-4. On
+     mamba2's gradients, `ef_compress_tree` on a one-rank NCCL group: the
+     reduced gradients bitwise `dequantize(quantize(g + r))`, the residual
+     bitwise g + r - q * scale rounded once.
 
 Every device busy time and idle share comes from a complete profiler
 window (`profiled_window`): one whose records of the port's kernels differ
@@ -1177,12 +1197,19 @@ def call_profile(torch, fn, top: int = 6) -> dict:
     if win["kernels"] is None:
         return out
     busy, out["device_idle_share"] = busy_and_idle(win["kernels"])
-    by_name: dict = {}
-    for e in win["kernels"]:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     out.update(device_busy_ms=busy * 1e3, kernels=len(win["kernels"]),
-               top_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+               top_ms=top_kernels(win["kernels"], top))
     return out
+
+
+def top_kernels(kernels, top: int) -> list:
+    """The `top` kernel names by summed device ms (names cut to 160
+    characters, "void at::native::" dropped)."""
+    by_name: dict = {}
+    for e in kernels:
+        name = e.name.removeprefix("void ").removeprefix("at::native::")[:160]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
 
 
 def scale_phase(torch, dev, n_base: int) -> tuple[list[dict], dict, tuple]:
@@ -2437,7 +2464,8 @@ def dist_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-EXAMPLES = ("port_quickstart.py", "port_coded_pagerank.py")
+EXAMPLES = ("port_quickstart.py", "port_coded_pagerank.py", "port_serve_lm.py",
+            "port_train_lm.py")
 EXAMPLE_TIMEOUT_S = 300
 
 
@@ -2544,7 +2572,7 @@ def table2_engine(torch, dev, cache: pathlib.Path, smi: str) -> dict:
 
 
 def run_examples() -> dict:
-    """Both port examples on the card, in parallel subprocesses with a
+    """The port examples on the card, in parallel subprocesses with a
     timeout; each must exit 0 (each holds its own states). Every process
     started here is ended before this returns."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3835,6 +3863,323 @@ def lm_phase(torch, dev, smi: str) -> tuple[list[dict], dict]:
     return recs, info
 
 
+TRAIN_RUNS = (            # arch, seq len, global batch, microbatches, steps
+    ("mamba2-370m", 4_096, 16, 2, 3),
+    ("zamba2-1.2b", 2_048, 4, 1, 2),
+)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# Every leaf this large must change: an update of about lr moves a small
+# leaf of values near 1 (d_skip, a_log, the norms) by less than half a bf16
+# unit, so those may stay put, in the reference's arithmetic too.
+TRAIN_BIG_LEAF = 1 << 16
+TRAIN_RESTART_DEPTH = 2   # the restart contract at full width, 2 layers
+TRAIN_RESTART_TOL = 1e-4  # tests/test_runtime.py:90-106
+
+
+def train_step_costs(torch, res, cfg, batch, accum: int, opt) -> tuple[dict, dict]:
+    """One more step on the trained state, timed by CUDA events: the
+    forward (the loss under autograd, microbatch by microbatch, then
+    dropped), forward + backward (`loss_and_grads`) and the AdamW update.
+    Returns the times, the global gradient norm and the gradients."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optimizer import apply_updates, global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    b = next(iter(batch.values())).shape[0] // accum
+    ev[0].record()
+    for i in range(accum):
+        loss = tfm.loss_fn(res.params, cfg, {k: v[i * b:(i + 1) * b]
+                                             for k, v in batch.items()})
+        del loss
+    ev[1].record()
+    loss, grads = loss_and_grads(res.params, cfg, batch, accum=accum)
+    ev[2].record()
+    apply_updates(opt, res.params, grads, res.opt_state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd, fwd_bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    return {"forward_ms": fwd, "backward_ms": fwd_bwd - fwd,
+            "optimizer_ms": ev[2].elapsed_time(ev[3]), "loss": float(loss),
+            "grad_global_norm": float(global_norm(grads))}, grads
+
+
+def kernel_profile(torch, fn, top: int = 8) -> dict:
+    """The device's kernels over one call of `fn` (after a traced warm-up
+    call), from torch.profiler with CUDA activity only (a training step
+    issues too many host ops to trace them all): busy ms, idle share over
+    the span of its kernels, the kernel count and the `top` kernels by
+    device time; None where the window holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda prof: events.extend(prof.events())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": None,
+           "device_idle_share": None, "kernels": len(kernels), "top_ms": None}
+    if kernels:
+        busy, out["device_idle_share"] = busy_and_idle(kernels)
+        out.update(device_busy_ms=busy * 1e3, top_ms=top_kernels(kernels, top))
+    return out
+
+
+def ssm_layer_costs(torch, params, cfg, x_shape, top: int = 10) -> dict:
+    """One Mamba2 layer of the training path at the phase's microbatch
+    shape: its forward (the plain chunked SSD under autograd) and
+    backward times by CUDA events (median of 3), and torch.profiler's
+    aten ops of one forward + backward by self device time (one layer
+    issues few enough host ops to trace them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import named_leaves, rms_norm
+
+    lp = tfm.layer(params["layers"], 0)
+    gen = torch.Generator(device=params["embed"].device).manual_seed(3)
+    x = torch.randn(x_shape, generator=gen, device=params["embed"].device,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    leaves = [x] + [t for _, t in named_leaves(lp)]
+
+    def fwd():
+        hn = rms_norm(x, lp["norm"], cfg.norm_eps)
+        return ssm.mamba2_block(lp["mixer"], cfg, hn, use_kernel=False)[0]
+
+    def bwd(out):
+        return torch.autograd.grad(out.float().square().mean(), leaves)
+
+    fwd_ms, bwd_ms = [], []
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = fwd()
+        ev[1].record()
+        bwd(out)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bwd(fwd())
+        torch.cuda.synchronize()
+    self_dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    ops = sorted(prof.key_averages(), key=lambda e: -self_dev(e))[:top]
+    return {"forward_ms": statistics.median(fwd_ms[1:]),
+            "backward_ms": statistics.median(bwd_ms[1:]),
+            "top_ops_ms": [(e.key, self_dev(e) / 1e3, e.count) for e in ops]}
+
+
+def compression_one_rank(torch, grads) -> dict:
+    """`ef_compress_tree` of `grads` with a seeded residual on a one-rank
+    NCCL group (a FileStore under build/): the reduced gradients bitwise
+    `dequantize(quantize(g + r))` (the mean over one rank) and the new
+    residual bitwise g + r - q * scale rounded once."""
+    import torch.distributed as dist
+
+    from repro_torch.models.layers import named_leaves
+    from repro_torch.train import compression as comp
+
+    residual = comp.ef_state(grads)
+    gen = torch.Generator(device=next(named_leaves(residual))[1].device)
+    gen.manual_seed(7)
+    for _, r in named_leaves(residual):
+        r.normal_(generator=gen).mul_(1e-4)
+    store = ROOT / "build" / "train-store"
+    store.unlink(missing_ok=True)
+    store.parent.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        reduced, new_r = comp.ef_compress_tree(grads, residual, dist.group.WORLD)
+        torch.cuda.synchronize()
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "ef_compress_s": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    red, res = dict(named_leaves(reduced)), dict(named_leaves(new_r))
+    leaves = 0
+    for path, g in named_leaves(grads):
+        c = g.float() + dict(named_leaves(residual))[path]
+        q, scale = comp.quantize(c)
+        want_r = (c.double() - q.double() * scale.double()).float()
+        if not (torch.equal(red[path], comp.dequantize(q, scale))
+                and torch.equal(res[path], want_r)):
+            raise AssertionError(f"ef_compress_tree on one NCCL rank: leaf "
+                                 f"{'/'.join(path)} is not bitwise")
+        leaves += 1
+    out.update(leaves=leaves, bitwise=True,
+               wire_bytes=comp.wire_bytes(grads, compressed=True))
+    return out
+
+
+def restart_check(torch, dev, cfg, shape, accum: int) -> dict:
+    """The restart contract at full width and TRAIN_RESTART_DEPTH layers:
+    4 steps straight through against 2 steps, a checkpoint and a fresh
+    `train(...)` restored from it for 2 more; the resumed losses within
+    TRAIN_RESTART_TOL (rel) of the straight run's."""
+    from repro_torch.launch.train import train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_RESTART_DEPTH)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=4)
+    d = ROOT / "build" / "train-ckpt" / cfg.name
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(opt=opt, accum=accum, log_every=1, verbose=False, device=dev)
+    try:
+        full = train(cfg2, shape, 4, **kw)
+        t0 = time.perf_counter()
+        train(cfg2, shape, 2, ckpt_dir=str(d), ckpt_every=2, **kw)
+        half_s = time.perf_counter() - t0
+        resumed = train(cfg2, shape, 4, ckpt_dir=str(d), ckpt_every=100, **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    a, b = dict(full.losses), dict(resumed.losses)
+    rel = {s: abs(b[s] - a[s]) / abs(a[s]) for s in (2, 3)}
+    out = {"layers": TRAIN_RESTART_DEPTH, "restored_from": resumed.restored_from,
+           "straight": [a[s] for s in range(4)], "resumed": [b[s] for s in (2, 3)],
+           "max_rel": max(rel.values()), "bitwise": all(a[s] == b[s] for s in (2, 3)),
+           "first_half_with_save_s": half_s}
+    if resumed.restored_from != 2 or out["max_rel"] > TRAIN_RESTART_TOL:
+        raise AssertionError(f"{cfg.name}: restart contract broken: {out}")
+    return out
+
+
+def train_model(torch, dev, smi: str, arch: str, S: int, B: int, accum: int,
+                steps: int) -> dict:
+    """One model of the train phase (module docstring, phase 13)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.kernels import _build
+    from repro_torch.launch.roofline import card_of
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params, named_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import train_step
+
+    cfg = configs.get(arch)
+    shape = ShapeSpec("train", S, B, "train")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.LAUNCHES.clear()
+    res = train(cfg, shape, steps, opt=opt, accum=accum, log_every=1,
+                verbose=False, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in ("ssd_chunk", "ssd_state_scan")}
+    info = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "seq_len": S, "global_batch": B, "microbatches": accum,
+            "steps": steps, "reduced": train_cuts(S, B, steps),
+            "launches_on_the_train_path": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "losses": [l for _, l in res.losses], "step_s": res.step_s,
+            "params": sum(p.numel() for p in res.params.parameters())}
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: the training path launched K6 / K7 "
+                             f"{launches}; it must run the plain chunked SSD")
+    if not all(np.isfinite(info["losses"])):
+        raise AssertionError(f"{arch}: losses not finite: {info['losses']}")
+    fresh = init_params(tfm.model_spec(cfg), torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    start = dict(named_leaves(fresh))
+    info["changed_share"] = {".".join(k): float((p != start[k]).float().mean())
+                             for k, p in named_leaves(res.params)}
+    big = [".".join(k) for k, p in named_leaves(res.params)
+           if p.numel() >= TRAIN_BIG_LEAF]
+    bad = [".".join(k) for k, p in named_leaves(res.params)
+           if not bool(torch.isfinite(p).all())]
+    del fresh, start
+    if bad or not all(info["changed_share"][k] > 0 for k in big):
+        raise AssertionError(f"{arch}: leaves not finite {bad[:4]}; share "
+                             f"changed {info['changed_share']}")
+    steady = res.step_s[1:] or res.step_s
+    info["s_per_step"] = statistics.median(steady)
+    tokens = B * S
+    info["tokens_per_s"] = tokens / info["s_per_step"]
+    info["flops_6nd"] = 6 * info["params"] * tokens
+    info["bf16_peak_share"] = (info["flops_6nd"] / card_of("cuda").bf16_flops
+                               / info["s_per_step"])
+    batch = batch_for_step(cfg, shape, steps, DataConfig(seed=0), device=dev)
+    costs, grads = train_step_costs(torch, res, cfg, batch, accum, opt)
+    info["step_costs"] = costs
+    if arch == TRAIN_RUNS[0][0]:
+        info["compression"] = compression_one_rank(torch, grads)
+    del grads
+    torch.cuda.empty_cache()
+    info["profile"] = kernel_profile(torch, lambda: train_step(
+        res.params, res.opt_state, batch, cfg=cfg, opt=opt, accum=accum))
+    info["ssm_layer"] = ssm_layer_costs(torch, res.params, cfg,
+                                        (B // accum, S, cfg.d_model))
+    del res, batch
+    torch.cuda.empty_cache()
+    info["restart"] = restart_check(torch, dev, cfg, shape, accum)
+    log(f"train: {arch} ({info['params']} params, {cfg.n_layers} layers) "
+        f"{accum} x {B // accum} x {S} tokens per step: losses "
+        f"{info['losses']}, grad norm {costs['grad_global_norm']:.6g} | {smi}")
+    log(f"train: {arch} {info['s_per_step']:.4f} s/step (each step "
+        f"{json.dumps(info['step_s'])}; cuts {json.dumps(info['reduced'])}), "
+        f"{info['tokens_per_s']:.1f} tokens/s, {info['bf16_peak_share'] * 100:.2f}% "
+        f"of the bf16 peak (6 x params x tokens), peak device memory "
+        f"{info['peak_mem_bytes']} bytes | {smi}")
+    prof = info["profile"]
+    idle = prof["device_idle_share"]
+    log(f"train: {arch} one step: forward {costs['forward_ms']:.1f} ms, backward "
+        f"{costs['backward_ms']:.1f} ms, optimizer {costs['optimizer_ms']:.1f} ms; "
+        f"profile busy {prof['device_busy_ms']} ms of {prof['wall_ms']:.1f}, idle "
+        f"{'not measured' if idle is None else f'{idle * 100:.2f}%'}, "
+        f"{prof['kernels']} kernels, top {json.dumps(prof['top_ms'])} | {smi}")
+    lay = info["ssm_layer"]
+    log(f"train: {arch} one SSM layer at {B // accum} x {S}: forward "
+        f"{lay['forward_ms']:.2f} ms, backward {lay['backward_ms']:.2f} ms, top ops "
+        f"{json.dumps(lay['top_ops_ms'])} | {smi}")
+    log(f"train: {arch} restart at {TRAIN_RESTART_DEPTH} layers: "
+        f"{json.dumps(info['restart'])} | {smi}")
+    return info
+
+
+def train_cuts(S: int, B: int, steps: int) -> dict:
+    """What the phase cuts from the reference's train_4k shape (4,096
+    tokens x a global batch of 256, trained for its schedule's steps)."""
+    from repro_torch.configs.base import SHAPES
+
+    full = SHAPES["train_4k"]
+    cuts = {"global_batch": f"{full.global_batch} -> {B}",
+            "steps": f"-> {steps}"}
+    if S != full.seq_len:
+        cuts["seq_len"] = f"{full.seq_len} -> {S}"
+    return cuts
+
+
+def train_phase(torch, dev, smi: str) -> dict:
+    """mamba2-370m and zamba2-1.2b trained at full width (module
+    docstring, phase 13)."""
+    torch.cuda.empty_cache()
+    info = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
+    for arch, S, B, accum, steps in TRAIN_RUNS:
+        info[arch] = train_model(torch, dev, smi, arch, S, B, accum, steps)
+        torch.cuda.empty_cache()
+    log(f"train phase ok: {json.dumps(info)}")
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -3891,6 +4236,7 @@ def main() -> int:
     k6, k7, result["serve"] = timed("serve", serve_phase, torch, dev, smi)
     result["kernels_zamba2"], result["lm"] = timed("lm", lm_phase, torch, dev,
                                                    smi)
+    result["train"] = timed("train", train_phase, torch, dev, smi)
     log(f"phase wall times (s): {json.dumps(wall)}")
     records += plan_er + [k2d_er, k4, k5_er, k6, k7]
     scale_records += [k5_scale] + plan_scale + [k2d_scale]

@@ -5,8 +5,8 @@ underneath; these functions rebuild the port's objects from those arrays,
 so both packages can be handed the same graph, allocation and plan (the
 tests do). Nothing here imports the reference package: callers pass the
 arrays, for example ``{f.name: getattr(obj, f.name) for f in
-dataclasses.fields(obj)}`` for a dataclass, or a model's parameter tree as
-float32 NumPy arrays.
+dataclasses.fields(obj)}`` for a dataclass, a model's parameter tree as
+float32 NumPy arrays, or an AdamW state.
 """
 from __future__ import annotations
 
@@ -83,3 +83,30 @@ def params(tree: Mapping[str, Any], dtype: torch.dtype = torch.bfloat16,
                 else leaf(prefix + k, v) for k, v in node.items()}
 
     return Params(walk(tree, ""))
+
+
+def opt_state(tree: Mapping[str, Any],
+              device: str | torch.device | None = "cuda") -> dict:
+    """The port's AdamW state from the reference's ``{"m", "v", "step"}``
+    (NumPy arrays): the moments as nested dicts of float32 tensors under
+    the params' keys, `step` an int32 scalar tensor, on `device` (default
+    the card, which raises without one)."""
+    dev = resolve_device(device)
+
+    def moments(node, prefix: str):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                out[k] = moments(v, f"{prefix}{k}.")
+                continue
+            a = np.asarray(v)
+            if a.dtype != np.float32:
+                raise TypeError(f"{prefix}{k} must be a float32 array, got {a.dtype}")
+            out[k] = torch.from_numpy(np.array(a)).to(dev)
+        return out
+
+    step = np.asarray(tree["step"])
+    if step.shape != () or not np.issubdtype(step.dtype, np.integer):
+        raise TypeError(f"step must be an integer scalar, got {step.dtype} {step.shape}")
+    return {"m": moments(tree["m"], "m."), "v": moments(tree["v"], "v."),
+            "step": torch.tensor(int(step), dtype=torch.int32, device=dev)}

@@ -80,8 +80,10 @@ def ssd_chunk(x, dt, dta, b, c):
       y_intra[t] = sum_{s<=t} (c_t.b_s) dt_s e^{cum_t-cum_s} x_s
       S          = sum_s e^{cum_Q-cum_s} dt_s b_s x_s^T
       G          = e^{cum_Q},  Cexp[t] = c_t e^{cum_t}
-    with cum the inclusive cumsum of dta. The upper triangle of the decay
-    is set to 0 directly (the reference masks inside the exp with -1e30).
+    with cum the inclusive cumsum of dta. The upper triangle is masked
+    inside the exp with -1e30, as the reference does: its exponents are
+    positive and may overflow, and masking after the exp would pass
+    inf * 0 = NaN back through the exp's gradient.
     """
     input_dtype(x, b, c)
     g, _, q, _ = x.shape
@@ -90,7 +92,8 @@ def ssd_chunk(x, dt, dta, b, c):
     cum = torch.cumsum(dta, dim=-1)
     scores = torch.matmul(c, b.transpose(-1, -2))
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    decay = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                                  -1e30))
     m = scores * decay * dt[..., None, :]
     y = torch.matmul(m, x)
     w = torch.exp(cum[..., -1:] - cum) * dt
@@ -107,13 +110,18 @@ def ssd_state_scan(G, S, h0=None):
     h_in [G, Ch, N, P] (the state entering each chunk) and h_final
     [G, N, P]: h_in[c] = h; h = G_c * h + S_c. The reference's
     `jax.lax.associative_scan` over (G, S) computes the same states in
-    another order.
+    another order. Under autograd the walk costs one pass over S and h_in
+    per direction: S and G are split into chunks with one `unbind` and the
+    states stacked at the end (indexing S[:, k] per chunk, or writing
+    h_in[:, k], would make the backward fill and add a whole-size
+    gradient once per chunk).
     """
     g, ch, n, p = S.shape
     h = (torch.zeros((g, n, p), dtype=f32, device=S.device) if h0 is None
          else h0.to(f32))
-    h_in = torch.empty_like(S)
-    for k in range(ch):
-        h_in[:, k] = h
-        h = G[:, k, None, None] * h + S[:, k]
+    states = []
+    for G_k, S_k in zip(G.unbind(1), S.unbind(1)):
+        states.append(h)
+        h = G_k[:, None, None] * h + S_k
+    h_in = torch.stack(states, 1) if states else torch.empty_like(S)
     return h_in, h

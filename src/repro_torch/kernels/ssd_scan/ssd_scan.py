@@ -6,7 +6,10 @@ shape on any device, then either launches its kernel on PyTorch's current
 stream for CUDA tensors (allocating the outputs with `torch.empty`,
 raising on a launch error, adding one to `_build.LAUNCHES[<kernel>]`) or
 runs the plain version in `ref.py` for CPU tensors; any other device, or a
-mix, raises.
+mix, raises. The kernels have no backward: on every device a wrapper
+refuses an input that requires grad while autograd records, rather than
+return outputs cut off from the gradient (training runs the plain
+chunked SSD, `use_kernel=False`, as the reference does).
 """
 from __future__ import annotations
 
@@ -57,6 +60,16 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """`RuntimeError` when autograd records and an input requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad; run the plain "
+            "chunked SSD (use_kernel=False) to train, or call under "
+            "torch.no_grad()")
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor):
     """K6: the intra-chunk SSD of every (group, chunk).
@@ -86,6 +99,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dta: torch.Tensor,
         _build.check_tensor(t, name, dtype, (gb, ch, q, n))
     if min(q, p, n) < 1:
         raise ValueError(f"Q, P and N must be >= 1, got {(q, p, n)}")
+    _refuse_grad("ssd_chunk", x, dt, dta, b, c)
     rows = part_tokens(q, p, n, dtype)
     if rows == 0:
         smem = chunk_smem_bytes(q, p, n, dtype, 16)
@@ -128,6 +142,7 @@ def ssd_state_scan(G: torch.Tensor, S: torch.Tensor,
     _build.check_tensor(G, "G", F32, (g, ch))
     if h0 is not None:
         _build.check_tensor(h0, "h0", F32, (g, n, p))
+    _refuse_grad("ssd_state_scan", G, S, h0)
     if not _build.on_cuda(G, S, h0):
         return ref.ssd_state_scan(G, S, h0)
     h_in = torch.empty_like(S)

@@ -1,1 +1,1 @@
-"""Entry points of the port's model path (serving)."""
+"""Entry points of the port's model path (serving and training)."""

@@ -7,8 +7,9 @@ logical axes and init) and held in a `Params` module under the reference's
 keys, so ``p["layers"]["mixer"]["in_proj"]`` names the same tensor in both
 packages. The attention is plain PyTorch ops in the reference's arithmetic
 (float32 scores and softmax, a softcap, -1e30 at masked entries), not
-`F.scaled_dot_product_attention`, which has no softcap. The cross-entropy
-is training and waits for ROADMAP Queue 1 #12 (e).
+`F.scaled_dot_product_attention`, which has no softcap. `cross_entropy`
+is the training loss; `Params.trainable(True)` turns on the gradients that
+training takes (serving keeps every leaf frozen).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Iterator, Mapping
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
@@ -36,9 +38,9 @@ class ParamSpec:
 class Params(nn.Module):
     """A parameter tree under the reference's keys.
 
-    Leaves are frozen `nn.Parameter`s (the port serves; nothing trains
-    yet), inner nodes are child `Params`; ``p[key]`` reads either, and
-    `state_dict()` names each leaf by its dotted path.
+    Leaves are `nn.Parameter`s, frozen until `trainable(True)` (serving
+    takes no gradient), inner nodes are child `Params`; ``p[key]`` reads
+    either, and `state_dict()` names each leaf by its dotted path.
     """
 
     def __init__(self, tree: Mapping[str, object]):
@@ -57,6 +59,32 @@ class Params(nn.Module):
     def keys(self) -> Iterator[str]:
         yield from sorted([*self._parameters, *self._modules])
 
+    def trainable(self, flag: bool = True) -> "Params":
+        """Set `requires_grad` on every leaf (training); returns self."""
+        for leaf in self.parameters():
+            leaf.requires_grad_(flag)
+        return self
+
+
+def named_leaves(tree, prefix: tuple[str, ...] = ()
+                 ) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
+    """(path, leaf) of a `Params` tree or of nested mappings of tensors,
+    in sorted-key order at every level: the order in which JAX flattens
+    the reference's dict trees."""
+    for key in sorted(tree.keys()):
+        v = tree[key]
+        if isinstance(v, torch.Tensor):
+            yield prefix + (key,), v
+        else:
+            yield from named_leaves(v, prefix + (key,))
+
+
+def map_tree(fn, tree) -> dict:
+    """Nested dicts of ``fn(leaf)`` under the keys of `tree` (a `Params`
+    tree or nested mappings of tensors)."""
+    return {k: fn(tree[k]) if isinstance(tree[k], torch.Tensor)
+            else map_tree(fn, tree[k]) for k in tree.keys()}
+
 
 def _leaves(spec, prefix=()) -> Iterator[tuple[tuple[str, ...], ParamSpec]]:
     """(path, ParamSpec) in the reference's flatten order (sorted keys)."""
@@ -68,7 +96,8 @@ def _leaves(spec, prefix=()) -> Iterator[tuple[tuple[str, ...], ParamSpec]]:
             yield from _leaves(v, prefix + (key,))
 
 
-def _nest(items) -> dict:
+def nest(items) -> dict:
+    """Nested dicts from (path, value) pairs, path a tuple of keys."""
     tree: dict = {}
     for path, v in items:
         node = tree
@@ -121,7 +150,7 @@ def init_params(spec, generator: torch.Generator, dtype=torch.bfloat16,
         else:
             v = draw(p, p.shape).to(dtype)
         out.append((path, v))
-    return Params(_nest(out))
+    return Params(nest(out))
 
 
 # ---------------- primitives ----------------
@@ -185,7 +214,9 @@ def attend(q, k, v, qpos, kpos, *, causal=True, window=None, softcap=None,
     scores = torch.matmul(qg.to(torch.float32),
                           kt.to(torch.float32)[:, :, None])      # [B,G,h,Sq,Sk]
     scores.div_(math.sqrt(D))
-    if softcap is not None:           # _softcap, in place on the score tile
+    if softcap is not None and scores.requires_grad:
+        scores = _softcap(scores, softcap)   # tanh's backward reads its output
+    elif softcap is not None:         # _softcap, in place on the score tile
         scores.div_(softcap).tanh_().mul_(softcap)
     m = _mask(qpos, kpos, causal=causal, window=window)[:, None, None]
     if kv_valid is not None:
@@ -201,16 +232,31 @@ def chunked_attend(q, k, v, qpos, kpos, *, chunk=1024, **kw):
     """The prefill's attention over query chunks of `chunk` positions, each
     against the whole key axis, so the float32 score tile is
     [B, H, chunk, Sk] instead of [B, H, S, S]. S <= chunk takes one
-    `attend`; otherwise S must be a multiple of `chunk`."""
+    `attend`; otherwise S must be a multiple of `chunk`. Under autograd
+    each chunk is recomputed in the backward (the reference's
+    `jax.checkpoint` on the chunk body), so no chunk's score tile is kept."""
     B, S, H, D = q.shape
     if S <= chunk:
         return attend(q, k, v, qpos, kpos, **kw)
     assert S % chunk == 0, (S, chunk)
     kt = k.permute(0, 2, 3, 1)        # transposed once for every chunk
     vt = v.permute(0, 2, 1, 3)
-    return torch.cat([attend(q[:, a:a + chunk], None, None,
-                             qpos[:, a:a + chunk], kpos, kt=kt, vt=vt, **kw)
-                      for a in range(0, S, chunk)], dim=1)
+
+    def body(qc, pc, kt, vt):
+        return attend(qc, None, None, pc, kpos, kt=kt, vt=vt, **kw)
+
+    return torch.cat([remat(body, q[:, a:a + chunk], qpos[:, a:a + chunk],
+                            kt, vt) for a in range(0, S, chunk)], dim=1)
+
+
+def remat(fn, *args):
+    """fn(*args), recomputed in the backward instead of keeping its
+    intermediates when autograd records it (the reference's
+    `jax.checkpoint`); a plain call otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                         preserve_rng_state=False)
 
 
 def split_heads(x, w):
@@ -238,3 +284,15 @@ def geglu(x, w_gate, w_up, w_down, act: str = "silu"):
     u = torch.matmul(x, w_up)
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     return torch.matmul(a * u, w_down)
+
+
+def cross_entropy(logits, labels, vocab: int, softcap=None):
+    """Mean token cross-entropy of logits [..., vocab] (softcapped, in
+    float32) at integer labels [...]. The reference sums one_hot * log p
+    over the vocab (`layers.py:168-172`); every term but the label's is an
+    exact zero, so the log-probability gathered at the label is the same
+    value without the [..., vocab] one-hot."""
+    if logits.shape[-1] != vocab:
+        raise ValueError(f"logits have {logits.shape[-1]} classes, vocab is {vocab}")
+    logp = torch.log_softmax(_softcap(logits.to(torch.float32), softcap), dim=-1)
+    return -torch.mean(logp.gather(-1, labels.long()[..., None])[..., 0])

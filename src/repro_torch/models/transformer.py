@@ -7,8 +7,10 @@ is a Python loop over the layer axis of the same stacked tensors, and the
 per-layer window is a Python int (-1 = global). A stack of llama4's
 dense / MoE interleave holds two stacked trees, "dense" and "moe", one
 layer of each per unit. Its `constrain` and `tp_size` sharding calls are
-no-ops without a mesh, and one card has none, so they are dropped, as is
-`remat` (training).
+no-ops without a mesh, and one card has none, so they are dropped.
+`remat=True` recomputes each block (a layer, or llama4's unit of two) in
+the backward, as the reference's `jax.checkpoint` does; `loss_fn` is the
+training loss.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ from ..configs.base import ModelConfig
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (ParamSpec, attend, chunked_attend, geglu, merge_heads,
-                     rms_norm, rope, split_heads)
+from .layers import (ParamSpec, attend, chunked_attend, cross_entropy, geglu,
+                     merge_heads, remat as remat_call, rms_norm, rope,
+                     split_heads)
 
 
 # ---------------- param specs ----------------
@@ -181,6 +184,17 @@ def layer(tree, i: int) -> dict:
             else tree[k][i] for k in tree.keys()}
 
 
+def unstacked(tree) -> list[dict]:
+    """Every layer of a stacked param tree, as `layer` gives them, from one
+    `unbind` per leaf: the backward then writes each stacked leaf's
+    gradient once, where a view per layer would add a zero-filled
+    full-size gradient per layer."""
+    flat = {k: torch.unbind(tree[k]) if isinstance(tree[k], torch.Tensor)
+            else unstacked(tree[k]) for k in tree.keys()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
 def attn_layers(params, cfg: ModelConfig):
     """Each attention layer in order, as (layer params, window, moe_layer,
     cache prefix, index in its stack): one stack, or llama4's units of a
@@ -188,19 +202,35 @@ def attn_layers(params, cfg: ModelConfig):
     reference's windows at offsets 0 / 1, stride `moe_interleave`)."""
     unit, w = moe_interleave(cfg), windows(cfg)
     if unit == 1:
+        lps = unstacked(params["layers"])
         for i in range(cfg.n_layers):
-            yield layer(params["layers"], i), w[i], bool(cfg.moe), "", i
+            yield lps[i], w[i], bool(cfg.moe), "", i
         return
+    parts = {part: unstacked(params["layers"][part]) for part in ("dense", "moe")}
     for i in range(cfg.n_layers // unit):
         for off, part in enumerate(("dense", "moe")):
-            yield (layer(params["layers"][part], i), w[i * unit + off],
-                   part == "moe", f"{part}_", i)
+            yield (parts[part][i], w[i * unit + off], part == "moe",
+                   f"{part}_", i)
 
 
-def _attn_stack(params, cfg: ModelConfig, x, positions, *, chunk=1024):
-    for lp, w, moe_layer, _, _ in attn_layers(params, cfg):
-        x, _ = block_forward(lp, cfg, x, positions, w, moe_layer=moe_layer,
-                             chunk=chunk)
+def _attn_stack(params, cfg: ModelConfig, x, positions, *, remat=False,
+                chunk=1024):
+    """The attention stack; with `remat` each unit (one block, or llama4's
+    dense + MoE pair) is recomputed in the backward. The reference carries
+    the stack in float32 under remat; a bf16 block output cast to float32
+    and back is exact, so that changes no value and is not copied."""
+    def unit(x, *blocks):
+        for lp, w, moe_layer in blocks:
+            x, _ = block_forward(lp, cfg, x, positions, w, moe_layer=moe_layer,
+                                 chunk=chunk)
+        return x
+
+    blocks = [(lp, w, moe_layer) for lp, w, moe_layer, _, _
+              in attn_layers(params, cfg)]
+    per = moe_interleave(cfg)
+    for a in range(0, len(blocks), per):
+        x = remat_call(unit, x, *blocks[a:a + per]) if remat \
+            else unit(x, *blocks[a:a + per])
     return x
 
 
@@ -214,19 +244,26 @@ def hybrid_segments(cfg: ModelConfig) -> list[tuple[int, int]]:
             for s in range(0, cfg.n_layers, cfg.attn_every)]
 
 
-def _ssm_stack(params, cfg: ModelConfig, x, positions, *, chunk=1024,
-               use_kernel: bool = True):
+def _ssm_stack(params, cfg: ModelConfig, x, positions, *, remat=False,
+               chunk=1024, use_kernel: bool = True):
+    """The "ssm" / hybrid stack; with `remat` each SSM layer is recomputed
+    in the backward (the shared attention block is not, as in the
+    reference; its chunked attention recomputes each chunk)."""
     use_shared = cfg.family == "hybrid" and cfg.attn_every
+
+    def ssm_layer(x, lp):
+        hn = rms_norm(x, lp["norm"], cfg.norm_eps)
+        out, _ = ssm_mod.mamba2_block(lp["mixer"], cfg, hn,
+                                      use_kernel=use_kernel)
+        return x + out
+
+    lps = unstacked(params["layers"])
     for a, b in hybrid_segments(cfg):
         if use_shared:
             x, _ = block_forward(params["shared_attn"], cfg, x, positions, -1,
                                  chunk=chunk)
         for i in range(a, b):
-            lp = layer(params["layers"], i)
-            hn = rms_norm(x, lp["norm"], cfg.norm_eps)
-            out, _ = ssm_mod.mamba2_block(lp["mixer"], cfg, hn,
-                                          use_kernel=use_kernel)
-            x = x + out
+            x = remat_call(ssm_layer, x, lps[i]) if remat else ssm_layer(x, lps[i])
     return x
 
 
@@ -250,18 +287,19 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     return te
 
 
-def forward_hidden(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
-                   use_kernel: bool = True):
+def forward_hidden(params, cfg: ModelConfig, batch: dict, *, remat=False,
+                   chunk=1024, use_kernel: bool = True):
     """Embed + stack + final norm -> hidden [B, S, d] (no logits).
-    `use_kernel` picks K6 / K7 or their plain versions in the SSM blocks."""
+    `use_kernel` picks K6 / K7 or their plain versions in the SSM blocks;
+    `remat` recomputes each block in the backward."""
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.family in ("ssm", "hybrid"):
-        x = _ssm_stack(params, cfg, x, positions, chunk=chunk,
+        x = _ssm_stack(params, cfg, x, positions, remat=remat, chunk=chunk,
                        use_kernel=use_kernel)
     else:
-        x = _attn_stack(params, cfg, x, positions, chunk=chunk)
+        x = _attn_stack(params, cfg, x, positions, remat=remat, chunk=chunk)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -278,3 +316,41 @@ def forward(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
     do."""
     return logits_of(params, forward_hidden(params, cfg, batch, chunk=chunk,
                                             use_kernel=use_kernel))
+
+
+def _chunked_ce(x, embed, labels, vocab, softcap, *, seq_chunk=512):
+    """The cross-entropy over sequence chunks of `seq_chunk` positions (one
+    chunk when S is not a multiple of it, as in the reference), each chunk
+    recomputed in the backward, so that no chunk's float32 logits are
+    kept; the mean of the chunks' means."""
+    B, S, d = x.shape
+    if S % seq_chunk:
+        seq_chunk = S                      # ragged: fall back to one chunk
+    n = S // seq_chunk
+
+    def body(xc, lc):
+        return cross_entropy(torch.matmul(xc, embed.transpose(0, 1)), lc,
+                             vocab, softcap)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, S, seq_chunk):
+        tot = tot + remat_call(body, x[:, a:a + seq_chunk],
+                               labels[:, a:a + seq_chunk])
+    return tot / n
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, remat=True, chunk=1024):
+    """The training loss: next-token cross-entropy (the tokens themselves
+    for encoder-only and audio models), over the text positions only for
+    vision models. Runs the SSM blocks on the plain chunked SSD
+    (`use_kernel=False`), as the reference trains: the kernels take no
+    gradient."""
+    x = forward_hidden(params, cfg, batch, remat=remat, chunk=chunk,
+                       use_kernel=False)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":            # loss on text positions only
+        x = x[:, cfg.num_patches:]
+    if not cfg.encoder_only and cfg.frontend != "audio":
+        x, labels = x[:, :-1], labels[:, 1:]
+    return _chunked_ce(x, params["embed"], labels, cfg.vocab,
+                       cfg.logit_softcap)

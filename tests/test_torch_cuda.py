@@ -40,8 +40,12 @@ zamba2-1.2b, mamba2-370m, deepseek-v2-236b and llama4-maverick-400b-a17b,
 plus two float32 layers of memory, the MoE FFN's routing with tied gates
 (the lower index first, as on the CPU), `moe_ffn` bitwise repeatable and
 against its one-hot plain version at 160 experts top-6, the reduced
-deepseek-v2 and llama4 served with MLA's caches written in place, and
-`moe_ffn_ep` on a one-rank NCCL group.
+deepseek-v2 and llama4 served with MLA's caches written in place,
+`moe_ffn_ep` on a one-rank NCCL group, and training: a float32
+`train_step` of the reduced mamba2-370m and zamba2-1.2b on the card
+against the CPU, `launch.train.train` on its default device with a
+restart, a checkpoint round trip from the card, and K6 / K7 refusing an
+input that requires grad.
 Whether a card exists is decided inside the `cuda` fixture, never at
 import time.
 """
@@ -1261,3 +1265,135 @@ def test_packed_kernels_on_each_ranks_rows(cuda, monkeypatch, K, r, P, B):
         got.append(xc.xor_decode_packed(*dec, total=rk.M_local))
         assert torch.equal(got[-1], xref.xor_decode_packed(*dec))
     assert torch.equal(torch.cat(got), words)
+
+
+# ---------------- training (the plain chunked SSD under autograd) ----------------
+
+def _train_case(arch, dev):
+    """The reduced config, float32 params drawn on the CPU and copied to
+    `dev` (trainable), and the pipeline's batch 0 at 2 x 32 on `dev`."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models.layers import Params, map_tree
+
+    cfg = configs.get(arch).reduced()
+    cpu = init_params(tfm.model_spec(cfg), torch.Generator().manual_seed(0),
+                      dtype=torch.float32, device="cpu")
+    params = Params(map_tree(lambda t: t.detach().to(dev), cpu)).trainable(True)
+    batch = batch_for_step(cfg, ShapeSpec("t", 32, 2, "train"), 0, device=dev)
+    return cfg, params, batch
+
+
+def _flat_grads(grads):
+    from repro_torch.models.layers import named_leaves
+
+    return {k: g.detach().cpu() for k, g in named_leaves(grads)}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """`train_step` on the card against the same step on the CPU (float32,
+    TF32 off): loss within rtol 1e-5; each leaf's gradient within
+    max(1e-4, 4 s) of its max|g|, s the CPU's own largest per-leaf shift
+    when every weight moves one float32 unit (the CPU tests' gate), or
+    within 1e-5 of the model's largest gradient: a_log's gradient sums
+    terms of both signs over every position, so the card's other summation
+    order moves it by 2.6e-4 of its own max|g| (on an H100), 4.5e-6 of the
+    largest; after one AdamW step 99.9% of the params within lr / 100 of
+    the CPU's and all within 2.5 lr."""
+    from repro_torch.models.layers import Params, map_tree, named_leaves
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+
+    cfg, pc, bc = _train_case(arch, "cuda")
+    _, pp, bp = _train_case(arch, "cpu")
+    lc, gc = tstep.loss_and_grads(pc, cfg, bc, chunk=8)
+    lp, gp = tstep.loss_and_grads(pp, cfg, bp, chunk=8)
+    assert float(lc) == pytest.approx(float(lp), rel=1e-5)
+    bumped = Params(map_tree(lambda t: torch.where(
+        t == 0, t, torch.nextafter(t, 2 * t)).detach(), pp)).trainable(True)
+    _, gb = tstep.loss_and_grads(bumped, cfg, bp, chunk=8)
+    gc, gp, gb = _flat_grads(gc), _flat_grads(gp), _flat_grads(gb)
+    s = max(float((gb[k] - gp[k]).abs().max() / gp[k].abs().max()) for k in gp
+            if gp[k].abs().max() > 0)
+    tol = max(1e-4, 4 * s)
+    top = max(float(g.abs().max()) for g in gp.values())
+    for k in gp:
+        err = float((gc[k] - gp[k]).abs().max())
+        assert err <= max(tol * float(gp[k].abs().max()), 1e-5 * top), (k, err)
+    opt = topt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    pc, sc, _ = tstep.train_step(pc, topt.init_state(pc), bc, cfg=cfg, opt=opt, chunk=8)
+    pp, sp, _ = tstep.train_step(pp, topt.init_state(pp), bp, cfg=cfg, opt=opt, chunk=8)
+    assert int(sc["step"]) == int(sp["step"]) == 1
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                       for (_, a), (_, b) in zip(named_leaves(pc), named_leaves(pp))])
+    # An Adam step moves each element by about lr whatever its gradient's
+    # size, so an element whose gradient is rounding noise may step the
+    # other way on the card: most must agree, none may step more than lr.
+    assert float(diffs.max()) <= 2.5 * opt.lr, float(diffs.max())
+    assert float(torch.quantile(diffs, 0.999)) <= opt.lr / 100
+
+
+def test_train_runs_on_the_card_by_default(cuda, tmp_path):
+    """`launch.train.train` with no device trains on the card through the
+    plain chunked SSD (K6 / K7 not launched), its losses finite, and a
+    restart from its checkpoint continues the uninterrupted run's losses
+    within rel 1e-4."""
+    from repro_torch.launch.train import train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = configs.get("mamba2-370m").reduced()
+    shape = ShapeSpec("t", 64, 4, "train")
+    opt = AdamWConfig(lr=2e-3, warmup_steps=2, total_steps=8)
+    _build.LAUNCHES.clear()
+    res = train(cfg, shape, 4, opt=opt, ckpt_dir=str(tmp_path), chunk=8,
+                verbose=False, log_every=1)
+    assert _build.LAUNCHES["ssd_chunk"] == _build.LAUNCHES["ssd_state_scan"] == 0
+    assert next(res.params.parameters()).device.type == "cuda"
+    assert all(np.isfinite(l) for _, l in res.losses)
+    more = train(cfg, shape, 8, opt=opt, ckpt_dir=str(tmp_path), chunk=8,
+                 verbose=False, log_every=1)
+    full = train(cfg, shape, 8, opt=opt, chunk=8, verbose=False, log_every=1)
+    assert more.restored_from == 4
+    for (s, a), (_, b) in zip(more.losses, full.losses[4:]):
+        assert a == pytest.approx(b, rel=1e-4), s
+
+
+def test_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    """bf16 params and float32 moments saved from the card come back
+    bitwise on the card and on the CPU."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.layers import named_leaves
+    from repro_torch.train.optimizer import init_state
+
+    cfg = configs.get("zamba2-1.2b").reduced()
+    params = init_params(tfm.model_spec(cfg), torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    state = init_state(params)
+    state["m"]["embed"].normal_(generator=torch.Generator(device=cuda).manual_seed(1))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, params, state, blocking=True)
+    for dev in (cuda, "cpu"):
+        step, p2, s2, _ = mgr.restore(params, state, device=dev)
+        assert step == 3
+        for (k, a), (_, b) in zip(named_leaves(params), named_leaves(p2)):
+            assert b.dtype == torch.bfloat16 and b.device.type == torch.device(dev).type
+            assert torch.equal(a.cpu().view(torch.int16), b.cpu().view(torch.int16)), k
+        assert torch.equal(s2["m"]["embed"].cpu(), state["m"]["embed"].cpu())
+        assert int(s2["step"]) == 0
+
+
+def test_ssd_chunk_refuses_a_card_input_that_requires_grad(cuda):
+    """K6 and K7 write through ctypes into fresh tensors, which would come
+    back cut off from the gradient: on the card they refuse an input that
+    requires grad while autograd records, and run under no_grad."""
+    rng = np.random.default_rng(0)
+    args = _chunk_inputs(rng, 4, 2, 64, 64, 16, cuda)
+    x = args[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_k.ssd_chunk(x, *args[1:])
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        _, S, G, _ = ssd_k.ssd_chunk(x, *args[1:])
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_k.ssd_state_scan(G, S.clone().requires_grad_(True))

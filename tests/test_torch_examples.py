@@ -1,5 +1,6 @@
 """The port's examples (`examples/port_*.py`) run on the CPU and print what
-the reference's examples print.
+the reference's examples print (the LM examples: the same lines; their
+weights and data are not JAX's bits, so not the same numbers).
 
 Each example runs with `--device cpu` in a subprocess (with its own
 timeout, `HOME` and `JAX_PLATFORMS=cpu`) and exits 0, having held its
@@ -48,3 +49,25 @@ def test_port_example_prints_the_references_loads(port, ref):
     assert len(rows) in (5, 6) and numbers
     assert (rows, numbers) == _printed(theirs)
     assert "device cpu" in mine and "rtol 1e-05" in mine
+
+
+def test_port_train_lm_trains_and_restarts():
+    """`examples/port_train_lm.py` on the CPU: a few steps of the reduced
+    gemma-7b, a checkpoint, and a restart that resumes from it. Its data
+    and weights are not JAX's bits, so its losses are not the reference
+    example's; it prints the same lines."""
+    out = _run("port_train_lm.py", "--device", "cpu", "--steps", "8")
+    assert "training gemma-7b-smoke" in out and "device cpu" in out
+    assert "restored from step 4" in out
+    assert "restart resumed from step 4 (fault-tolerant)." in out
+    assert re.search(r"loss: \d+\.\d+ -> \d+\.\d+", out)
+
+
+def test_port_serve_lm_serves_both_archs():
+    """`examples/port_serve_lm.py` on the CPU: 12 greedy tokens for 4
+    prompts of the reduced internlm2-20b and mamba2-370m, as the
+    reference's `examples/serve_lm.py`."""
+    out = _run("port_serve_lm.py", "--device", "cpu")
+    for arch in ("internlm2-20b", "mamba2-370m"):
+        assert f"{arch:16s} batch=4 prompt=8 -> 12 new tokens per request" in out
+    assert "batched serving OK" in out

@@ -34,6 +34,12 @@ def test_port_has_modules():
 def test_walk_covers_the_examples_and_experiments():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"examples/port_quickstart.py", "examples/port_coded_pagerank.py",
+            "examples/port_train_lm.py", "examples/port_serve_lm.py",
+            "src/repro_torch/train/optimizer.py", "src/repro_torch/train/step.py",
+            "src/repro_torch/train/compression.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/launch/train.py",
             "src/repro_torch/experiments/table2.py",
             "src/repro_torch/experiments/registry.py",
             "src/repro_torch/experiments/__main__.py",
