@@ -208,7 +208,21 @@ non-zero before its last line:
      more, against 4 steps straight through, losses within rel 1e-4. On
      mamba2's gradients, `ef_compress_tree` on a one-rank NCCL group: the
      reduced gradients bitwise `dequantize(quantize(g + r))`, the residual
-     bitwise g + r - q * scale rounded once.
+     bitwise g + r - q * scale rounded once;
+  14. dryrun: `launch/dryrun.lower_cell` on the production meshes, a fake
+     process group of 256 or 512 ranks in this process and meta tensors
+     on the card's mesh (nothing allocated): mamba2-370m `long_500k`,
+     internvl2-1b `train_4k`, mamba2-370m `decode_32k` on the 2 x 16 x 16
+     mesh, gemma2-27b `decode_32k` and deepseek-v2-236b `prefill_32k` at
+     full size, each `ok`, with its bytes per device against the card's
+     memory, the three roofline terms at the card's figures and its
+     seconds. Then on a one-rank NCCL group, mesh (1, 1), the dry run's
+     prediction against the same step run on the card: gemma2-27b prefill
+     2 x 5,120 at full depth and mamba2-370m `decode_32k` (B = 128, a
+     float32 cache): the inputs' bytes within 1 MB of the bytes the
+     card's allocator assigns them, args + temp within 0.8-1.25 of
+     `max_memory_allocated`, the dot FLOPs within 1% of
+     `cost_analysis.count` of the real step.
 
 Every device busy time and idle share comes from a complete profiler
 window (`profiled_window`): one whose records of the port's kernels differ
@@ -4180,6 +4194,174 @@ def train_phase(torch, dev, smi: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# dryrun phase: the production meshes in one process, and the (1, 1) check
+# ---------------------------------------------------------------------------
+
+
+DRYRUN_CELLS = (("mamba2-370m", "long_500k", False),
+                ("internvl2-1b", "train_4k", False),
+                ("mamba2-370m", "decode_32k", True),
+                ("gemma2-27b", "decode_32k", False),
+                ("deepseek-v2-236b", "prefill_32k", False))
+DRYRUN_ARG_TOL = 1 << 20          # predicted vs allocated input bytes
+DRYRUN_MEM_BAND = (0.8, 1.25)     # args + temp over max_memory_allocated
+DRYRUN_FLOP_TOL = 0.01            # predicted vs counted dot FLOPs
+
+
+def allocated_bytes(torch, tensors) -> tuple[int, int]:
+    """(the bytes the caching allocator assigns to the storages of
+    `tensors`, the bytes of the blocks that hold them), from the active
+    blocks at their addresses (`torch.cuda.memory_snapshot()`), apart
+    from anything else live. Assigned: each block's requested size
+    rounded up to the allocator's 512-byte granule. A block may be larger
+    by the remainder of a segment the allocator does not split off (up to
+    1 MiB, by where earlier frees left free space), which is no byte of
+    the input."""
+    ptrs = {t.untyped_storage().data_ptr() for t in tensors}
+    blocks = [b for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+              if b["state"] == "active_allocated" and b["address"] in ptrs]
+    return (sum(-(-b["requested_size"] // 512) * 512 for b in blocks),
+            sum(b["size"] for b in blocks))
+
+
+def dryrun_measure(torch, dev, cfg, shape) -> dict:
+    """The step a (1, 1) dry run predicts, run on the card: bf16 weights
+    from a seeded generator, a float32 cache for decode, zero tokens; the
+    bytes the allocator assigns to the inputs (`allocated_bytes`), the
+    step's peak above what was allocated before, and its dot FLOPs
+    (`cost_analysis.count`)."""
+    from repro_torch.launch.cost_analysis import count
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params, named_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = init_params(tfm.model_spec(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    B = shape.global_batch
+    toks = torch.zeros((B, 1 if shape.kind == "decode" else shape.seq_len),
+                       dtype=torch.int32, device=dev)
+    inputs = [t for _, t in named_leaves(params)] + [toks]
+    if shape.kind == "decode":
+        cache = dec.init_cache(cfg, shape, dtype=torch.float32, device=dev)
+        inputs += list(cache.values())
+        args = (params, cfg, cache, {"tokens": toks})
+        step, kw = dec.decode_step, {}
+    else:
+        args = (params, cfg, {"tokens": toks})
+        step, kw = dec.prefill, {"use_kernel": False}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    arg_alloc, arg_blocks = allocated_bytes(torch, inputs)
+    arg_delta = torch.cuda.memory_allocated(dev) - base
+    del inputs
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        out, cost = count(step, *args, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    logits = out[0] if isinstance(out, tuple) else out
+    if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name}: real step's logits "
+                             f"{tuple(logits.shape)} not finite [B, vocab]")
+    del params, args, out, logits
+    torch.cuda.empty_cache()
+    return {"arg_bytes_allocated": arg_alloc, "arg_block_bytes": arg_blocks,
+            "allocated_delta_bytes": arg_delta, "peak_bytes": peak,
+            "counted_peak_bytes": cost.peak_bytes, "flops": cost.flops,
+            "init_s": init_s}
+
+
+def dryrun_real(torch, dev, cfg, shape, pred: dict) -> dict:
+    """The (1, 1) prediction `pred` against `dryrun_measure` of the same
+    step; raises where it is off."""
+    info = dryrun_measure(torch, dev, cfg, shape)
+    info.update({
+        "arg_bytes_diff": pred["arg_bytes"] - info["arg_bytes_allocated"],
+        "mem_ratio": (pred["arg_bytes"] + pred["temp_bytes"])
+        / info["peak_bytes"],
+        "flops_ratio": pred["flops_per_device"] / info["flops"]})
+    lo, hi = DRYRUN_MEM_BAND
+    if abs(info["arg_bytes_diff"]) > DRYRUN_ARG_TOL \
+            or not lo <= info["mem_ratio"] <= hi \
+            or abs(info["flops_ratio"] - 1) > DRYRUN_FLOP_TOL:
+        raise AssertionError(f"{cfg.name} {shape.name}: the (1, 1) dry run "
+                             f"is off the card's step: {json.dumps(info)}")
+    return info
+
+
+def dryrun_phase(torch, dev, smi: str) -> dict:
+    """Part (i): the production-mesh cells of `DRYRUN_CELLS`, each `ok`.
+    Part (ii): the dry run at mesh (1, 1) over a one-rank NCCL group (a
+    FileStore under build/) against the same step on the card, for the lm
+    phase's gemma2-27b prefill and mamba2-370m `decode_32k`."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import rules
+
+    if dist.is_initialized():
+        raise AssertionError("dryrun phase: a process group is still set")
+    memory = torch.cuda.get_device_properties(dev).total_memory
+    info = {"cells": [], "local": {}}
+    for arch, shape, multi in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.lower_cell(arch, shape, multi_pod=multi, verbose=False,
+                              device=dev)
+        r["wall_s"] = time.perf_counter() - t0
+        info["cells"].append(r)
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun phase: {json.dumps(r)}")
+        log(f"dryrun: {arch} {shape} {r['mesh']} ({r['chips']} chips): ok, "
+            f"{r['bytes_per_device']} bytes per device "
+            f"({r['bytes_per_device'] / memory:.3f} of the card's {memory}), "
+            f"t_compute {r['t_compute_s']:.6g} s, t_memory "
+            f"{r['t_memory_s']:.6g} s, t_collective {r['t_collective_s']:.6g}"
+            f" s ({r['bottleneck']}), useful FLOPs {r['useful_flops_ratio']:.4f},"
+            f" {r['wall_s']:.2f} s (trees {r['lower_s']} s, step "
+            f"{r['compile_s']} s) | {smi}")
+    store = ROOT / "build" / "dryrun-store"
+    store.unlink(missing_ok=True)
+    store.parent.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device=dev)
+        for arch, shape in ((LM_DENSE, ShapeSpec("lm_prefill", LM_PREFILL_L,
+                                                 LM_PREFILL_B, "prefill")),
+                            (SERVE_ARCH, SHAPES["decode_32k"])):
+            cfg = configs.get(arch)
+            with rules.use_mesh(mesh):
+                pred = dryrun.run_cell(cfg, shape, mesh, device=dev)
+            pred.pop("cost")
+            real = dryrun_real(torch, dev, cfg, shape, pred)
+            info["local"][f"{arch} {shape.name}"] = {"predicted": pred,
+                                                     "real": real}
+            log(f"dryrun (1, 1): {arch} {shape.name} B={shape.global_batch} "
+                f"L={shape.seq_len}: args {pred['arg_bytes']} predicted / "
+                f"{real['arg_bytes_allocated']} allocated (diff "
+                f"{real['arg_bytes_diff']}; their blocks "
+                f"{real['arg_block_bytes']}, memory_allocated grew "
+                f"{real['allocated_delta_bytes']}), args + temp "
+                f"{pred['arg_bytes'] + pred['temp_bytes']} / peak "
+                f"{real['peak_bytes']} (ratio {real['mem_ratio']:.4f}; the "
+                f"counter's own peak on the card {real['counted_peak_bytes']}"
+                f"), FLOPs {pred['flops_per_device']:.6g} / counted "
+                f"{real['flops']:.6g} (ratio {real['flops_ratio']:.6f}) | {smi}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -4237,6 +4419,7 @@ def main() -> int:
     result["kernels_zamba2"], result["lm"] = timed("lm", lm_phase, torch, dev,
                                                    smi)
     result["train"] = timed("train", train_phase, torch, dev, smi)
+    result["dryrun"] = timed("dryrun", dryrun_phase, torch, dev, smi)
     log(f"phase wall times (s): {json.dumps(wall)}")
     records += plan_er + [k2d_er, k4, k5_er, k6, k7]
     scale_records += [k5_scale] + plan_scale + [k2d_scale]

@@ -1,15 +1,18 @@
 """Model/config system for the assigned architectures (the port's copy).
 
 Every architecture is expressed as one ModelConfig; `reduced()` yields the
-small-family smoke-test variant. A plain-data copy of the reference's
-`configs/base.py`: the reference's `input_specs`, which builds
-`jax.ShapeDtypeStruct` stand-ins for its dry-run, has no counterpart here
-(ROADMAP Queue 1 #12).
+small-family smoke-test variant. A copy of the reference's
+`configs/base.py`; `input_specs` gives the dry run's stand-ins for a
+cell's inputs as tensors that hold no data (meta tensors, or fake ones
+under a `FakeTensorMode`), where the reference gives
+`jax.ShapeDtypeStruct`s.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,3 +194,30 @@ def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
         return False, "524k decode needs sub-quadratic attention (DESIGN.md §4)"
     return True, ""
 
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                device: str | torch.device = "meta") -> dict:
+    """Stand-ins for every model input of a cell, in the reference's shapes
+    and dtypes (`frames` / `patches` bf16, `tokens` / `labels` int32), as
+    empty tensors on `device`: "meta" allocates nothing, and under a
+    `FakeTensorMode` any device gives fake tensors."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind == "decode":       # one new token against a seq_len cache
+        return {"tokens": t((B, 1))}
+    out: dict = {}
+    if cfg.frontend == "audio":
+        out["frames"] = t((B, S, cfg.d_model), torch.bfloat16)
+    elif cfg.frontend == "vision":
+        st = S - cfg.num_patches
+        out["patches"] = t((B, cfg.num_patches, cfg.d_model), torch.bfloat16)
+        out["tokens"] = t((B, st))
+    else:
+        out["tokens"] = t((B, S))
+    if shape.kind == "train":
+        out["labels"] = t((B, S if cfg.frontend == "audio" else
+                           out["tokens"].shape[1]))
+    return out

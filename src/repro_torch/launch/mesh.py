@@ -6,8 +6,13 @@ two-level shape of the Shuffle fabric, `racks` super-nodes of
 `Topology.flat(K)` is the degenerate one-server-per-rack form; every
 level-dependent decision of the Shuffle (plan compile, exchange, load
 accounting) flows from a `Topology` and reduces to the flat K-server
-behaviour on it. On one card the servers and racks are virtual, so the
-reference's jax mesh builders have no counterpart here.
+behaviour on it. On one card the servers and racks are virtual.
+
+`make_mesh`, `make_production_mesh` and `make_local_mesh` build the
+model path's meshes: a `torch.distributed` `DeviceMesh` over the process
+group the caller has initialised, whose world must be the mesh's size.
+The dry run (`launch/dryrun.py`) builds the production meshes of 256 and
+512 devices over a fake process group in one process.
 
 `CARDS` holds the figures the roofline (`launch/roofline.py`) and
 `chip_smoke.py`'s bounds are computed from, per card, from NVIDIA's data
@@ -18,8 +23,12 @@ the name CUDA reports and raises for a card it does not know.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,3 +117,39 @@ def card_figures(device_name: str) -> CardFigures:
             return figures
     raise ValueError(f"no published figures for the card {device_name!r}; "
                      f"known: {[key for key, _ in CARDS]}")
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+              device: str | torch.device | None = "cuda"):
+    """A `DeviceMesh` of `shape` named `axes` on `device`'s type (the card
+    by default, which raises without one) over the default process group,
+    which must hold exactly prod(shape) ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = math.prod(shape)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"mesh {shape} {axes} needs an initialised process group of "
+            f"{need} ranks (dist.init_process_group(..., world_size={need}))")
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"mesh {shape} {axes} needs a process group of "
+                         f"{need} ranks, but its world size is {world}")
+    return init_device_mesh(resolve_device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device | None = "cuda"):
+    """16x16 ("data", "model"): 256 devices, or 2x16x16 ("pod", "data",
+    "model"): 512 devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, *,
+                    device: str | torch.device | None = "cuda"):
+    """A small ("data", "model") mesh (tests, the one-card check)."""
+    return make_mesh((data, model), ("data", "model"), device=device)

@@ -11,6 +11,11 @@ The reference's exchange roof is the inter-chip link (ICI); here it is
 the card's NVLink rate each way. On one card the K servers are virtual
 and the exchange moves no bytes over any link, so `phase_roofline`
 gives a one-card exchange the roof "none" and no fraction.
+
+`from_cost` is the reference's `from_compiled`: the terms of a dry-run
+step, from the per-device counts of `launch/cost_analysis.py`. The
+reference's `from_compiled_xla`, which reads XLA's own cost analysis, has
+no counterpart: the port compiles no XLA program.
 """
 from __future__ import annotations
 
@@ -92,6 +97,17 @@ class Roofline:
             "bottleneck": self.bottleneck,
             "coll_breakdown": {k: v for k, v in self.coll_breakdown.items() if v},
         }
+
+
+def from_cost(cost, chips: int, card: CardFigures | None = None) -> Roofline:
+    """The three terms of one device's `cost_analysis.StepCost` (the
+    reference's `from_compiled`, which reads its HLO analysis) at `card`'s
+    bf16 tensor-core rate, HBM rate and link rate (default: the current
+    card, `card_of()`, which raises without one)."""
+    fig = card_of() if card is None else card
+    breakdown = {k: int(v) for k, v in cost.coll_breakdown.items()}
+    return Roofline(cost.flops, cost.bytes_accessed, cost.collective_bytes,
+                    breakdown, chips, fig.bf16_flops, fig.hbm_bw, fig.link_bw)
 
 
 # Which roof each measured engine phase is judged against: the exchange is

@@ -10,8 +10,9 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..device import resolve_device
+from ..sharding.rules import constrain, gathered, tp_size
 from . import ssm as ssm_mod
-from .layers import _softcap, rms_norm
+from .layers import _softcap, embed_rows, rms_norm
 from .transformer import (attn_layers, block_decode, embed_scale,
                           forward_hidden, hybrid_segments, layer, logits_of,
                           moe_interleave)
@@ -20,15 +21,20 @@ from .transformer import (attn_layers, block_decode, embed_scale,
 # ---------------- cache layout ----------------
 
 def _attn_cache_struct(cfg: ModelConfig, L: int, B: int, S: int) -> dict:
-    """The GQA cache (one card has no tensor axis: the reference's layout
-    with tp_size() = 1), or MLA's latent and rope-key caches, whose
-    sequence axis the reference always shards over the tensor axis."""
+    """The GQA cache, or MLA's latent and rope-key caches, whose sequence
+    axis is always sharded over the tensor axis. A GQA cache whose kv
+    heads do not divide the tensor axis (`tp_size()`) shards its sequence
+    over that axis instead of its heads, as the reference's does: a
+    replicated cache both overflows the device (48 layers x 32k x 8 kv
+    heads) and would be gathered whole for every decoded token."""
     if cfg.mla:
         m = cfg.mla
         axes = ("layers", "batch", "act_seq_tp", None)
         return {"lat": ((L, B, S, m.kv_lora_rank), axes),
                 "rope": ((L, B, S, m.qk_rope_head_dim), axes)}
-    axes = ("layers", "batch", "act_seq", "act_kv", None)
+    kv_div = cfg.n_kv_heads % tp_size() == 0
+    axes = ("layers", "batch", "act_seq" if kv_div else "act_seq_tp",
+            "act_kv" if kv_div else None, None)
     return {"k": ((L, B, S, cfg.n_kv_heads, cfg.head_dim), axes),
             "v": ((L, B, S, cfg.n_kv_heads, cfg.head_dim), axes)}
 
@@ -120,8 +126,9 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
     """
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x = params["embed"][tokens] * embed_scale(cfg)
-    pos = cache["pos"].expand(B, 1)
+    x = constrain(embed_rows(gathered(params["embed"]), tokens)
+                  * embed_scale(cfg), "batch", None, None)
+    pos = constrain(cache["pos"].expand(B, 1), "batch", None)
     if cfg.family in ("ssm", "hybrid"):
         x, new_cache = _ssm_decode_scan(params, cfg, x, pos, cache)
     else:
@@ -129,7 +136,7 @@ def decode_step(params, cfg: ModelConfig, cache: dict, batch: dict):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _softcap(logits_of(params, x), cfg.logit_softcap)
     new_cache["pos"] = cache["pos"] + 1
-    return logits[:, 0], new_cache
+    return constrain(logits[:, 0], "batch", "vocab"), new_cache
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
@@ -143,4 +150,4 @@ def prefill(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
     S = 2,048 for mamba2-370m; 10 GB at B = 2, S = 5,120 for gemma2-27b).
     """
     x = forward_hidden(params, cfg, batch, chunk=chunk, use_kernel=use_kernel)
-    return logits_of(params, x[:, -1])
+    return constrain(logits_of(params, x[:, -1]), "batch", "vocab")

@@ -14,6 +14,7 @@ training takes (serving keeps every leaf frozen).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Iterator, Mapping
 
@@ -23,6 +24,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
+from ..sharding.rules import (constrain, distributed, gathered, on_blocks,
+                              split_on, tp_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +110,19 @@ def nest(items) -> dict:
     return tree
 
 
+def axes_tree(spec) -> dict:
+    """The logical axes of every leaf of `spec`, under its keys."""
+    return nest((path, p.axes) for path, p in _leaves(spec))
+
+
+def abstract_params(spec, dtype=torch.bfloat16,
+                    device: str | torch.device = "meta") -> dict:
+    """Empty tensors of every leaf's shape in `dtype` on `device`, under the
+    spec's keys (the dry run's stand-ins: "meta" allocates nothing)."""
+    return nest((path, torch.empty(p.shape, dtype=dtype, device=device))
+                for path, p in _leaves(spec))
+
+
 def init_params(spec, generator: torch.Generator, dtype=torch.bfloat16,
                 device: str | torch.device | None = "cuda") -> Params:
     """Random params for `spec`, drawn from `generator` in the reference's
@@ -159,6 +175,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     """RMSNorm in the (1 + scale) form, float32 inside, out in x's dtype."""
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    scale = gathered(scale)                  # FSDP'd over the data axis
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
 
@@ -203,7 +220,17 @@ def attend(q, k, v, qpos, kpos, *, causal=True, window=None, softcap=None,
     [B, G, D, Sk] / vt [B, G, Sk, Dv]: k / v already transposed (the
     chunked prefill transposes once for all its chunks). The v head dim
     may differ from q's. Returns [B, Sq, H, Dv] in v's dtype.
+
+    Head-parallel under a mesh (q a DTensor split along its heads), each
+    device attends its own batch rows and heads (`on_blocks`): DTensor
+    cannot fold a split batch and split heads into the product's one
+    batch dim (torch 2.11 refuses, 2.13 miscomputes some shards).
     """
+    if split_on(q, 2):
+        def local(q, k, v, qpos, kpos, kv_valid):
+            return attend(q, k, v, qpos, kpos, causal=causal, window=window,
+                          softcap=softcap, kv_valid=kv_valid)
+        return on_blocks(local, q, q, k, v, qpos, kpos, kv_valid)
     B, Sq, H, D = q.shape
     if kt is None:
         kt = k.permute(0, 2, 3, 1)
@@ -235,6 +262,9 @@ def chunked_attend(q, k, v, qpos, kpos, *, chunk=1024, **kw):
     `attend`; otherwise S must be a multiple of `chunk`. Under autograd
     each chunk is recomputed in the backward (the reference's
     `jax.checkpoint` on the chunk body), so no chunk's score tile is kept."""
+    if split_on(q, 2):
+        return on_blocks(functools.partial(chunked_attend, chunk=chunk, **kw),
+                         q, q, k, v, qpos, kpos)
     B, S, H, D = q.shape
     if S <= chunk:
         return attend(q, k, v, qpos, kpos, **kw)
@@ -264,8 +294,19 @@ def split_heads(x, w):
     promoted dtype as the reference's einsum (MLA expands a float32 latent
     cache through bf16 weights)."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dt), w.reshape(w.shape[0], -1).to(dt)).reshape(
-        *x.shape[:2], *w.shape[1:])
+    heads = _flat_heads(w.shape[1])
+    w2 = constrain(w.reshape(w.shape[0], -1), None, heads)
+    y = constrain(torch.matmul(x.to(dt), w2.to(dt)), "batch", None, heads)
+    return y.reshape(*x.shape[:2], *w.shape[1:])
+
+
+def _flat_heads(H: int) -> str | None:
+    """The logical axis of a flat H * Dh dim under a mesh: split over the
+    tensor axis only in whole heads (else the split into heads, and its
+    gradient's, cannot be a view), so only when H divides it. The flat
+    weights are gathered over the data axis for the product, as FSDP
+    does."""
+    return "act_heads" if H % tp_size() == 0 else None
 
 
 def merge_heads(o, w):
@@ -273,17 +314,31 @@ def merge_heads(o, w):
     promoted dtype as the reference's einsum (a float32 cache gives a
     float32 o beside bf16 weights)."""
     dt = torch.promote_types(o.dtype, w.dtype)
-    return torch.matmul(o.reshape(*o.shape[:2], -1).to(dt),
-                        w.reshape(-1, w.shape[-1]).to(dt))
+    heads = _flat_heads(w.shape[0])
+    o2 = constrain(o.reshape(*o.shape[:2], -1), "batch", None, heads)
+    w2 = constrain(w.reshape(-1, w.shape[-1]), heads, None)
+    # Under a mesh the product over split heads is a partial sum: summed
+    # here, or DTensor carries it on into the residual and the next norm,
+    # and runs the MLP on every device whole.
+    return constrain(torch.matmul(o2.to(dt), w2.to(dt)), "batch", None, None)
+
+
+def embed_rows(embed, tokens):
+    """The rows of `embed` at `tokens` (``embed[tokens]``). Under a mesh it
+    is `F.embedding`, the same rows, which DTensor places with the tokens'
+    batch split over two mesh dims (its index op does not, torch 2.11)."""
+    if distributed(embed):
+        return F.embedding(tokens, embed)
+    return embed[tokens]
 
 
 def geglu(x, w_gate, w_up, w_down, act: str = "silu"):
     """Gated MLP: (act(x W_g) * (x W_u)) W_d; "gelu" is the tanh form,
     `jax.nn.gelu`'s default."""
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
+    g = torch.matmul(x, gathered(w_gate))
+    u = torch.matmul(x, gathered(w_up))
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return torch.matmul(a * u, w_down)
+    return torch.matmul(a * u, gathered(w_down))
 
 
 def cross_entropy(logits, labels, vocab: int, softcap=None):
@@ -295,4 +350,10 @@ def cross_entropy(logits, labels, vocab: int, softcap=None):
     if logits.shape[-1] != vocab:
         raise ValueError(f"logits have {logits.shape[-1]} classes, vocab is {vocab}")
     logp = torch.log_softmax(_softcap(logits.to(torch.float32), softcap), dim=-1)
+    if distributed(logp):
+        # The reference's one-hot sum (the same value): a gather's backward
+        # scatters into a zero tensor that DTensor cannot split, so every
+        # device would hold the whole batch's [..., vocab] gradient.
+        hot = labels.long()[..., None] == torch.arange(vocab, device=logp.device)
+        return -torch.mean(torch.sum(logp * hot, dim=-1))
     return -torch.mean(logp.gather(-1, labels.long()[..., None])[..., 0])

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import MLAConfig, ModelConfig
+from ..sharding.rules import gathered
 from .layers import (ParamSpec, attend, chunked_attend, merge_heads, rms_norm,
                      rope, split_heads)
 
@@ -39,11 +40,12 @@ def _project(p, cfg: ModelConfig, x, positions):
     """x [B, T, d] -> q_nope [B, T, H, nope], q_rope [B, T, H, rope] (roped),
     kv_lat [B, T, r] (normed), k_rope [B, T, 1, rope] (roped)."""
     m = cfg.mla
-    q_lat = rms_norm(torch.matmul(x, p["q_a"]), p["q_a_norm"], cfg.norm_eps)
+    q_lat = rms_norm(torch.matmul(x, gathered(p["q_a"])), p["q_a_norm"],
+                     cfg.norm_eps)
     q = split_heads(q_lat, p["q_b"])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
-    kv = torch.matmul(x, p["kv_a"])
+    kv = torch.matmul(x, gathered(p["kv_a"]))
     kv_lat = rms_norm(kv[..., :m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
     k_rope = rope(kv[..., None, m.kv_lora_rank:], positions, cfg.rope_theta)
     return q_nope, q_rope, kv_lat, k_rope

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..sharding.rules import constrain, gathered
 from .layers import ParamSpec, geglu
 
 
@@ -77,7 +78,7 @@ class Routing:
 
 def router_logits(p, xt: torch.Tensor) -> torch.Tensor:
     """xt [T, d] @ router [d, E] in the params' dtype, then float32."""
-    return torch.matmul(xt, p["router"]).to(torch.float32)
+    return torch.matmul(xt, gathered(p["router"])).to(torch.float32)
 
 
 def route_logits(logits: torch.Tensor, e: MoEConfig, C: int) -> Routing:
@@ -107,7 +108,9 @@ def route(p, cfg: ModelConfig, xt: torch.Tensor, C: int | None = None) -> Routin
     e = cfg.moe
     if C is None:
         C = _capacity(xt.shape[0], e)
-    return route_logits(router_logits(p, xt), e, C)
+    # Under a mesh the routing runs on every token on every device: a
+    # token's slot depends on every earlier token's choice.
+    return route_logits(constrain(router_logits(p, xt), None, None), e, C)
 
 
 def _slots(r: Routing) -> torch.Tensor:
@@ -130,9 +133,9 @@ def dispatch(xt: torch.Tensor, r: Routing, E: int) -> torch.Tensor:
 
 def experts(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     """ye [E, C, d] = (silu(xe W_g) * (xe W_u)) W_d, batched over E."""
-    g = torch.bmm(xe, w_gate)
-    u = torch.bmm(xe, w_up)
-    return torch.bmm(F.silu(g) * u, w_down)
+    g = torch.bmm(xe, gathered(w_gate))
+    u = torch.bmm(xe, gathered(w_up))
+    return torch.bmm(F.silu(g) * u, gathered(w_down))
 
 
 def combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..sharding.rules import distributed
 from .moe import add_shared, combine, dispatch, experts, moe_local, route
 
 
@@ -50,9 +51,16 @@ def moe_ffn_ep(p, cfg: ModelConfig, x: torch.Tensor, group=None) -> torch.Tensor
     """`moe_ffn` with the experts sharded over `group` (x [B_loc, S, d],
     this rank's batch shard -> [B_loc, S, d]). Without a group, or when
     the group's size does not divide E, the MoE runs on this device
-    (`moe.moe_local`)."""
+    (`moe.moe_local`). A DTensor x (the dry run's expert-parallel cells)
+    raises `NotImplementedError`: the mesh's 'data' dim as the group is
+    ROADMAP Queue 1 #7b."""
     import torch.distributed as dist
 
+    if distributed(x):
+        raise NotImplementedError(
+            "moe_ffn_ep takes a process group of its own and plain tensors; "
+            "it cannot take a DTensor mesh's 'data' dim as its group "
+            "(ROADMAP Queue 1 #7b)")
     e = cfg.moe
     E = e.num_experts
     if group is None:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, SSMConfig
 from ..device import resolve_device
 from ..kernels.ssd_scan import ops as ssd_ops
+from ..sharding.rules import constrain, gathered
 from .layers import ParamSpec, rms_norm
 
 F32 = torch.float32
@@ -76,7 +77,7 @@ def mamba2_block(p, cfg: ModelConfig, u, *, state=None, use_kernel=True):
     ssm_state [B, nh, N, P] float32). S == 1 takes the decode step.
     """
     s = cfg.ssm
-    proj = torch.matmul(u, p["in_proj"])
+    proj = torch.matmul(u, gathered(p["in_proj"]))
     x, z, B_, C_, dt, di, nh = _split(cfg, proj)
     conv_in = torch.cat([x, B_, C_], dim=-1)
     conv_state = None if state is None else state[0]
@@ -88,6 +89,13 @@ def mamba2_block(p, cfg: ModelConfig, u, *, state=None, use_kernel=True):
     dt_full = F.softplus(dt.to(F32) + p["dt_bias"].to(F32))         # [B,S,nh]
     A = -torch.exp(p["a_log"].to(F32))                               # [nh]
     xh = x.reshape(Bsz, S, nh, P)
+    # Under a mesh the scan's groups are (batch row, head) pairs split
+    # over the batch's axes only: DTensor cannot merge a split batch with
+    # heads split over the tensor axis into one dim (it miscomputes the
+    # shard of the merge and of its inverse), so the heads are gathered.
+    xh = constrain(xh, "batch", None, None, None)
+    dt_full = constrain(dt_full, "batch", None, None)
+    A = constrain(A, None)
 
     # Flatten (batch, head) into the scan group axis. K6 reads B and C as
     # they come from the conv split, [Bsz, S, N], shared by the nh heads of
@@ -96,8 +104,9 @@ def mamba2_block(p, cfg: ModelConfig, u, *, state=None, use_kernel=True):
     xg = xh.permute(0, 2, 1, 3).reshape(Bsz * nh, S, P)
     dtg = dt_full.permute(0, 2, 1).reshape(Bsz * nh, S)
     Ag = A.repeat(Bsz)
-    Dg = p["d_skip"].to(F32).repeat(Bsz)
-    h0 = None if state is None else state[1].reshape(Bsz * nh, N, P)
+    Dg = constrain(p["d_skip"].to(F32), None).repeat(Bsz)
+    h0 = None if state is None else constrain(
+        state[1], "batch", None, None, None).reshape(Bsz * nh, N, P)
 
     def per_head(t):
         return t[:, None].expand(Bsz, nh, S, N).reshape(Bsz * nh, S, N).to(F32)
@@ -117,8 +126,10 @@ def mamba2_block(p, cfg: ModelConfig, u, *, state=None, use_kernel=True):
 
     y = yg.reshape(Bsz, nh, S, P).permute(0, 2, 1, 3).reshape(Bsz, S, di)
     y = rms_norm(y.to(u.dtype) * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"])
-    new_ssm = hT.reshape(Bsz, nh, N, P)
+    out = constrain(torch.matmul(y, gathered(p["out_proj"])), "batch", None,
+                    None)                    # the partial sum over `inner`
+    new_ssm = constrain(hT.reshape(Bsz, nh, N, P), "batch", "act_heads", None,
+                        None)
     return out, (new_conv, new_ssm)
 
 

@@ -6,8 +6,9 @@ The reference scans over stacked params (`jax.lax.scan`); here each stack
 is a Python loop over the layer axis of the same stacked tensors, and the
 per-layer window is a Python int (-1 = global). A stack of llama4's
 dense / MoE interleave holds two stacked trees, "dense" and "moe", one
-layer of each per unit. Its `constrain` and `tp_size` sharding calls are
-no-ops without a mesh, and one card has none, so they are dropped.
+layer of each per unit. The reference's sharding calls stand where it has
+them (`sharding.rules.constrain`, `tp_size`): they act on DTensors under
+a mesh (the dry run) and return their input as it is otherwise.
 `remat=True` recomputes each block (a layer, or llama4's unit of two) in
 the backward, as the reference's `jax.checkpoint` does; `loss_fn` is the
 training loss.
@@ -19,12 +20,13 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding.rules import constrain, gathered, place, tp_size
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (ParamSpec, attend, chunked_attend, cross_entropy, geglu,
-                     merge_heads, remat as remat_call, rms_norm, rope,
-                     split_heads)
+from .layers import (ParamSpec, attend, chunked_attend, cross_entropy,
+                     embed_rows, geglu, merge_heads, remat as remat_call,
+                     rms_norm, rope, split_heads)
 
 
 # ---------------- param specs ----------------
@@ -109,10 +111,22 @@ def windows(cfg: ModelConfig) -> list[int]:
 
 def gqa_forward(p, cfg: ModelConfig, x, positions, window: int, *, chunk=1024):
     """Prefill attention over x [B, T, d]. window: -1 = global. Returns
-    (out [B, T, d], (k, v))."""
+    (out [B, T, d], (k, v)).
+
+    Under a mesh, attention is head-parallel when both head counts divide
+    the tensor axis, else kv-sequence-parallel (ragged-head archs:
+    llama4's 40 heads, internvl2's 14), as in the reference."""
     q = rope(split_heads(x, p["q"]), positions, cfg.rope_theta)
     k = rope(split_heads(x, p["k"]), positions, cfg.rope_theta)
     v = split_heads(x, p["v"])
+    tp = tp_size()
+    if cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0:
+        q = constrain(q, "batch", None, "act_heads", None)
+        k = constrain(k, "batch", None, "act_kv", None)
+        v = constrain(v, "batch", None, "act_kv", None)
+    else:
+        k = constrain(k, "batch", "act_seq_tp", None, None)
+        v = constrain(v, "batch", "act_seq_tp", None, None)
     out = chunked_attend(q, k, v, positions, positions, chunk=chunk,
                          causal=not cfg.encoder_only, window=window,
                          softcap=cfg.attn_softcap)
@@ -153,7 +167,8 @@ def block_forward(p, cfg, x, positions, window: int, *, moe_layer=False,
                                    chunk=chunk)
     x = x + attn_out
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + _ffn(p["ffn"], cfg, h, moe_layer=moe_layer), kv
+    x = x + _ffn(p["ffn"], cfg, h, moe_layer=moe_layer)
+    return constrain(x, "batch", None, None), kv
 
 
 def block_decode(p, cfg, x, pos, cache: dict, window: int, *, moe_layer=False):
@@ -279,12 +294,14 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     vision patches through `patch_proj` followed by the scaled text
     embeddings, or the scaled token embeddings."""
     if cfg.frontend == "audio":
-        return torch.matmul(batch["frames"], params["frame_proj"])
-    te = params["embed"][batch["tokens"]] * embed_scale(cfg)
-    if cfg.frontend == "vision":
-        pe = torch.matmul(batch["patches"], params["patch_proj"])
-        return torch.cat([pe, te.to(pe.dtype)], dim=1)
-    return te
+        x = torch.matmul(batch["frames"], gathered(params["frame_proj"]))
+    else:
+        x = embed_rows(gathered(params["embed"]), batch["tokens"]) \
+            * embed_scale(cfg)
+        if cfg.frontend == "vision":
+            pe = torch.matmul(batch["patches"], gathered(params["patch_proj"]))
+            x = torch.cat([pe, x.to(pe.dtype)], dim=1)
+    return constrain(x, "batch", None, None)
 
 
 def forward_hidden(params, cfg: ModelConfig, batch: dict, *, remat=False,
@@ -294,7 +311,8 @@ def forward_hidden(params, cfg: ModelConfig, batch: dict, *, remat=False,
     `remat` recomputes each block in the backward."""
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = place(torch.arange(S, device=x.device).expand(B, S),
+                      "batch", None)
     if cfg.family in ("ssm", "hybrid"):
         x = _ssm_stack(params, cfg, x, positions, remat=remat, chunk=chunk,
                        use_kernel=use_kernel)
@@ -306,7 +324,8 @@ def forward_hidden(params, cfg: ModelConfig, batch: dict, *, remat=False,
 def logits_of(params, x) -> torch.Tensor:
     """Tied-embedding logits [..., vocab] in float32 (the product runs in
     the params' dtype, then casts, as the reference's einsum does)."""
-    return torch.matmul(x, params["embed"].transpose(0, 1)).to(torch.float32)
+    return torch.matmul(x, gathered(params["embed"]).transpose(0, 1)
+                        ).to(torch.float32)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
@@ -314,8 +333,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
     """Full-sequence forward -> logits [B, S, vocab] (fp32). Like the
     reference's, these logits carry no `logit_softcap`; `decode_step`'s
     do."""
-    return logits_of(params, forward_hidden(params, cfg, batch, chunk=chunk,
-                                            use_kernel=use_kernel))
+    logits = logits_of(params, forward_hidden(params, cfg, batch, chunk=chunk,
+                                              use_kernel=use_kernel))
+    return constrain(logits, "batch", None, "vocab")
 
 
 def _chunked_ce(x, embed, labels, vocab, softcap, *, seq_chunk=512):
@@ -327,6 +347,7 @@ def _chunked_ce(x, embed, labels, vocab, softcap, *, seq_chunk=512):
     if S % seq_chunk:
         seq_chunk = S                      # ragged: fall back to one chunk
     n = S // seq_chunk
+    embed = gathered(embed)
 
     def body(xc, lc):
         return cross_entropy(torch.matmul(xc, embed.transpose(0, 1)), lc,

@@ -19,6 +19,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models import transformer as tfm
 from ..models.layers import named_leaves, nest
+from ..sharding.rules import constrain
 from .optimizer import AdamWConfig, apply_updates
 
 F32 = torch.float32
@@ -51,9 +52,11 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict, *, accum: int = 1,
         raise ValueError(f"accum={accum} must divide the batch of {rows} rows")
     b = rows // accum
     loss = torch.zeros((), dtype=F32, device=leaves[0].device)
-    acc = [torch.zeros(t.shape, dtype=F32, device=t.device) for t in leaves]
+    acc = [torch.zeros_like(t, dtype=F32) for t in leaves]   # placed as t
     for i in range(accum):
-        l, g = one({k: v[i * b:(i + 1) * b] for k, v in batch.items()})
+        l, g = one({k: constrain(v[i * b:(i + 1) * b], "batch",
+                                 *[None] * (v.dim() - 1))
+                    for k, v in batch.items()})
         loss = loss + l
         for a, gi in zip(acc, g):
             a.add_(gi)

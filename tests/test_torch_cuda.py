@@ -44,8 +44,9 @@ deepseek-v2 and llama4 served with MLA's caches written in place,
 `moe_ffn_ep` on a one-rank NCCL group, and training: a float32
 `train_step` of the reduced mamba2-370m and zamba2-1.2b on the card
 against the CPU, `launch.train.train` on its default device with a
-restart, a checkpoint round trip from the card, and K6 / K7 refusing an
-input that requires grad.
+restart, a checkpoint round trip from the card, K6 / K7 refusing an
+input that requires grad, and the dry run: one small cell on the card's
+device type (a subprocess) and `constrain` on a one-rank NCCL mesh.
 Whether a card exists is decided inside the `cuda` fixture, never at
 import time.
 """
@@ -1397,3 +1398,56 @@ def test_ssd_chunk_refuses_a_card_input_that_requires_grad(cuda):
     assert _build.LAUNCHES["ssd_chunk"] == 1
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_k.ssd_state_scan(G, S.clone().requires_grad_(True))
+
+
+def test_dryrun_cell_on_the_card(cuda):
+    """`python -m repro_torch.launch.dryrun` on the card's device type (a
+    fake process group of 256 in a subprocess, meta tensors on a CUDA
+    mesh): mamba2-370m `long_500k` is `ok` at the card's figures."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch.roofline import card_of
+
+    env = dict(os.environ, PYTHONPATH="src")
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", "mamba2-370m", "--shape", "long_500k"],
+                          capture_output=True, text=True, timeout=300, env=env)
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["status"] == "ok", (res, proc.stderr[-1500:])
+    assert res["chips"] == 256 and res["card"] == card_of(cuda).name
+    assert res["flops_per_device"] > 0 and res["bytes_per_device"] > 0
+
+
+def test_constrain_on_a_one_rank_nccl_mesh(cuda, tmp_path):
+    """On a (1, 1) mesh over a one-rank NCCL group, `constrain`, `gathered`
+    and `place` keep a DTensor's values (a mesh dim of 1 splits nothing),
+    a plain tensor passes as it is, and `tp_size()` is 1."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import rules
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        x = torch.randn((4, 8, 16), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(5))
+        d = DTensor.from_local(x, mesh, [Replicate(), Replicate()])
+        with rules.use_mesh(mesh):
+            assert rules.tp_size() == 1
+            assert rules.constrain(x, "batch", None, None) is x
+            for y in (rules.constrain(d, "batch", None, "act_heads"),
+                      rules.gathered(d), rules.place(x, "batch", None, None)):
+                assert isinstance(y, DTensor)
+                assert list(y.placements) == [Replicate(), Replicate()]
+                assert torch.equal(y.to_local(), x)
+        assert rules.tp_size() == 1
+    finally:
+        dist.destroy_process_group()

@@ -46,7 +46,10 @@ def test_walk_covers_the_examples_and_experiments():
             "src/repro_torch/graphs/io.py",
             "src/repro_torch/launch/dist.py",
             "src/repro_torch/models/moe.py", "src/repro_torch/models/moe_ep.py",
-            "src/repro_torch/models/mla.py"} <= names
+            "src/repro_torch/models/mla.py",
+            "src/repro_torch/sharding/rules.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/cost_analysis.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT))
