@@ -95,13 +95,23 @@ non-zero before its last line:
      per iteration; `GraphService` with 64 sssp queries through
      max_batch = 4 and one crash, each column bitwise the standalone run's,
      queries/s, latency percentiles and mean batch;
-  8. dist: the fused route with `group=` on a one-rank NCCL process group
-     (a FileStore under build/; NCCL takes one card per rank) on the
+  8. dist (run after the topology phase, whose two-level plans it
+     reuses): the fused route with `group=` on a one-rank NCCL process
+     group (a FileStore under build/; NCCL takes one card per rank) on the
      er-76k and scale sessions: one exchange's delivered words at B = 1
      and 4, pagerank and sssp(0) for 10 iterations bitwise the virtual
      route's on the same card with its bits, K1 / K2 / K3 launched on the
      group route's run (counts reset just before it), both routes' steady
      time and device busy, and the NCCL collectives' device time per
+     iteration; then the two-level route on the group (the rack share of
+     `launch/dist.rack_share`: the one rank owns every rack, so phase A
+     reads its servers' Map words in place and phase B is the coded
+     all-gather over the 'racks' subgroup) at er-76k K = 8 on
+     Topology(4, 2) and (2, 4) and at n ~ 1e6 on (4, 2): words at B = 1
+     and 4, pagerank, sssp(0) and multi_sssp (B = 4) for 10 iterations
+     bitwise the virtual two-level route's, the per-level bits exactly
+     the plan's, K1's rack encode, K2's direct form and K3 launched on the
+     group route's run, steady time, device busy and NCCL time per
      iteration; the group is destroyed at the end;
   9. table2: karate and er-76k through the port's registry into a fresh
      cache under build/ (the er-76k edge list synthesized, its sha256 the
@@ -188,8 +198,10 @@ non-zero before its last line:
      float32 at 1 and 2 layers (capacity factor E / top_k, so the prefill
      drops nothing, as the decode steps do not): the prefill of 2 x 128
      tokens against 128 decode steps, within 1e-3 of max|logit|. llama4:
-     `moe_ffn_ep` on a one-rank NCCL group against `moe_ffn` at capacity
-     factor 8, within 2^-7 of max|y|;
+     `moe_ffn_ep` with `group` and `model_group` on one-rank NCCL groups
+     against `moe_ffn` at capacity factor 8, within 2^-7 of max|y|, and
+     one backward of sum(y^2) through it, the rows' gradient finite and
+     within 2^-7 of max|g| of `moe_local`'s;
   13. train: `launch.train.train` at full width, bf16 weights drawn from
      seed 0 on the card, AdamW with float32 moments: mamba2-370m (48
      layers) for 3 steps of 16 x 4,096 tokens (train_4k's length, its
@@ -213,9 +225,13 @@ non-zero before its last line:
      process group of 256 or 512 ranks in this process and meta tensors
      on the card's mesh (nothing allocated): mamba2-370m `long_500k`,
      internvl2-1b `train_4k`, mamba2-370m `decode_32k` on the 2 x 16 x 16
-     mesh, gemma2-27b `decode_32k` and deepseek-v2-236b `prefill_32k` at
-     full size, each `ok`, with its bytes per device against the card's
-     memory, the three roofline terms at the card's figures and its
+     mesh, gemma2-27b `decode_32k`, deepseek-v2-236b `prefill_32k` and
+     `decode_32k` (its sequence-split latent cache written per block),
+     and the expert-parallel cells (`moe_ep=True`, `moe_ffn_ep` on the
+     mesh's groups) deepseek-v2-236b `decode_32k` and llama4-maverick
+     `prefill_32k`, at full size, each `ok`, with its args and temp
+     bytes, FLOPs, collective bytes and bytes per device against the
+     card's memory, the three roofline terms at the card's figures and its
      seconds. Then on a one-rank NCCL group, mesh (1, 1), the dry run's
      prediction against the same step run on the card: gemma2-27b prefill
      2 x 5,120 at full depth and mamba2-370m `decode_32k` (B = 128, a
@@ -2374,11 +2390,17 @@ def need_launches(launches: dict, names, path: str) -> None:
             raise AssertionError(f"kernel {name} never launched on {path}")
 
 
-def dist_cell(torch, dev, what: str, cell: tuple, group) -> dict:
+TWO_LEVEL_KERNELS = ("xor_encode", "xor_decode_direct", "segment_reduce")
+
+
+def dist_cell(torch, dev, what: str, cell: tuple, group, progs=None,
+              kernels=FUSED_KERNELS) -> dict:
     """The fused exchange on `group` against the virtual route on one
-    session (graph, allocation, plan, oracle pagerank): one exchange's
-    delivered words at B = 1 and 4 and pagerank / sssp for 10 iterations
-    bitwise, exact bits, K1 / K2 / K3 launched on the group route's run
+    session (graph, allocation, plan - flat or a `HierarchicalPlan` -,
+    oracle pagerank or None): one exchange's delivered words at B = 1 and
+    4 and `progs` (pagerank and sssp by default) for 10 iterations
+    bitwise, exact bits (a two-level plan's per level, exactly the plan's
+    on the group route), `kernels` launched on the group route's run
     (counts reset just before it), steady time, device busy and the NCCL
     collectives' device time per iteration (their `nccl:` ranges on the
     device's timeline; one rank's all-gather is a device-to-device
@@ -2387,7 +2409,7 @@ def dist_cell(torch, dev, what: str, cell: tuple, group) -> dict:
     from repro_torch.kernels import _build
 
     g, alloc, plan, want = cell
-    progs = pagerank_and_sssp()
+    progs = progs or pagerank_and_sssp()
     info = {}
     sessions = {}
     for route, opts in (("virtual", {}), ("group", {"group": group})):
@@ -2397,6 +2419,15 @@ def dist_cell(torch, dev, what: str, cell: tuple, group) -> dict:
                                          device=dev, **opts)
         info[f"{route}_session_s"] = time.perf_counter() - t0
     virt, grp = sessions["virtual"], sessions["group"]
+    hp = grp.hplan
+    if hp is not None:
+        bits = (hp.inter_rack_bits, hp.intra_rack_bits)
+        if grp.fused.racks is None or grp.fused.rack_bits != bits \
+                or virt.fused.rack_bits != bits:
+            raise AssertionError(f"dist {what}: the two-level group route's "
+                                 "per-level bits are not the plan's")
+        info.update(inter_rack_bits=bits[0], intra_rack_bits=bits[1],
+                    ranks_per_rack=grp.fused.racks.per_rack)
     pr = progs["pagerank"]
     state4 = torch.from_numpy(np.random.default_rng(4).random(
         (g.n, 4), dtype=np.float32)).to(dev)
@@ -2409,17 +2440,19 @@ def dist_cell(torch, dev, what: str, cell: tuple, group) -> dict:
     runs = {name: grp.with_program(p).run(10) for name, p in progs.items()}
     torch.cuda.synchronize()
     info["launches"] = launches = dict(_build.LAUNCHES)
-    need_launches(launches, FUSED_KERNELS, f"the dist {what} path")
+    need_launches(launches, kernels, f"the dist {what} path")
     for name, p in progs.items():
         ref = virt.with_program(p).run(10)
         if not torch.equal(runs[name].state.view(torch.int32),
                            ref.state.view(torch.int32)):
             raise AssertionError(f"dist {what} {name}: not bitwise the "
                                  "virtual route's state")
-        if runs[name].shuffle_bits != ref.shuffle_bits:
+        if runs[name].shuffle_bits != ref.shuffle_bits or (
+                hp is not None and ref.shuffle_bits != sum(bits) * ref.batch * 10):
             raise AssertionError(f"dist {what} {name}: bits differ")
-    info["pagerank_max_rel_err"] = check_pagerank(
-        runs["pagerank"].state.cpu().numpy(), want, f"dist {what}")
+    if want is not None:
+        info["pagerank_max_rel_err"] = check_pagerank(
+            runs["pagerank"].state.cpu().numpy(), want, f"dist {what}")
     for route, eng in sessions.items():
         info[route] = iteration_profile(torch, eng)
     state = torch.as_tensor(pr.init(g), device=dev)
@@ -2440,12 +2473,19 @@ def dist_cell(torch, dev, what: str, cell: tuple, group) -> dict:
     return info
 
 
-def dist_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
+def dist_phase(torch, dev, er: tuple, scale: tuple, two_level: dict,
+               smi: str) -> dict:
     """The fused route with `group=` on a one-rank NCCL group (a FileStore
     under build/, so no port is opened) against the virtual route, on the
-    er-76k session (K = 4, r = 2) and at scale. NCCL needs one card per
-    rank, so one card runs one rank of all K servers; the group is
-    destroyed at the end."""
+    er-76k session (K = 4, r = 2) and at scale; then the two-level route
+    on the group (`two_level`: the topology phase's er-76k K = 8 plans on
+    Topology(4, 2) and (2, 4) and its n ~ 1e6 plan on (4, 2)), pagerank,
+    sssp(0) and multi_sssp (B = 4), K1's rack encode and K2's direct form
+    launched on it. NCCL needs one card per rank, so one card runs one
+    rank of all K servers (whole racks); the group is destroyed at the
+    end."""
+    from repro_torch.core import algorithms as algo
+
     import torch.distributed as dist
 
     store = ROOT / "build" / "dist-store"
@@ -2460,6 +2500,25 @@ def dist_phase(torch, dev, er: tuple, scale: tuple, smi: str) -> dict:
             nccl = c["nccl_s_per_iter"]
             log(f"dist phase, {what}: NCCL world 1 bitwise the virtual route;"
                 f" steady {c['group']['steady_s_per_iter'] * 1e3:.4f} ms/iter "
+                f"(virtual {c['virtual']['steady_s_per_iter'] * 1e3:.4f}), "
+                f"device busy {busy_ms(c['group'])} ms/iter (virtual "
+                f"{busy_ms(c['virtual'])}), NCCL collectives "
+                f"{'not measured' if nccl is None else f'{nccl * 1e3:.4f}'} "
+                f"ms/iter {c.get('nccl_ranges')}, launches {c['launches']} | "
+                f"{smi}")
+        for what, (g, alloc, hp, want) in two_level.items():
+            progs = {"pagerank": algo.pagerank(), "sssp": algo.sssp(0),
+                     "multi_sssp": algo.multi_sssp(
+                         [0, g.n // 7, g.n // 2, g.n - 1])}
+            c = info[what] = dist_cell(torch, dev, what, (g, alloc, hp, want),
+                                       dist.group.WORLD, progs,
+                                       TWO_LEVEL_KERNELS)
+            nccl = c["nccl_s_per_iter"]
+            log(f"dist phase, two-level {what}: NCCL world 1 bitwise the "
+                f"virtual two-level route (words B = 1, 4; pagerank, sssp, "
+                f"multi_sssp B = 4), bits {c['inter_rack_bits']} inter + "
+                f"{c['intra_rack_bits']} intra per query; steady "
+                f"{c['group']['steady_s_per_iter'] * 1e3:.4f} ms/iter "
                 f"(virtual {c['virtual']['steady_s_per_iter'] * 1e3:.4f}), "
                 f"device busy {busy_ms(c['group'])} ms/iter (virtual "
                 f"{busy_ms(c['virtual'])}), NCCL collectives "
@@ -2675,7 +2734,7 @@ def direct_record(torch, eng, ev, what: str) -> dict:
     return rec
 
 
-def topology_er76k(torch, dev) -> tuple[dict, dict]:
+def topology_er76k(torch, dev) -> tuple[dict, dict, dict]:
     """er-76k at K = 8, r = 2 on Topology(4, 2), (2, 4), (1, 8) and
     Topology.flat(8), backend="fused" and "numpy": the host plans' numbers
     exactly the reference's; one exchange's delivered words bitwise the
@@ -2684,7 +2743,8 @@ def topology_er76k(torch, dev) -> tuple[dict, dict]:
     (B = 4), 10 iterations each, on every session; sssp and multi_sssp
     bitwise the flat fused session's, pagerank within rtol 1e-5 of it,
     exact bits; Topology.flat(8) the flat session, with its tables. Returns
-    K2's direct-form record (launches from that path) and the info."""
+    K2's direct-form record (launches from that path), the info and the
+    (graph, allocation, plan, None) of the 4 x 2 and 2 x 4 cells."""
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
@@ -2716,12 +2776,12 @@ def topology_er76k(torch, dev) -> tuple[dict, dict]:
         pr.init(g), device=dev)).contiguous()
     want = floats_to_words(plan.execute_coded_sparse(ev.cpu().numpy(),
                                                      flat.tables).values)
-    sessions = {}
+    sessions, plans = {}, {}
     for shape in TOPO_SHAPES + ("flat",):
         topo = Topology.flat(TOPO_K) if shape == "flat" else Topology(*shape)
         key = "flat" if shape == "flat" else f"{shape[0]}x{shape[1]}"
         t0 = time.perf_counter()
-        hp = compile_hierarchical(g.csr, alloc, topo)
+        hp = plans[key] = compile_hierarchical(g.csr, alloc, topo)
         m = info[key] = {"compile_s": time.perf_counter() - t0}
         if shape != "flat":
             m.update(check_topology_plan(hp, plan, alloc, shape))
@@ -2787,16 +2847,19 @@ def topology_er76k(torch, dev) -> tuple[dict, dict]:
         for e in (ev, ev4):
             direct_record(torch, sessions[(key, "fused")], e, f"er-76k {key}")
     record_launches([rec], launches, "the er-76k topology path")
-    return rec, info
+    cells = {f"er-76k K = 8, {key}": (g, alloc, plans[key], None)
+             for key in ("4x2", "2x4")}
+    return rec, info, cells
 
 
-def topology_scale(torch, dev, smi: str) -> tuple[dict, dict]:
+def topology_scale(torch, dev, smi: str) -> tuple[dict, dict, dict]:
     """ER n ~ 1e6 (seed 7) at K = 8, r = 2 on Topology(4, 2) (backend
     "fused" and "numpy") and flat ("numpy"), pagerank for 10 iterations: host
     compile and session build times, per-level bits, steady ms per
     iteration, device busy and idle share, peak memory, pagerank within
     rtol 1e-5 of the oracle, exact bits, each run's launch counts. Returns
-    K2's direct-form record at these shapes and the info."""
+    K2's direct-form record at these shapes, the info and the (graph,
+    allocation, 4 x 2 plan, oracle pagerank) cell."""
     from repro_torch.core import algorithms as algo
     from repro_torch.core import engine
     from repro_torch.core.loads import empirical_loads
@@ -2867,15 +2930,19 @@ def topology_scale(torch, dev, smi: str) -> tuple[dict, dict]:
             f"idle {m['device_idle_share']}, peak {m['peak_mem_bytes']} B,"
             f" session {m['session_s']:.4f} s | {smi}")
         del eng, res
-    return rec, info
+    return rec, info, {"scale K = 8, 4x2": (g, alloc, hp, want)}
 
 
-def topology_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
-    rec_er, info_er = topology_er76k(torch, dev)
+def topology_phase(torch, dev, smi: str) -> tuple[dict, dict, dict, dict]:
+    """The two-level cells (module docstring, phase 10). Returns K2's
+    direct-form records at er-76k and at scale, the info, and the cells
+    the dist phase runs on a group."""
+    rec_er, info_er, cells = topology_er76k(torch, dev)
     log(f"topology phase, er-76k ok: {json.dumps(info_er)}")
-    rec_scale, info_scale = topology_scale(torch, dev, smi)
+    rec_scale, info_scale, scale_cell = topology_scale(torch, dev, smi)
     log(f"topology phase, scale ok: {json.dumps(info_scale)}")
-    return rec_er, rec_scale, {"er76k": info_er, "scale": info_scale}
+    return rec_er, rec_scale, {"er76k": info_er, "scale": info_scale}, \
+        {**cells, **scale_cell}
 
 
 # ---------------------------------------------------------------------------
@@ -3683,10 +3750,14 @@ def hold_moe(torch, p, cfg, h) -> dict:
 
 
 def ep_one_rank(torch, p, cfg, h) -> dict:
-    """`moe_ffn_ep` on a one-rank NCCL group (a FileStore under build/, so
-    no port is opened) against `moe_ffn` on the same rows at capacity
-    factor MOE_EP_CF (the reference's EP test's): within MOE_HOLD_TOL of
-    max|y|, whether bitwise logged. The group is destroyed at the end."""
+    """`moe_ffn_ep` with `group` and `model_group` on one-rank NCCL groups
+    (a FileStore under build/, so no port is opened; the 'model' group a
+    subgroup of the one rank) against `moe_ffn` on the same rows at
+    capacity factor MOE_EP_CF (the reference's EP test's): within
+    MOE_HOLD_TOL of max|y|, whether bitwise logged; then one backward of
+    sum(y^2) through it, the gradient of the rows finite and within
+    MOE_HOLD_TOL of max|g| of `moe_local`'s (the weights frozen, so no
+    weight gradient is held). The group is destroyed at the end."""
     import torch.distributed as dist
 
     from repro_torch.models import moe
@@ -3695,23 +3766,38 @@ def ep_one_rank(torch, p, cfg, h) -> dict:
         cfg.moe, capacity_factor=MOE_EP_CF))
     cfg_ep = dataclasses.replace(cfg8, moe=dataclasses.replace(cfg8.moe, ep=True))
     want = moe.moe_ffn(p, cfg8, h)
+
+    def grad_of(fn):
+        x = h.detach().clone().requires_grad_()
+        y = fn(x)
+        (g,) = torch.autograd.grad(y.float().pow(2).sum(), [x])
+        return y.detach(), g
+
     store = ROOT / "build" / "ep-store"
     store.unlink(missing_ok=True)
     store.parent.mkdir(parents=True, exist_ok=True)
     dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
                             rank=0, world_size=1)
     try:
-        got = moe.moe_ffn(p, cfg_ep, h, group=dist.group.WORLD)
+        model = dist.new_group([0])
+        got, g_ep = grad_of(lambda x: moe.moe_ffn(
+            p, cfg_ep, x, group=dist.group.WORLD, model_group=model))
         torch.cuda.synchronize()
         out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "model_group": dist.get_world_size(model),
                "tokens": h.shape[0] * h.shape[1], "capacity_factor": MOE_EP_CF}
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
-    out.update(max_rel_err=rel_err(got, want), bitwise=torch.equal(got, want))
-    if out["max_rel_err"] > MOE_HOLD_TOL or not torch.isfinite(got).all():
+    _, g_local = grad_of(lambda x: moe.moe_local(p, cfg8, x))
+    out.update(max_rel_err=rel_err(got, want), bitwise=torch.equal(got, want),
+               grad_max_rel_err=rel_err(g_ep, g_local),
+               grad_bitwise=torch.equal(g_ep, g_local))
+    if out["max_rel_err"] > MOE_HOLD_TOL or not torch.isfinite(got).all() \
+            or out["grad_max_rel_err"] > MOE_HOLD_TOL \
+            or not torch.isfinite(g_ep).all():
         raise AssertionError(f"{cfg.name}: moe_ffn_ep on one NCCL rank off "
-                             f"moe_ffn: {out}")
+                             f"moe_ffn / moe_local: {out}")
     return out
 
 
@@ -3846,7 +3932,7 @@ def lm_mla(torch, dev, smi: str) -> dict:
 
 def lm_moe(torch, dev, smi: str) -> dict:
     """llama4-maverick-400b-a17b at full width, one dense + MoE unit, in
-    bf16 (`moe_model_bf16`); then `moe_ffn_ep` on a one-rank NCCL group
+    bf16 (`moe_model_bf16`); then `moe_ffn_ep` on one-rank NCCL groups
     against `moe_ffn` (`ep_one_rank`)."""
     from repro_torch import configs
 
@@ -4199,11 +4285,14 @@ def train_phase(torch, dev, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-DRYRUN_CELLS = (("mamba2-370m", "long_500k", False),
-                ("internvl2-1b", "train_4k", False),
-                ("mamba2-370m", "decode_32k", True),
-                ("gemma2-27b", "decode_32k", False),
-                ("deepseek-v2-236b", "prefill_32k", False))
+DRYRUN_CELLS = (("mamba2-370m", "long_500k", False, False),   # (..., multi-pod,
+                ("internvl2-1b", "train_4k", False, False),    #  moe_ep)
+                ("mamba2-370m", "decode_32k", True, False),
+                ("gemma2-27b", "decode_32k", False, False),
+                ("deepseek-v2-236b", "prefill_32k", False, False),
+                ("deepseek-v2-236b", "decode_32k", False, False),
+                ("deepseek-v2-236b", "decode_32k", False, True),
+                ("llama4-maverick-400b-a17b", "prefill_32k", False, True))
 DRYRUN_ARG_TOL = 1 << 20          # predicted vs allocated input bytes
 DRYRUN_MEM_BAND = (0.8, 1.25)     # args + temp over max_memory_allocated
 DRYRUN_FLOP_TOL = 0.01            # predicted vs counted dot FLOPs
@@ -4312,15 +4401,19 @@ def dryrun_phase(torch, dev, smi: str) -> dict:
         raise AssertionError("dryrun phase: a process group is still set")
     memory = torch.cuda.get_device_properties(dev).total_memory
     info = {"cells": [], "local": {}}
-    for arch, shape, multi in DRYRUN_CELLS:
+    for arch, shape, multi, moe_ep in DRYRUN_CELLS:
         t0 = time.perf_counter()
         r = dryrun.lower_cell(arch, shape, multi_pod=multi, verbose=False,
-                              device=dev)
+                              device=dev, moe_ep=moe_ep)
         r["wall_s"] = time.perf_counter() - t0
+        r["moe_ep"] = moe_ep
         info["cells"].append(r)
         if r["status"] != "ok":
             raise AssertionError(f"dryrun phase: {json.dumps(r)}")
-        log(f"dryrun: {arch} {shape} {r['mesh']} ({r['chips']} chips): ok, "
+        log(f"dryrun: {arch} {shape}{' moe_ep' if moe_ep else ''} {r['mesh']} "
+            f"({r['chips']} chips): ok, args {r['arg_bytes']} + temp "
+            f"{r['temp_bytes']}, FLOPs {r['flops_per_device']:.6g}, collective "
+            f"bytes {r['coll_bytes_per_device']:.6g}, "
             f"{r['bytes_per_device']} bytes per device "
             f"({r['bytes_per_device'] / memory:.3f} of the card's {memory}), "
             f"t_compute {r['t_compute_s']:.6g} s, t_memory "
@@ -4409,11 +4502,12 @@ def main() -> int:
         "modes", modes_phase, torch, dev, er, scale, result["scale"])
     result["elastic"] = timed("elastic", elastic_phase, torch, dev, er, scale,
                               smi)
-    result["dist"] = timed("dist", dist_phase, torch, dev, er, scale, smi)
-    del er, scale
     result["table2"] = timed("table2", table2_phase, torch, dev, smi)
-    k2d_er, k2d_scale, result["topology"] = timed("topology", topology_phase,
-                                                  torch, dev, smi)
+    k2d_er, k2d_scale, result["topology"], two_level = timed(
+        "topology", topology_phase, torch, dev, smi)
+    result["dist"] = timed("dist", dist_phase, torch, dev, er, scale,
+                           two_level, smi)
+    del er, scale, two_level
     k4, result["dense"] = timed("dense", dense_phase, torch, dev)
     k6, k7, result["serve"] = timed("serve", serve_phase, torch, dev, smi)
     result["kernels_zamba2"], result["lm"] = timed("lm", lm_phase, torch, dev,

@@ -41,9 +41,11 @@ topology=Topology(R, S) (mode "coded", sparse path, backend "numpy" or
 "fused"): the two-level coded Shuffle of a `HierarchicalPlan`, coded
 across racks and plain within them. backend="numpy" runs the rack-level
 plan on `device_plan.HierarchicalDevicePlan`, backend="fused" K1 over the
-R rack buffers and K2 with its intra-rack words (`FusedSparseShuffle`).
-The delivered words are the flat plan's, bitwise, so the Reduce is the
-flat one; the bits are `inter_rack_bits + intra_rack_bits`.
+R rack buffers and K2 with its intra-rack words (`FusedSparseShuffle`),
+with `group` across processes whose ranks own whole racks or split each
+rack evenly (`launch/dist.rack_share`). The delivered words are the flat
+plan's, bitwise, so the Reduce is the flat one; the bits are
+`inter_rack_bits + intra_rack_bits`.
 `Topology.flat(K)` is the flat session.
 
 backend="spmv" (modes "single", "uncoded", "coded", "coded-fast"; linear

@@ -53,8 +53,21 @@ it is), decodes its own receivers' deliveries with K2, and gathers every
 rank's delivered words, padded to the largest rank's count and trimmed
 back, so that every rank holds the [M(, B)] words in the plan's (k, i, j)
 order (span `phase.gather`; like the reference's gather of its
-out_specs, not Shuffle bits). A two-level topology has no multi-process
-route yet.
+out_specs, not Shuffle bits).
+
+The two-level exchange runs on a group too, the counterpart of the
+reference's ('racks', 'servers') mesh: `launch/dist.rack_share` gives
+each rank its contiguous servers, its racks and two subgroups, and
+`pack_rack_share` the rows of the tables for them, indexed into the
+rank's phase-A buffer X (its racks' `rflat` blocks). Each iteration the
+rank reads the Map output at its own servers' entries only, gathers the
+rest of its rack's words over the 'servers' subgroup where a rack spans
+ranks (phase A; nothing moves where a rank owns whole racks), encodes its
+racks' buffers with K1 from X (every rank of a rack computes the same
+buffer, as in the reference), gathers every rack's buffer over the
+'racks' subgroup (phase B, span `phase.exchange` with the plan's
+per-level bits), decodes its servers' deliveries with K2's direct form
+from X and the R buffers, and gathers the words as the flat route does.
 
 Nothing returns to the host between Map and Reduce. Delivered words are
 bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
@@ -72,7 +85,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.xor_code.xor_code import xor_decode_packed, xor_encode_packed
-from ..launch.dist import server_shard
+from ..launch.dist import rack_share, server_shard
 from ..launch.mesh import Topology
 from ..obs import get_registry, get_tracer
 from .allocation import Allocation
@@ -508,6 +521,10 @@ class PackedSchedule:
     # Two-level only: the CSR entry of each intra-rack delivery's word
     # (nnz = none); the encode tables then have one row per rack.
     direct_e: np.ndarray | None = None   # [K, Dmax] int32
+    # Two-level on a group only (`pack_rack_share`): the CSR entry of each
+    # Map word of this rank's servers' phase-A blocks (nnz = the zero
+    # word); every other entry then indexes the rank's phase-A buffer.
+    loc_e: np.ndarray | None = None      # [servers * (Lmax + 1)] int64
 
 
 def code_book(r: int) -> np.ndarray:
@@ -603,6 +620,44 @@ def pack_hierarchical(s: FusedHierarchicalSchedule, nnz: int) -> PackedSchedule:
                           nnz).astype(np.int32))
 
 
+def pack_rack_share(s: FusedHierarchicalSchedule, nnz: int,
+                    share) -> PackedSchedule:
+    """The packed tables of one rank of a group running the two-level
+    exchange (`launch/dist.RackShare`): the encode rows of its racks and
+    the decode rows of its servers, every `rflat` position composed into
+    the rank's phase-A buffer X instead of a CSR entry. X is its racks'
+    `rflat` blocks in rack order (S (Lmax + 1) words each), which the rank
+    holds after phase A; the `ZERO` position of each is a zero word, and
+    the length of X means "none" in `direct_e`. `loc_e` names the CSR
+    entries of the Map words of the rank's own servers, its part of X.
+    Raises `ValueError` as `pack_hierarchical` does."""
+    blk = s.Lmax + 1
+    span = s.S * blk
+    racks, servers = share.racks, share.shard.servers
+    n_src = len(racks) * span
+    if n_src >= 2 ** 31 or s.R * (s.Wx + 1) >= 2 ** 31:
+        raise ValueError(f"{n_src} phase-A words or R (Wx + 1) = "
+                         f"{s.R * (s.Wx + 1)} do not fit int32 indexing")
+    if not np.isin(s.direct_mask, (0, FULL_MASK)).all():
+        raise ValueError("direct_mask must be 0 or the full word")
+    rk, sv = slice(racks.start, racks.stop), slice(servers.start, servers.stop)
+    base = (np.arange(s.K)[sv] // s.S - racks.start) * span   # per server row
+    book = code_book(s.rr)
+    loc = np.concatenate([s.loc_e[sv], np.full((len(servers), 1), nnz)], axis=1)
+    return PackedSchedule(
+        enc_e=(s.enc_l[rk] + (np.arange(len(racks)) * span)[:, None, None]
+               ).astype(np.int32),
+        enc_code=_codes(s.enc_shift[rk], s.enc_mask[rk], book, "enc"),
+        dec_pos=(s.dec_rk * np.int32(s.Wx + 1) + s.dec_w)[sv],
+        dec_code=_codes(s.dec_shift[sv], s.dec_mask[sv], book, "dec"),
+        strip_e=(s.strip_f[sv] + base[:, None, None, None]).astype(np.int32),
+        strip_code=_codes(s.strip_shift[sv], s.strip_mask[sv], book, "strip"),
+        book=book,
+        direct_e=np.where(s.direct_mask[sv] == FULL_MASK,
+                          s.direct_l[sv] + base[:, None], n_src).astype(np.int32),
+        loc_e=loc.reshape(-1).astype(np.int64))
+
+
 def _count_rack_bits(inter: int, intra: int) -> None:
     """Add one two-level Shuffle's bits to the registry's counters (the
     reference's names)."""
@@ -613,14 +668,15 @@ def _count_rack_bits(inter: int, intra: int) -> None:
                 "coded-Shuffle bits moving inside racks").inc(intra)
 
 
-def _all_gather(part: torch.Tensor, shard) -> torch.Tensor:
+def _all_gather(part: torch.Tensor, group) -> torch.Tensor:
     """Every rank's equal-shaped `part`, concatenated in rank order along
-    dim 0, by one `all_gather_into_tensor` on the shard's group."""
+    dim 0, by one `all_gather_into_tensor` on `group`."""
     import torch.distributed as dist
 
     part = part.contiguous()
-    out = part.new_empty((shard.world * part.shape[0],) + tuple(part.shape[1:]))
-    dist.all_gather_into_tensor(out, part, group=shard.group)
+    out = part.new_empty((dist.get_world_size(group) * part.shape[0],)
+                         + tuple(part.shape[1:]))
+    dist.all_gather_into_tensor(out, part, group=group)
     return out
 
 
@@ -658,10 +714,11 @@ class FusedSparseShuffle:
     registry. `Topology.flat(K)` is the flat session, with the same tables.
 
     `group` (a `torch.distributed` process group whose size divides K)
-    runs the flat exchange across its ranks, each encoding and decoding
-    its own servers' rows (see the module docstring); every rank returns
-    the same words. A two-level plan with a group raises
-    `NotImplementedError`.
+    runs the exchange across its ranks, each encoding and decoding its
+    own servers' rows (see the module docstring); every rank returns the
+    same words. A two-level plan takes a group whose ranks own whole
+    racks or split each rack evenly (`launch/dist.rack_share`; another
+    layout raises its `ValueError`).
     """
 
     def __init__(self, plan: ShufflePlan | HierarchicalPlan, csr: CSR,
@@ -675,14 +732,15 @@ class FusedSparseShuffle:
 
     def _upload(self) -> None:
         """Upload the packed tables of the bound plan to the device: this
-        rank's servers' rows of them when the exchange runs on a group."""
+        rank's servers' rows of them when the exchange runs on a group
+        (`pack_rack_share` has cut them for the two-level exchange)."""
         self.M = int(self.plan.all_k.size)
         p, dev, ptr = self.packed, self.device, self.plan.ptr
         rows = slice(None)
         if self.shard is not None:
             sh = self.shard
             lo, hi = sh.servers.start, sh.servers.stop
-            rows = slice(lo, hi)
+            rows = slice(lo, hi) if p.loc_e is None else slice(None)
             ptr = ptr[lo:hi + 1] - ptr[lo]
             counts = np.diff(self.plan.ptr[::sh.per_rank])    # [P] per rank
             self.M_local, self.M_pad = int(ptr[-1]), int(counts.max(initial=0))
@@ -698,7 +756,14 @@ class FusedSparseShuffle:
         self.tables["book"] = _upload(p.book, dev)
         self.tables["ptr"] = _i32(ptr, dev)
         if p.direct_e is not None:
-            self.tables["direct_e"] = _upload(p.direct_e, dev)
+            self.tables["direct_e"] = _upload(
+                np.ascontiguousarray(p.direct_e[rows]), dev)
+        if p.loc_e is not None:
+            # The Map words of this rank's servers: entries past the Map
+            # output (its pad words) read entry 0 and are zeroed after.
+            self.tables["loc_e"] = _upload(
+                np.minimum(p.loc_e, max(self.nnz - 1, 0)).astype(np.int32), dev)
+            self.tables["loc_pad"] = torch.from_numpy(p.loc_e >= self.nnz).to(dev)
 
     def rebind(self, plan: ShufflePlan | HierarchicalPlan, csr: CSR,
                alloc: Allocation) -> "FusedSparseShuffle":
@@ -707,7 +772,8 @@ class FusedSparseShuffle:
         `CompiledEngine.update`'s hook, as the reference's: the per-server
         partition is rebuilt for the new plan (its tables index CSR
         entries, so any real delta moves them), packed, and uploaded; the
-        device and the kernels, built once per process, carry over. A
+        device, the group (and a two-level exchange's subgroups) and the
+        kernels, built once per process, carry over. A
         two-level instance expects a fresh `HierarchicalPlan` on the same
         Topology; switching between the flat and the two-level exchange
         raises the reference's `ValueError`. The span `fused.rebind` times
@@ -716,19 +782,20 @@ class FusedSparseShuffle:
         with get_tracer().span("fused.rebind", nnz=csr.nnz):
             ex = object.__new__(FusedSparseShuffle)
             ex.device, ex.nnz, ex.group = self.device, csr.nnz, self.group
-            ex._bind(plan, csr, alloc, self.topology)
+            ex._bind(plan, csr, alloc, self.topology, self.racks)
             if (ex.hplan is None) != (self.hplan is None):
                 raise ValueError("rebind cannot switch between the flat and "
                                  "two-level exchange; build a new instance")
             ex._upload()
         return ex
 
-    def _bind(self, plan, csr, alloc, topology) -> None:
+    def _bind(self, plan, csr, alloc, topology, racks=None) -> None:
         """Resolve (plan, topology) into the flat or two-level partition, by
         the reference's rules: a `HierarchicalPlan` carries its own
         Topology (a different `topology=` raises); `Topology.flat(K)` (or
         no topology) is the flat exchange on the plan's flat schedule; a
-        non-flat topology with a flat plan raises."""
+        non-flat topology with a flat plan raises. `racks`, a rebound
+        exchange's `RackShare`, keeps its subgroups."""
         if isinstance(plan, HierarchicalPlan):
             if topology is not None and topology != plan.topology:
                 raise ValueError(
@@ -742,18 +809,21 @@ class FusedSparseShuffle:
                 "a non-flat Topology needs a HierarchicalPlan "
                 "(core.shuffle_plan.compile_hierarchical), got a flat "
                 "ShufflePlan")
-        self.shard = None
+        self.shard = self.racks = None
         if self.group is not None:
             if isinstance(plan, HierarchicalPlan):
-                raise NotImplementedError(
-                    "the two-level exchange has no multi-process route "
-                    "(group=) yet: ROADMAP Queue 1 #7b")
-            self.shard = server_shard(self.group, plan.K, self.device)
+                self.racks = racks or rack_share(self.group, topology,
+                                                 plan.K, self.device)
+                self.shard = self.racks.shard
+            else:
+                self.shard = server_shard(self.group, plan.K, self.device)
         self.topology = topology
         if isinstance(plan, HierarchicalPlan):
             self.hplan, self.plan = plan, plan.flat
             self.sched = partition_hierarchical(plan, csr, alloc)
-            self.packed = pack_hierarchical(self.sched, csr.nnz)
+            self.packed = (pack_hierarchical(self.sched, csr.nnz)
+                           if self.racks is None else
+                           pack_rack_share(self.sched, csr.nnz, self.racks))
             # Summed once: `inter_rack_bits` sums the rack plan's columns.
             self.rack_bits = (plan.inter_rack_bits, plan.intra_rack_bits)
             self.schedule_bits = sum(self.rack_bits)
@@ -781,24 +851,40 @@ class FusedSparseShuffle:
         return self._exchange_bits(edge_vals.contiguous().view(torch.int32),
                                    swap=True)
 
+    def _rack_words(self, src: torch.Tensor) -> torch.Tensor:
+        """Phase A of the two-level exchange on a group: this rank's
+        racks' Map words X, in `pack_rack_share`'s layout. The rank reads
+        the Map output only at its own servers' entries; a rack that spans
+        ranks gathers the rest over the 'servers' subgroup."""
+        t = self.tables
+        pad = t["loc_pad"] if src.dim() == 1 else t["loc_pad"][:, None]
+        mine = src.index_select(0, t["loc_e"]).masked_fill_(pad, 0)
+        if self.racks.servers_group is None:
+            return mine
+        return _all_gather(mine, self.racks.servers_group)
+
     def _exchange_bits(self, src: torch.Tensor, swap: bool) -> torch.Tensor:
         t, tr = self.tables, get_tracer()
         B = 1 if src.dim() == 1 else int(src.shape[1])
-        sh = self.shard
-        with tr.span("phase.encode", backend="fused", B=B, nnz=self.nnz):
+        sh, racks = self.shard, self.racks
+        ranks = {} if sh is None else {"ranks": sh.world}
+        with tr.span("phase.encode", backend="fused", B=B, nnz=self.nnz,
+                     **ranks):
+            if racks is not None:
+                src = self._rack_words(src)
             buf = xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"],
                                     swap=swap)
             self._sync(tr)
         attrs = dict(backend="fused", bits=self.schedule_bits * B, B=B,
-                     K=self.sched.K)
+                     K=self.sched.K, **ranks)
         if self.hplan is not None:
             inter, intra = (b * B for b in self.rack_bits)
             attrs.update(inter_rack_bits=inter, intra_rack_bits=intra)
-        if sh is not None:
-            attrs.update(ranks=sh.world)
         with tr.span("phase.exchange", **attrs):
-            if sh is not None:
-                buf = _all_gather(buf, sh)
+            if racks is not None:
+                buf = _all_gather(buf, racks.racks_group)
+            elif sh is not None:
+                buf = _all_gather(buf, sh.group)
             self._sync(tr)
         if self.hplan is not None:
             _count_rack_bits(inter, intra)
@@ -816,7 +902,7 @@ class FusedSparseShuffle:
             if pad:
                 words = torch.cat([words, words.new_zeros(
                     (pad,) + tuple(words.shape[1:]))])
-            words = _all_gather(words, sh)
+            words = _all_gather(words, sh.group)
             if self._trim is not None:
                 words = words.index_select(0, self._trim)
             self._sync(tr)

@@ -9,6 +9,17 @@ runs every server, as the virtual route does, with the collectives in
 place. `core.fused_shuffle.FusedSparseShuffle(..., group=)` runs the flat
 exchange on such a group.
 
+The two-level exchange of a `Topology(R, S)` (K = R S servers, rack rho
+the servers ``[rho S, (rho + 1) S)``) splits the group by rack, the
+counterpart of the reference's ('racks', 'servers') mesh
+(`launch/mesh.make_racks_mesh`). `rack_share` keeps `server_shard`'s
+contiguous servers and takes one of two layouts: P divides R (a rank
+owns R / P whole racks), or R divides P and P divides K (a rack spans
+P / R ranks). It builds the 'servers' subgroup, the ranks of one rack,
+over which each rank gathers its rack's Map words (phase A), and the
+'racks' subgroup, the ranks at the same place within their racks, over
+which the coded rack buffers are gathered (phase B).
+
 Nothing here creates a group: the caller initialises `torch.distributed`
 (for example ``dist.init_process_group(backend, store=dist.FileStore(path,
 P), rank=p, world_size=P)``, which opens no port) and passes the group,
@@ -67,3 +78,60 @@ def server_shard(group, K: int, device: torch.device | None = None) -> ServerSha
         raise ValueError(f"a {backend} group moves {want} tensors; the session "
                          f"runs on {device}")
     return ServerShard(group, world, rank, K)
+
+
+@dataclasses.dataclass(frozen=True)
+class RackShare:
+    """The racks and subgroups of one rank of a group running the
+    two-level exchange of a `Topology(R, S)`."""
+
+    shard: ServerShard
+    R: int
+    S: int
+    per_rack: int                 # ranks per rack, max(1, P / R)
+    servers_group: object         # this rank's rack's ranks (None: one rank)
+    racks_group: object           # the ranks at its place in their racks
+
+    @property
+    def racks(self) -> range:
+        """This rank's racks: those of its servers."""
+        sh = self.shard
+        return range(sh.servers.start // self.S, -(-sh.servers.stop // self.S))
+
+
+def rack_share(group, topology, K: int,
+               device: torch.device | None = None) -> RackShare:
+    """Validate `group` for the two-level exchange of `topology` (K
+    servers, on `device` when given) and return this rank's share, with
+    the 'servers' and 'racks' subgroups built in the same order on every
+    rank, each only by its members (`dist.new_group` with local
+    synchronization); where a rank owns whole racks there is no 'servers'
+    subgroup and the 'racks' one is `group` itself. Raises `ValueError`
+    as `server_shard` does, and for a layout other than the two: P
+    dividing R, or R dividing P (with P dividing K)."""
+    import torch.distributed as dist
+
+    shard = server_shard(group, K, device)
+    P, R, S = shard.world, topology.racks, topology.servers_per_rack
+    if R % P and P % R:
+        raise ValueError(
+            f"the group's {P} ranks must hold whole racks or split racks "
+            f"evenly: P divides R (a rank owns R / P racks) or R divides P "
+            f"(a rack spans P / R ranks); got P = {P}, R = {R}")
+    q = max(1, P // R)
+    ranks = [dist.get_global_rank(group, i) for i in range(P)]
+    if ranks != sorted(ranks):
+        raise ValueError("the group's ranks must be in the order of their "
+                         "global ranks")
+    if q == 1:
+        return RackShare(shard, R, S, q, None, group)
+    backend = str(dist.get_backend(group))
+
+    def subgroup(members):
+        return dist.new_group(members, backend=backend,
+                              use_local_synchronization=True)
+
+    by_rack = [subgroup(ranks[b * q:(b + 1) * q]) for b in range(P // q)]
+    by_place = [subgroup(ranks[j::q]) for j in range(q)]
+    return RackShare(shard, R, S, q, by_rack[shard.rank // q],
+                     by_place[shard.rank % q])

@@ -177,9 +177,11 @@ def _placement_rules() -> None:
     for one. `searchsorted`, and `index_put_` where torch 2.11 has none:
     every input and output replicated, as GSPMD runs an op it cannot
     split. `searchsorted` finds each expert's first slot in the
-    MoE's routing, which runs on every token anyway (`models/moe.route`).
-    `index_copy_` writes a decode step's keys into the cache, split along
-    any dim but the sequence's. Registered once per process."""
+    MoE's routing where it runs on every token (tokens the mesh leaves
+    whole; split tokens are routed by block, `models/moe.route`).
+    `index_copy_` writes a decode step's keys into a cache split along any
+    dim but the sequence's (`rules.write_row` writes a sequence-split one
+    by block). Registered once per process."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 

@@ -265,6 +265,16 @@ def chunked_attend(q, k, v, qpos, kpos, *, chunk=1024, **kw):
     if split_on(q, 2):
         return on_blocks(functools.partial(chunked_attend, chunk=chunk, **kw),
                          q, q, k, v, qpos, kpos)
+    if split_on(q, 1):
+        # Query positions split over the tensor axis, k / v whole: each
+        # device attends its positions, and the gradients of k and v are
+        # partial sums over the axes that split the queries.
+        from torch.distributed.tensor import Partial
+
+        part = [Partial() if qp.is_shard(1) else kp
+                for qp, kp in zip(q.placements, k.placements)]
+        return on_blocks(functools.partial(chunked_attend, chunk=chunk, **kw),
+                         q, q, k, v, qpos, kpos, grads={1: part, 2: part})
     B, S, H, D = q.shape
     if S <= chunk:
         return attend(q, k, v, qpos, kpos, **kw)
@@ -289,14 +299,20 @@ def remat(fn, *args):
                                          preserve_rng_state=False)
 
 
-def split_heads(x, w):
+def split_heads(x, w, *, seq: bool = False):
     """x [B, T, r] @ w [r, H, Dh] -> [B, T, H, Dh] (one matmul), in the
     promoted dtype as the reference's einsum (MLA expands a float32 latent
-    cache through bf16 weights)."""
+    cache through bf16 weights). Under a mesh the heads split over the
+    tensor axis where they divide it, a split sequence of x gathered for
+    them; with `seq` (the query-parallel attention) x's split sequence is
+    kept and the heads whole."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    heads = _flat_heads(w.shape[1])
+    keep = seq and split_on(x, 1)
+    heads = None if keep else _flat_heads(w.shape[1])
     w2 = constrain(w.reshape(w.shape[0], -1), None, heads)
-    y = constrain(torch.matmul(x.to(dt), w2.to(dt)), "batch", None, heads)
+    if not keep:
+        x = constrain(x, "batch", None, None)
+    y = constrain(_product(x.to(dt), w2.to(dt)), "batch", _seq(x), heads)
     return y.reshape(*x.shape[:2], *w.shape[1:])
 
 
@@ -309,18 +325,42 @@ def _flat_heads(H: int) -> str | None:
     return "act_heads" if H % tp_size() == 0 else None
 
 
+def _product(x, w):
+    """x [B, T, r] @ w [r, n]. Where x's sequence is split over a mesh,
+    each device multiplies its block by the whole w (`on_blocks`; w's
+    gradient a partial sum over the mesh dims that split x): torch 2.11's
+    DTensor refuses to fold a split dim 1 into the product's rows."""
+    if not split_on(x, 1):
+        return torch.matmul(x, w)
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = x.device_mesh
+    w = w.redistribute(mesh, [Replicate()] * mesh.ndim)
+    part = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+    return on_blocks(torch.matmul, x, x, w, grads={1: part})
+
+
+def _seq(x) -> str | None:
+    """The logical axis of x's dim 1: the sequence split over the tensor
+    axis (`act_seq_tp`) where it is so split (the query-parallel
+    attention), else whole."""
+    return "act_seq_tp" if split_on(x, 1) else None
+
+
 def merge_heads(o, w):
     """o [B, T, H, Dh] @ w [H, Dh, d] -> [B, T, d] (one matmul), in the
     promoted dtype as the reference's einsum (a float32 cache gives a
-    float32 o beside bf16 weights)."""
+    float32 o beside bf16 weights). Under a mesh the heads split over the
+    tensor axis where they divide it, unless o's sequence is split (the
+    query-parallel attention), which is kept."""
     dt = torch.promote_types(o.dtype, w.dtype)
-    heads = _flat_heads(w.shape[0])
-    o2 = constrain(o.reshape(*o.shape[:2], -1), "batch", None, heads)
+    heads = None if split_on(o, 1) else _flat_heads(w.shape[0])
+    o2 = constrain(o.reshape(*o.shape[:2], -1), "batch", _seq(o), heads)
     w2 = constrain(w.reshape(-1, w.shape[-1]), heads, None)
     # Under a mesh the product over split heads is a partial sum: summed
     # here, or DTensor carries it on into the residual and the next norm,
     # and runs the MLP on every device whole.
-    return constrain(torch.matmul(o2.to(dt), w2.to(dt)), "batch", None, None)
+    return constrain(_product(o2.to(dt), w2.to(dt)), "batch", None, None)
 
 
 def embed_rows(embed, tokens):
@@ -341,12 +381,14 @@ def geglu(x, w_gate, w_up, w_down, act: str = "silu"):
     return torch.matmul(a * u, gathered(w_down))
 
 
-def cross_entropy(logits, labels, vocab: int, softcap=None):
-    """Mean token cross-entropy of logits [..., vocab] (softcapped, in
-    float32) at integer labels [...]. The reference sums one_hot * log p
-    over the vocab (`layers.py:168-172`); every term but the label's is an
-    exact zero, so the log-probability gathered at the label is the same
-    value without the [..., vocab] one-hot."""
+def cross_entropy(logits, labels, vocab: int, softcap=None, *,
+                  reduction: str = "mean"):
+    """Token cross-entropy of logits [..., vocab] (softcapped, in float32)
+    at integer labels [...], the mean (or, with ``reduction="sum"``, the
+    sum) over tokens. The reference sums one_hot * log p over the vocab
+    (`layers.py:168-172`); every term but the label's is an exact zero, so
+    the log-probability gathered at the label is the same value without
+    the [..., vocab] one-hot."""
     if logits.shape[-1] != vocab:
         raise ValueError(f"logits have {logits.shape[-1]} classes, vocab is {vocab}")
     logp = torch.log_softmax(_softcap(logits.to(torch.float32), softcap), dim=-1)
@@ -355,5 +397,7 @@ def cross_entropy(logits, labels, vocab: int, softcap=None):
         # scatters into a zero tensor that DTensor cannot split, so every
         # device would hold the whole batch's [..., vocab] gradient.
         hot = labels.long()[..., None] == torch.arange(vocab, device=logp.device)
-        return -torch.mean(torch.sum(logp * hot, dim=-1))
-    return -torch.mean(logp.gather(-1, labels.long()[..., None])[..., 0])
+        terms = torch.sum(logp * hot, dim=-1)
+    else:
+        terms = logp.gather(-1, labels.long()[..., None])[..., 0]
+    return -(torch.sum(terms) if reduction == "sum" else torch.mean(terms))

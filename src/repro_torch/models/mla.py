@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import MLAConfig, ModelConfig
-from ..sharding.rules import gathered
+from ..sharding.rules import gathered, write_row
 from .layers import (ParamSpec, attend, chunked_attend, merge_heads, rms_norm,
                      rope, split_heads)
 
@@ -85,8 +85,8 @@ def mla_decode(p, cfg: ModelConfig, x, pos, cache_lat, cache_rope, kv_valid):
     (out [B, 1, d], cache_lat, cache_rope), the same tensors."""
     q_nope, q_rope, kv_lat, k_rope = _project(p, cfg, x, pos)
     t = pos[:1, 0].long()
-    cache_lat.index_copy_(1, t, kv_lat.to(cache_lat.dtype))
-    cache_rope.index_copy_(1, t, k_rope[:, :, 0].to(cache_rope.dtype))
+    cache_lat = write_row(cache_lat, 1, t, kv_lat.to(cache_lat.dtype))
+    cache_rope = write_row(cache_rope, 1, t, k_rope[:, :, 0].to(cache_rope.dtype))
     k_nope, v = _expand_kv(p, cfg, cache_lat)
     q, k = _qk(q_nope, q_rope, k_nope, cache_rope)
     kpos = torch.arange(k.shape[1], device=x.device)[None]

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
-from ..sharding.rules import constrain, gathered
+from ..sharding.rules import (block_index, constrain, gathered, on_blocks,
+                              placements_for, split_on)
 from .layers import ParamSpec, geglu
 
 
@@ -104,31 +105,101 @@ def route_logits(logits: torch.Tensor, e: MoEConfig, C: int) -> Routing:
 
 
 def route(p, cfg: ModelConfig, xt: torch.Tensor, C: int | None = None) -> Routing:
-    """The routing of token rows xt [T, d]; C defaults to `_capacity(T)`."""
+    """The routing of token rows xt [T, d]; C defaults to `_capacity(T)`.
+    Under a mesh that splits the tokens (the data axes), each block of
+    tokens is routed where it lives (`_route_blocks`); with the tokens
+    whole, every device routes every token."""
     e = cfg.moe
     if C is None:
         C = _capacity(xt.shape[0], e)
-    # Under a mesh the routing runs on every token on every device: a
-    # token's slot depends on every earlier token's choice.
+    if split_on(xt, 0):
+        return _route_blocks(constrain(router_logits(p, xt), "batch", None),
+                             e, C)
     return route_logits(constrain(router_logits(p, xt), None, None), e, C)
 
 
-def _slots(r: Routing) -> torch.Tensor:
-    """Flat slot e * C + pos of each (token, k) [T, k]."""
-    return r.topi * r.C + r.pos
+def _route_blocks(logits, e: MoEConfig, C: int) -> Routing:
+    """The routing of logits [T, E] whose rows are split over mesh dims (a
+    DTensor), bitwise `route_logits` on the whole, ties included: each
+    block routes its own rows, and a (token, k)'s slot is its slot within
+    its block plus the (token, k) of the earlier blocks (the token-major
+    order) that chose the same expert, from one gather of the blocks'
+    per-expert counts [blocks, E]. Every field is split as the tokens."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, E = logits.device_mesh, e.num_experts
+
+    def local(lg):
+        r = route_logits(lg, e, C)
+        flat = r.topi.reshape(-1)
+        counts = torch.zeros(E, dtype=flat.dtype, device=flat.device)
+        counts.index_add_(0, flat, torch.ones_like(flat))
+        return r.topi, r.topv, r.pos, counts[None]
+
+    topi, topv, pos, counts = on_blocks(local, logits, logits, outs=4)
+    table = counts.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    before = table[:block_index(mesh, logits.placements, 0)].sum(0)
+    pos = on_blocks(lambda t, q: q + before[t], topi, topi, pos)
+    return Routing(topi, topv, pos, pos < C, C)
+
+
+def _experts_of_block(mesh, tokens: list, E: int):
+    """How a buffer [E, C, d] of token rows split over `tokens`'
+    placements lies on the mesh: (its placements, Partial over the dims
+    that split the tokens and Shard(0) over those the rules split the
+    experts over; this device's first expert; its expert count)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rule = placements_for(mesh, ("expert", None, None), (E, 1, 1))
+    place = [Partial() if t.is_shard(0) else Shard(0) if x.is_shard(0)
+             else Replicate() for t, x in zip(tokens, rule)]
+    n = E
+    for i, pl in enumerate(place):
+        if pl.is_shard(0):
+            n //= mesh.size(i)
+    return place, block_index(mesh, place, 0) * n, n
+
+
+def _dispatch_rows(xt, topi, pos, keep, C: int, E: int, span=None):
+    """xe [n, C, d]: the kept (token, k) rows of experts [lo, lo + n)
+    (`span`; all E without one) at their slots, zeros elsewhere. Dropped
+    rows go to one trash row past the n * C slots (no mask, so no host
+    sync); the kept targets are unique."""
+    T, d = xt.shape
+    k = topi.shape[1]
+    lo, n = span or (0, E)
+    mine = keep if span is None else keep & (topi >= lo) & (topi < lo + n)
+    slot = (topi if span is None else topi - lo) * C + pos
+    buf = xt.new_zeros((n * C + 1, d))
+    dest = torch.where(mine, slot, n * C).reshape(T * k)
+    buf[dest] = xt[:, None].expand(T, k, d).reshape(T * k, d)
+    return buf[:n * C].view(n, C, d)
 
 
 def dispatch(xt: torch.Tensor, r: Routing, E: int) -> torch.Tensor:
     """xe [E, C, d] in xt's dtype: each kept (token, k)'s row at its slot,
-    zeros in the empty slots. The dropped rows go to one trash row past
-    the E * C slots (no mask, so no host sync); the kept targets are
-    unique."""
-    T, d = xt.shape
-    k = r.topi.shape[1]
-    buf = xt.new_zeros((E * r.C + 1, d))
-    dest = torch.where(r.keep, _slots(r), E * r.C).reshape(T * k)
-    buf[dest] = xt[:, None].expand(T, k, d).reshape(T * k, d)
-    return buf[:E * r.C].view(E, r.C, d)
+    zeros in the empty slots. Under a mesh that splits the tokens, each
+    device writes its own tokens into its experts' slots, and the blocks'
+    buffers are summed over the token axes, split there along the slots
+    (one reduce-scatter; the slots of a block's tokens are its own)."""
+    if not split_on(xt, 0):
+        return _dispatch_rows(xt, r.topi, r.pos, r.keep, r.C, E)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = xt.device_mesh
+    place, lo, n = _experts_of_block(mesh, list(xt.placements), E)
+    blocks = 1
+    for i, pl in enumerate(place):
+        if pl.is_partial():
+            blocks *= mesh.size(i)
+    xe = on_blocks(lambda x, t, q, kp: _dispatch_rows(x, t, q, kp, r.C, E,
+                                                      (lo, n)),
+                   place, xt, r.topi, r.pos, r.keep,
+                   grads={0: [Partial() if pl.is_shard(0) else p for pl, p
+                              in zip(place, xt.placements)]})
+    split = Shard(1) if r.C % blocks == 0 else Replicate()
+    return xe.redistribute(mesh, [split if pl.is_partial() else pl
+                                  for pl in place])
 
 
 def experts(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
@@ -138,18 +209,50 @@ def experts(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return torch.bmm(F.silu(g) * u, gathered(w_down))
 
 
-def combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:
-    """yt [T, d] float32: sum over k, in k order, of topv * keep times the
-    row of ye at the (token, k)'s slot."""
-    E, C, d = ye.shape
-    flat = ye.reshape(E * C, d)
-    slot = torch.where(r.keep, _slots(r), 0)
-    w = r.topv * r.keep
+def _combine_rows(ye, topi, topv, pos, keep, C: int, span=None):
+    """yt [T, d] float32 from the rows ye [n, C, d] of experts [lo, lo + n)
+    (`span`; all of them without one): sum over k, in k order, of topv *
+    keep times the row at the (token, k)'s slot, 0 for other experts."""
+    n, _, d = ye.shape
+    flat = ye.reshape(n * C, d)
+    mine = keep if span is None else \
+        keep & (topi >= span[0]) & (topi < span[0] + span[1])
+    slot = torch.where(mine, (topi if span is None else topi - span[0]) * C
+                       + pos, 0)
+    w = topv * mine
     yt = None
-    for j in range(r.topi.shape[1]):
+    for j in range(topi.shape[1]):
         term = flat[slot[:, j]].to(torch.float32) * w[:, j, None]
         yt = term if yt is None else yt + term
     return yt
+
+
+def combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:
+    """yt [T, d] float32: sum over k, in k order, of topv * keep times the
+    row of ye at the (token, k)'s slot. Under a mesh that splits the
+    tokens, each device gathers its experts' slots over the token axes
+    and sums its tokens' rows of them; the experts' partial sums are
+    added over the mesh (float32, before any cast), as are, in the
+    backward, the partial gradients of the weights topv."""
+    if not split_on(r.topi, 0):
+        return _combine_rows(ye, r.topi, r.topv, r.pos, r.keep, r.C)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ye.device_mesh
+    tokens = list(r.topi.placements)
+    place, lo, n = _experts_of_block(mesh, tokens, ye.shape[0])
+    held = [Shard(0) if pl.is_shard(0) else Replicate() for pl in place]
+    out = [Shard(0) if t.is_shard(0) else Partial() if pl.is_shard(0)
+           else Replicate() for t, pl in zip(tokens, place)]
+    yt = on_blocks(lambda y, t, v, q, kp: _combine_rows(y, t, v, q, kp, r.C,
+                                                        (lo, n)),
+                   out, ye.redistribute(mesh, held), r.topi, r.topv, r.pos,
+                   r.keep, grads={0: [Partial() if t.is_shard(0) else h
+                                      for t, h in zip(tokens, held)],
+                                  2: [Partial() if pl.is_shard(0) else t
+                                      for t, pl in zip(tokens, place)]})
+    return yt.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                  for pl in out])
 
 
 def add_shared(p, cfg: ModelConfig, x, out):
@@ -163,7 +266,7 @@ def add_shared(p, cfg: ModelConfig, x, out):
 def moe_local(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The MoE FFN on one device: x [B, S, d] -> [B, S, d]."""
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
+    xt = constrain(x.reshape(B * S, d), "batch", None)
     r = route(p, cfg, xt)
     E = cfg.moe.num_experts
     ye = experts(dispatch(xt, r, E), p["w_gate"], p["w_up"], p["w_down"])
@@ -171,13 +274,15 @@ def moe_local(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return add_shared(p, cfg, x, out)
 
 
-def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, group=None) -> torch.Tensor:
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, group=None,
+            model_group=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]. With `cfg.moe.ep` set, the experts run
-    sharded over `group` (`moe_ep.moe_ffn_ep`, which falls back to this
-    device's `moe_local` without a group)."""
+    sharded over `group`, their hidden width over `model_group`
+    (`moe_ep.moe_ffn_ep`, which falls back to this device's `moe_local`
+    without a group)."""
     if cfg.moe.ep:
         from .moe_ep import moe_ffn_ep
-        return moe_ffn_ep(p, cfg, x, group=group)
+        return moe_ffn_ep(p, cfg, x, group=group, model_group=model_group)
     return moe_local(p, cfg, x)
 
 

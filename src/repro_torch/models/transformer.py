@@ -20,7 +20,8 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from ..sharding.rules import constrain, gathered, place, tp_size
+from ..sharding.rules import (constrain, distributed, gathered, place,
+                              reduce_grad, split_on, tp_size, write_row)
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -114,20 +115,28 @@ def gqa_forward(p, cfg: ModelConfig, x, positions, window: int, *, chunk=1024):
     (out [B, T, d], (k, v)).
 
     Under a mesh, attention is head-parallel when both head counts divide
-    the tensor axis, else kv-sequence-parallel (ragged-head archs:
-    llama4's 40 heads, internvl2's 14), as in the reference."""
-    q = rope(split_heads(x, p["q"]), positions, cfg.rope_theta)
+    the tensor axis, as in the reference. Otherwise (ragged-head archs:
+    llama4's 40 heads, internvl2's 14) it is query-sequence-parallel: the
+    query positions, with their projections in and out, split over the
+    tensor axis and the few kv heads whole on every device. The
+    reference splits the keys' sequence instead (`act_seq_tp` on k / v),
+    but XLA's FLOP count of internvl2's train step splits the query and
+    output projections too, which that split leaves whole; and DTensor,
+    which has no softmax over a split dim, would gather the score tiles."""
+    tp = tp_size()
+    heads = cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+    xq, qpos = x, positions
+    if not heads:
+        xq = constrain(x, "batch", "act_seq_tp", None)
+        qpos = constrain(positions, "batch", "act_seq_tp")
+    q = rope(split_heads(xq, p["q"], seq=not heads), qpos, cfg.rope_theta)
     k = rope(split_heads(x, p["k"]), positions, cfg.rope_theta)
     v = split_heads(x, p["v"])
-    tp = tp_size()
-    if cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0:
+    if heads:
         q = constrain(q, "batch", None, "act_heads", None)
         k = constrain(k, "batch", None, "act_kv", None)
         v = constrain(v, "batch", None, "act_kv", None)
-    else:
-        k = constrain(k, "batch", "act_seq_tp", None, None)
-        v = constrain(v, "batch", "act_seq_tp", None, None)
-    out = chunked_attend(q, k, v, positions, positions, chunk=chunk,
+    out = chunked_attend(q, k, v, qpos, positions, chunk=chunk,
                          causal=not cfg.encoder_only, window=window,
                          softcap=cfg.attn_softcap)
     return merge_heads(out, p["o"]), (k, v)
@@ -141,9 +150,13 @@ def gqa_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, window: int):
     q = rope(split_heads(x, p["q"]), pos, cfg.rope_theta)
     k = rope(split_heads(x, p["k"]), pos, cfg.rope_theta)
     v = split_heads(x, p["v"])
+    if split_on(cache_k, 1):
+        # A cache split along its sequence (kv heads the tensor axis does
+        # not divide): every device scores its keys with every head.
+        q = constrain(q, "batch", None, None, None)
     t = pos[:1, 0].long()
-    cache_k.index_copy_(1, t, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, t, v.to(cache_v.dtype))
+    cache_k = write_row(cache_k, 1, t, k.to(cache_k.dtype))
+    cache_v = write_row(cache_v, 1, t, v.to(cache_v.dtype))
     kpos = torch.arange(cache_k.shape[1], device=x.device)[None]
     out = attend(q, cache_k, cache_v, pos, kpos, causal=True, window=window,
                  softcap=cfg.attn_softcap, kv_valid=kpos <= t)
@@ -158,7 +171,7 @@ def _ffn(p, cfg: ModelConfig, x, *, moe_layer: bool):
 
 def block_forward(p, cfg, x, positions, window: int, *, moe_layer=False,
                   chunk=1024):
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = reduce_grad(rms_norm(x, p["attn_norm"], cfg.norm_eps))
     if cfg.mla:
         attn_out, kv = mla_mod.mla_attention(p["attn"], cfg, h, positions,
                                              chunk=chunk)
@@ -166,7 +179,7 @@ def block_forward(p, cfg, x, positions, window: int, *, moe_layer=False,
         attn_out, kv = gqa_forward(p["attn"], cfg, h, positions, window,
                                    chunk=chunk)
     x = x + attn_out
-    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    h = reduce_grad(rms_norm(x, p["ffn_norm"], cfg.norm_eps))
     x = x + _ffn(p["ffn"], cfg, h, moe_layer=moe_layer)
     return constrain(x, "batch", None, None), kv
 
@@ -338,11 +351,61 @@ def forward(params, cfg: ModelConfig, batch: dict, *, chunk=1024,
     return constrain(logits, "batch", None, "vocab")
 
 
+def _vocab_whole_over_model(embed) -> bool:
+    """Whether `embed` is a DTensor under a mesh whose 'model' axis (of
+    more than one device) leaves the vocabulary whole: a vocabulary the
+    axis does not divide (internvl2's 151,655 over 16)."""
+    if not distributed(embed) or tp_size() == 1:
+        return False
+    m = embed.device_mesh.mesh_dim_names.index("model")
+    return not embed.placements[m].is_shard(0)
+
+
+def _ce_rows_over_model(x, embed, labels, vocab, softcap, *, rows=512):
+    """`_chunked_ce` under a mesh whose 'model' axis leaves the vocabulary
+    whole: each model rank takes its share of its data shard's rows
+    (positions), in chunks of `rows` recomputed in the backward, and the
+    ranks' sums are added over the mesh and divided by the row count; so
+    no two ranks compute the same logit, as XLA splits them. The same
+    mean, summed in another order."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = embed.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    x = constrain(x, "batch", None, None)
+    labels = constrain(labels, "batch", None)
+    B, S, d = x.shape
+    everywhere = [Partial()] * mesh.ndim
+    xl = x.to_local(grad_placements=[Partial() if i == m else p
+                                     for i, p in enumerate(x.placements)])
+    el = gathered(embed).to_local(grad_placements=everywhere)
+    xl, ll = xl.reshape(-1, d), labels.to_local().reshape(-1)
+    n, T, t = xl.shape[0], mesh.size(m), mesh.get_local_rank(m)
+    lo, hi = n * t // T, n * (t + 1) // T
+
+    def body(xc, lc):
+        return cross_entropy(torch.matmul(xc, el.transpose(0, 1)), lc, vocab,
+                             softcap, reduction="sum")
+
+    tot = torch.zeros((), dtype=torch.float32, device=xl.device)
+    for a in range(lo, hi, rows):
+        b = min(a + rows, hi)
+        tot = tot + remat_call(body, xl[a:b], ll[a:b])
+    # One sum a device, [devices] split over every mesh dim, summed.
+    tot = DTensor.from_local(tot[None], mesh, [Shard(0)] * mesh.ndim,
+                             run_check=False).sum()
+    return tot.redistribute(mesh, [Replicate()] * mesh.ndim) / (B * S)
+
+
 def _chunked_ce(x, embed, labels, vocab, softcap, *, seq_chunk=512):
     """The cross-entropy over sequence chunks of `seq_chunk` positions (one
     chunk when S is not a multiple of it, as in the reference), each chunk
     recomputed in the backward, so that no chunk's float32 logits are
-    kept; the mean of the chunks' means."""
+    kept; the mean of the chunks' means. Under a mesh that leaves the
+    vocabulary whole over 'model', `_ce_rows_over_model`."""
+    if _vocab_whole_over_model(embed):
+        return _ce_rows_over_model(x, embed, labels, vocab, softcap,
+                                   rows=seq_chunk)
     B, S, d = x.shape
     if S % seq_chunk:
         seq_chunk = S                      # ragged: fall back to one chunk

@@ -23,7 +23,10 @@ is without a mesh or for a plain tensor, so the one-card paths, which set
 no mesh, run exactly as they would without it. `gathered` is the FSDP
 gather of a weight before its product, `place` the split of a
 constant every device builds alike, and `on_blocks` runs a function on
-each device's blocks (the reference's `shard_map`), with the same guard.
+each device's blocks (the reference's `shard_map`), with the same guard;
+so do `write_row`, a decode step's row written into a cache split along
+its sequence block by block, and `reduce_grad`, a gradient that arrives
+as a partial sum summed where the activation was read.
 """
 from __future__ import annotations
 
@@ -217,17 +220,97 @@ def split_on(x, dim: int) -> bool:
     return distributed(x) and any(p.is_shard(dim) for p in x.placements)
 
 
-def on_blocks(fn, like, *args):
+def on_blocks(fn, like, *args, grads: dict | None = None, outs: int = 0):
     """``fn(*args)`` on each device's blocks of the DTensor args, as
     `shard_map` runs a body: no collective, the args where they are (a
-    plain tensor passes whole), the result placed as the DTensor `like`."""
+    plain tensor passes whole), the result placed as the DTensor `like`
+    (or as placements, a list), or each of its `outs` results so.
+    `grads` maps an arg's index to the placements of its gradient where
+    they are not the arg's own: a partial sum (`Partial`) over the mesh
+    dims on which the body reads a whole arg but uses only its block's
+    share of it."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
 
     ins = tuple(list(a.placements) if isinstance(a, DTensor) else None
                 for a in args)
-    return local_map(fn, out_placements=list(like.placements),
-                     in_placements=ins, device_mesh=like.device_mesh)(*args)
+    grad_ins = tuple((grads or {}).get(i, pl) for i, pl in enumerate(ins))
+    mesh = _mesh() if isinstance(like, list) else like.device_mesh
+    out = list(like if isinstance(like, list) else like.placements)
+    return local_map(fn, out_placements=tuple([out] * outs) if outs else out,
+                     in_placements=ins, in_grad_placements=grad_ins,
+                     device_mesh=mesh)(*args)
+
+
+class _ReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if isinstance(g, DTensor) and any(p.is_partial() for p in g.placements):
+            g = g.redistribute(g.device_mesh, [Replicate() if p.is_partial()
+                                               else p for p in g.placements])
+        return g
+
+
+def reduce_grad(x: torch.Tensor) -> torch.Tensor:
+    """`x` itself, whose gradient is summed where it arrives as a partial
+    sum over mesh dims (the transpose of reading a replicated activation
+    in products split over the tensor axis, as XLA's all-reduce in the
+    backward); `x` as it is without a mesh. DTensor would otherwise carry
+    the partial sum on up the residual stream, and each product's backward
+    that meets it gathers its weight whole."""
+    if not distributed(x):
+        return x
+    return _ReduceGrad.apply(x)
+
+
+def block_index(mesh, placements, dim: int) -> int:
+    """The index of this device's block along tensor dim `dim` of a DTensor
+    placed by `placements` on `mesh`: its coordinates on the mesh dims
+    that split `dim`, the first the major one (0 where none does)."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            index = index * mesh.size(i) + coord[i]
+    return index
+
+
+def write_row(cache: torch.Tensor, dim: int, t: torch.Tensor,
+              row: torch.Tensor) -> torch.Tensor:
+    """``cache.index_copy_(dim, t, row)``: row (size 1 along `dim`) written
+    at position t (a [1] index) in place; returns the cache. A DTensor
+    cache split along `dim` (a sequence-split decode cache) is written per
+    block, as XLA lowers a dynamic-update-slice: each device reads the row
+    at t clamped to its block, keeps it unless t falls in the block, and
+    writes it back, so each moves one row and none the whole cache."""
+    if not split_on(cache, dim):
+        return cache.index_copy_(dim, t, row)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = cache.device_mesh
+    size = cache.to_local().shape[dim]
+    lo = block_index(mesh, cache.placements, dim) * size
+    whole = [Replicate()] * mesh.ndim
+    if isinstance(t, DTensor):
+        t = t.redistribute(mesh, whole)
+    if not isinstance(row, DTensor):
+        row = DTensor.from_local(row, mesh, whole, run_check=False)
+    row = row.redistribute(mesh, [Replicate() if p.is_shard(dim) else p
+                                  for p in cache.placements])
+
+    def local(c, t, r):
+        at = (t - lo).clamp(0, size - 1)
+        inside = (t >= lo) & (t < lo + size)
+        return c.index_copy_(dim, at, torch.where(inside, r,
+                                                   c.index_select(dim, at)))
+
+    return on_blocks(local, cache, cache, t, row)
 
 
 def gathered(w: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,10 @@ plus two float32 layers of memory, the MoE FFN's routing with tied gates
 (the lower index first, as on the CPU), `moe_ffn` bitwise repeatable and
 against its one-hot plain version at 160 experts top-6, the reduced
 deepseek-v2 and llama4 served with MLA's caches written in place,
-`moe_ffn_ep` on a one-rank NCCL group, and training: a float32
+`moe_ffn_ep` on a one-rank NCCL group (and with a one-rank `model_group`,
+forward and the rows' gradient against `moe_local`), the two-level
+exchange on a one-rank NCCL group against the virtual two-level route on
+Topology(4, 2) and (2, 4), and training: a float32
 `train_step` of the reduced mamba2-370m and zamba2-1.2b on the card
 against the CPU, `launch.train.train` on its default device with a
 restart, a checkpoint round trip from the card, K6 / K7 refusing an
@@ -1216,6 +1219,87 @@ def test_nccl_world_one_group_is_the_virtual_route(cuda, tmp_path):
             assert a.shuffle_bits == b.shuffle_bits
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
+def test_nccl_world_one_two_level_group_is_the_virtual_route(cuda, tmp_path,
+                                                              shape):
+    """The two-level exchange on a one-rank NCCL group (its rank owns every
+    rack): words, states and per-level bits bitwise the virtual two-level
+    route's, K1's rack encode and K2's direct form launched on it."""
+    import torch.distributed as dist
+
+    from repro_torch.core.shuffle_plan import compile_hierarchical
+    from repro_torch.launch.mesh import Topology
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    g, flat = _session(cuda, K=8)
+    hp = compile_hierarchical(g.csr, flat.alloc, Topology(*shape))
+    virt = engine.compile(algo.pagerank(), g, flat.alloc, plan=hp,
+                          path="sparse", backend="fused", device=cuda)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        grp = engine.compile(algo.pagerank(), g, flat.alloc, plan=hp,
+                             path="sparse", backend="fused", device=cuda,
+                             group=dist.group.WORLD)
+        assert grp.fused.racks is not None
+        assert grp.fused.rack_bits == (hp.inter_rack_bits, hp.intra_rack_bits)
+        pr = algo.pagerank()
+        for B in (1, 4):
+            st = torch.rand((g.n, B) if B > 1 else (g.n,), device=cuda)
+            ev = pr.map_edge_values_t(virt._dg, st).contiguous()
+            assert torch.equal(grp.fused.exchange(ev), virt.fused.exchange(ev))
+        for p in (pr, algo.sssp(0)):
+            _build.LAUNCHES.clear()
+            a = grp.with_program(p).run(5)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["xor_encode"] == 5
+            assert _build.LAUNCHES["xor_decode_direct"] == 5
+            b = virt.with_program(p).run(5)
+            assert torch.equal(a.state.view(torch.int32), b.state.view(torch.int32))
+            assert a.shuffle_bits == b.shuffle_bits
+    finally:
+        dist.destroy_process_group()
+
+
+def test_moe_ffn_ep_model_group_on_one_rank_nccl_groups(cuda, tmp_path):
+    """`moe_ffn_ep` with `group` and `model_group` on one-rank NCCL groups
+    against `moe_local`, forward and the gradient of the rows."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    cfg = _moe_cfg(E=128, k=1, cf=8.0)
+    p = _moe_params(cfg, cuda)
+    x = torch.randn((4, 64, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    cfg_ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep=True))
+
+    def grad_of(fn):
+        xg = x.clone().requires_grad_()
+        y = fn(xg)
+        return y.detach(), torch.autograd.grad(y.pow(2).sum(), [xg])[0]
+
+    want, g_want = grad_of(lambda xg: moe.moe_local(p, cfg, xg))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        model = dist.new_group([0])
+        got, g_got = grad_of(lambda xg: moe.moe_ffn(
+            p, cfg_ep, xg, group=dist.group.WORLD, model_group=model))
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.isfinite(g_got).all()
+    torch.testing.assert_close(g_got, g_want, rtol=0,
+                               atol=1e-6 * float(g_want.abs().max()))
 
 
 def _rank_exchanges(monkeypatch, g, eng, P, dev):

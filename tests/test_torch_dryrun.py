@@ -9,10 +9,17 @@ of `test_torch_dist.py` start groups of their own).
 - mamba2-370m `decode_32k`'s `arg_bytes` is the reference's exactly: the
   sum of the bytes of every input's shard under the reference's
   `NamedSharding`s (`_param_trees`, `_cache_trees` in float32,
-  `_shardings_for_batch`), which needs no compile.
+  `_shardings_for_batch`), which needs no compile. So is deepseek-v2-236b
+  `decode_32k`'s, whose sequence-split latent cache is written per block
+  (`rules.write_row`).
 
-- `moe_ep=True` reports `fail` with `moe_ffn_ep`'s NotImplementedError,
-  which names ROADMAP Queue 1 #7b, and restores the `expert` rule.
+- The `moe_ep=True` cells, deepseek-v2-236b `decode_32k` and
+  llama4-maverick `prefill_32k` (`moe_ffn_ep` on the mesh's groups), are
+  `ok` with the reference's `arg_bytes` under its expert rule, and the
+  `expert` rule is restored after each.
+
+The reference's `arg_bytes` are computed in one subprocess and the port's
+four cells run in another, each once for the module.
 
 `tests/test_torch_cost_analysis.py` holds a dry run's per-device counts on
 a data-parallel mesh.
@@ -69,58 +76,100 @@ def test_dryrun_skip_cells_report_reason():
     assert "encoder-only" in res["reason"]
 
 
+# (arch, shape, moe_ep): the cells whose arg_bytes are held exactly.
+ARG_CELLS = [("mamba2-370m", "decode_32k", False),
+             ("deepseek-v2-236b", "decode_32k", False),
+             ("deepseek-v2-236b", "decode_32k", True),
+             ("llama4-maverick-400b-a17b", "prefill_32k", True)]
+
 _REF_ARG_BYTES = textwrap.dedent("""
-    import math
+    import json, math, sys
     from repro import configs
     from repro.configs.base import SHAPES, input_specs
     from repro.launch import dryrun as d
     from repro.launch.mesh import make_production_mesh
     from repro.sharding import rules
     import jax
-    cfg, shape = configs.get("mamba2-370m"), SHAPES["decode_32k"]
     mesh = make_production_mesh(multi_pod=False)
     rules.set_mesh(mesh)
-    params, pshard = d._param_trees(cfg, mesh)
-    cache, cshard = d._cache_trees(cfg, shape, mesh)
-    batch = input_specs(cfg, shape)
-    bshard = d._shardings_for_batch(mesh, batch)
-    total = 0
-    for tree, shard in ((params, pshard), (cache, cshard), (batch, bshard)):
-        for x, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shard)):
-            total += math.prod(s.shard_shape(x.shape)) * x.dtype.itemsize
-    print(total)
+    out = []
+    for arch, shape_name, moe_ep in json.loads(sys.argv[1]):
+        rules.LOGICAL_RULES["expert"] = (("data", "model", None) if moe_ep
+                                         else ("model", None))
+        cfg, shape = configs.get(arch), SHAPES[shape_name]
+        trees = [d._param_trees(cfg, mesh)]
+        if shape.kind == "decode":
+            trees.append(d._cache_trees(cfg, shape, mesh))
+        batch = input_specs(cfg, shape)
+        trees.append((batch, d._shardings_for_batch(mesh, batch)))
+        total = 0
+        for tree, shard in trees:
+            for x, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shard)):
+                total += math.prod(s.shard_shape(x.shape)) * x.dtype.itemsize
+        out.append(total)
+    print(json.dumps(out))
 """)
 
-
-def test_arg_bytes_match_reference():
-    proc = subprocess.run([sys.executable, "-c", _REF_ARG_BYTES],
-                          capture_output=True, text=True, timeout=300, env=ENV)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    want = int(proc.stdout.strip().splitlines()[-1])
-    res, proc = _run_cell("mamba2-370m", "decode_32k")
-    assert res["status"] == "ok", (res, proc.stderr[-1500:])
-    assert want > 0
-    assert res["arg_bytes"] == want
-
-
-_MOE_EP = textwrap.dedent("""
-    import json
+_PORT_CELLS = textwrap.dedent("""
+    import json, sys
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import card_figures
     from repro_torch.sharding import rules
-    r = dryrun.lower_cell("llama4-maverick-400b-a17b", "prefill_32k",
-                          multi_pod=False, moe_ep=True, verbose=False,
-                          device="cpu", card=card_figures("H100 80GB HBM3"))
-    print(json.dumps([r, list(rules.LOGICAL_RULES["expert"])]))
+    out = []
+    for arch, shape, moe_ep in json.loads(sys.argv[1]):
+        r = dryrun.lower_cell(arch, shape, multi_pod=False, moe_ep=moe_ep,
+                              verbose=False, device="cpu",
+                              card=card_figures("H100 80GB HBM3"))
+        out.append([r, list(rules.LOGICAL_RULES["expert"])])
+    print(json.dumps(out))
 """)
 
 
-def test_moe_ep_cell_names_the_open_item():
-    proc = subprocess.run([sys.executable, "-c", _MOE_EP], capture_output=True,
+@pytest.fixture(scope="module")
+def ref_arg_bytes():
+    """The reference's arg_bytes of ARG_CELLS, by (arch, shape, moe_ep)."""
+    proc = subprocess.run([sys.executable, "-c", _REF_ARG_BYTES,
+                           json.dumps(ARG_CELLS)], capture_output=True,
                           text=True, timeout=300, env=ENV)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    res, expert = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res["status"] == "fail"
-    assert res["error"].startswith("NotImplementedError")
-    assert "#7b" in res["error"]
-    assert expert == ["model", None]          # the rule is restored
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    return dict(zip(map(tuple, ARG_CELLS), got))
+
+
+@pytest.fixture(scope="module")
+def port_cells():
+    """The port's dry run of ARG_CELLS, each with the expert rule read
+    after it, in one subprocess."""
+    cells = ARG_CELLS
+    proc = subprocess.run([sys.executable, "-c", _PORT_CELLS, json.dumps(cells)],
+                          capture_output=True, text=True, timeout=300, env=ENV)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    return dict(zip(map(tuple, cells), got))
+
+
+def test_arg_bytes_match_reference(ref_arg_bytes, port_cells):
+    key = ("mamba2-370m", "decode_32k", False)
+    res, _ = port_cells[key]
+    assert res["status"] == "ok", res
+    assert ref_arg_bytes[key] > 0
+    assert res["arg_bytes"] == ref_arg_bytes[key]
+
+
+def test_sequence_split_cache_cell_is_ok(ref_arg_bytes, port_cells):
+    key = ("deepseek-v2-236b", "decode_32k", False)
+    res, expert = port_cells[key]
+    assert res["status"] == "ok", res
+    assert res["arg_bytes"] == ref_arg_bytes[key] > 0
+    assert expert == ["model", None]
+
+
+def test_moe_ep_cell_names_the_open_item(ref_arg_bytes, port_cells):
+    """The expert-parallel cells the open item named are `ok` now, with the
+    reference's arg_bytes, and the rule is restored after each."""
+    for key in (("deepseek-v2-236b", "decode_32k", True),
+                ("llama4-maverick-400b-a17b", "prefill_32k", True)):
+        res, expert = port_cells[key]
+        assert res["status"] == "ok", res
+        assert res["arg_bytes"] == ref_arg_bytes[key] > 0, key
+        assert expert == ["model", None]          # the rule is restored
