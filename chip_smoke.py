@@ -31,7 +31,32 @@ non-zero before its last line:
   4. scale: the same at n ~ 1e6 (about 8M CSR entries), pagerank only,
      with host compile/partition times, per-phase device times, and the
      launch counts of its own run (reset just before it);
-  5. spmv: the engine's backend="spmv" route (K5) on the er-76k graph and
+  5. models: the paper's other three models through the same main path
+     (`engine.compile(..., "coded", path="sparse")` on backend "fused",
+     K1 / K2 / K3, and "numpy", the plan kernels and K3) at K = 6, r = 2,
+     pl-1m (`graphs.power_law`, n = 1,000,020, gamma 2.5, d_min 8/3, seed
+     7, about 8M CSR entries; interleaved ER allocation; rows of tens of
+     thousands of entries), sbm-1m (`stochastic_block`, two clusters of
+     h = 500,010, p = 6/h, q = 2/h; interleaved ER allocation) and rb-1m
+     (`random_bipartite`, q = 8/h; `bipartite_allocation`), about 8M
+     entries each:
+     host sample, compile and session seconds; one exchange's delivered
+     words bitwise `execute_coded_sparse`; pagerank (rtol 1e-5),
+     sssp(0) and connected_components (bitwise) for 10 iterations against
+     the sparse NumPy oracle, exact bits; each backend's kernels launched
+     on its run (counts reset just before it); the measured loads against
+     the theory with the inequalities of the reference's tests
+     (`achievable_pl` times d_min within the power-law tolerance 0.55,
+     `achievable_sbm` within 25%, `bounds_rb`'s lower bound); steady ms
+     per iteration, device busy and idle share, peak memory; K1 / K2 / K3
+     records at the pl-1m shapes (the hub rows in K3's long tiles). Then
+     `core.fused_shuffle.run_fused` (the dense validation exchange, K1's
+     general form for the encode and the strip) on ER n = 2,040, p =
+     0.05, K = 6, r = 2: bitwise the host oracle (values at every
+     `missing_pairs` entry, 0 elsewhere) and `run_fused_sparse`'s
+     delivered words, K1's general form bitwise its plain version at its
+     encode shape; the dist phase runs it again on its group;
+  6. spmv: the engine's backend="spmv" route (K5) on the er-76k graph and
      plan (pagerank in modes single / uncoded / coded / coded-fast within
      rtol 1e-5 with exact bits, degree_count bitwise, personalized
      pagerank at B = 4 through run_batch) and on the scale graph and plan
@@ -40,7 +65,7 @@ non-zero before its last line:
      an ER graph with n = 16,384, p = 0.01, seed 5, in float32 and in
      float16, within rtol 1e-5 of the oracle. Each path's launch counts
      are reset just before it and read just after;
-  6. modes: the reference's default engine, backend="numpy" (the plan
+  7. modes: the reference's default engine, backend="numpy" (the plan
      executors on the card: the coded route's encode and decode as the
      plan kernels `xor_encode_plan` / `xor_decode_plan`, the packed K1
      and K2 on the plan's tables composed for one server and one
@@ -69,7 +94,7 @@ non-zero before its last line:
      on ER n = 2,000 (padded to 2,004), p = 0.02,
      seed 5, for 2 iterations: its delivered dict equal to mode coded's
      on the dense path, sssp bitwise the dense coded state;
-  7. elastic (on the scale and er-76k sessions): at scale,
+  8. elastic (on the scale and er-76k sessions): at scale,
      backend="numpy", mode coded, `fail((1,))` and `fail((0, 1))` (|failed|
      = r: re-Maps, pairs demoted to full-word leftover columns) with the
      host repair time (against a fresh `compile_plan_csr` on the degraded
@@ -95,7 +120,7 @@ non-zero before its last line:
      per iteration; `GraphService` with 64 sssp queries through
      max_batch = 4 and one crash, each column bitwise the standalone run's,
      queries/s, latency percentiles and mean batch;
-  8. dist (run after the topology phase, whose two-level plans it
+  9. dist (run after the topology phase, whose two-level plans it
      reuses): the fused route with `group=` on a one-rank NCCL process
      group (a FileStore under build/; NCCL takes one card per rank) on the
      er-76k and scale sessions: one exchange's delivered words at B = 1
@@ -112,8 +137,12 @@ non-zero before its last line:
      bitwise the virtual two-level route's, the per-level bits exactly
      the plan's, K1's rack encode, K2's direct form and K3 launched on the
      group route's run, steady time, device busy and NCCL time per
-     iteration; the group is destroyed at the end;
-  9. table2: karate and er-76k through the port's registry into a fresh
+     iteration; then the models phase's dense exchange (`fused_exchange`
+     with `group=`: K1's general form on the rank's servers, one
+     all_gather of the buffers, one int32 all_reduce as the union),
+     bitwise the virtual route and the host oracle; the group is
+     destroyed at the end;
+  10. table2: karate and er-76k through the port's registry into a fresh
      cache under build/ (the er-76k edge list synthesized, its sha256 the
      reference's `ER76K_SHA256`, read back with the largest-CC step),
      `run_table2` at K = 6, r = 1, 2, 3 with every record but its timings
@@ -126,7 +155,7 @@ non-zero before its last line:
      `port_coded_pagerank.py`, `port_serve_lm.py` and `port_train_lm.py`
      on the card in parallel subprocesses (300 s timeout each), which must
      exit 0;
-  10. topology: the two-level (racks x servers) coded Shuffle through
+  11. topology: the two-level (racks x servers) coded Shuffle through
      `engine.compile(..., "coded", path="sparse", topology=Topology(R, S))`
      on backend="fused" (K1 over the R rack buffers, K2 with its direct
      words, "xor_decode_direct") and "numpy" (the plan kernels on the
@@ -144,7 +173,7 @@ non-zero before its last line:
      the flat fused route is the scale phase's, at K = 4), pagerank for 10
      iterations against the oracle: host compile and session build times,
      steady ms per iteration, device busy and idle share, peak memory;
-  11. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
+  12. serve: K6 `ssd_chunk` (rtol 1e-4, atol 1e-4 * max|plain|) and K7
      `ssd_state_scan` (bitwise) against their plain versions at the
      `tests/test_kernels.py` ssd shapes, K6 at ragged shapes in float32
      and bf16, both at the serve shape (G = 128 groups, 32 chunks of 64,
@@ -162,7 +191,7 @@ non-zero before its last line:
      32 new tokens, in the vocabulary). In float32, each layer's chunked
      block against 128 decode steps of it, and a 4-layer prefill of 128
      tokens against the decode loop, within 1e-3 of their max;
-  12. lm: the attention families at full width, bf16 weights from a
+  13. lm: the attention families at full width, bf16 weights from a
      seeded generator. gemma2-27b (46 layers, d_model 4,608, 32 / 16
      heads, softcaps 50 / 30, window 4,096): `decode.prefill` of B = 2
      prompts of 5,120 tokens (so the local layers' window cuts), last
@@ -202,7 +231,7 @@ non-zero before its last line:
      against `moe_ffn` at capacity factor 8, within 2^-7 of max|y|, and
      one backward of sum(y^2) through it, the rows' gradient finite and
      within 2^-7 of max|g| of `moe_local`'s;
-  13. train: `launch.train.train` at full width, bf16 weights drawn from
+  14. train: `launch.train.train` at full width, bf16 weights drawn from
      seed 0 on the card, AdamW with float32 moments: mamba2-370m (48
      layers) for 3 steps of 16 x 4,096 tokens (train_4k's length, its
      global batch of 256 cut to 16, as 2 microbatches of 8), zamba2-1.2b
@@ -221,7 +250,7 @@ non-zero before its last line:
      mamba2's gradients, `ef_compress_tree` on a one-rank NCCL group: the
      reduced gradients bitwise `dequantize(quantize(g + r))`, the residual
      bitwise g + r - q * scale rounded once;
-  14. dryrun: `launch/dryrun.lower_cell` on the production meshes, a fake
+  15. dryrun: `launch/dryrun.lower_cell` on the production meshes, a fake
      process group of 256 or 512 ranks in this process and meta tensors
      on the card's mesh (nothing allocated): mamba2-370m `long_500k`,
      internvl2-1b `train_4k`, mamba2-370m `decode_32k` on the 2 x 16 x 16
@@ -267,7 +296,10 @@ launches from the bf16 prefill, K6 on the serve path's inputs, its bound
 counting bf16 reads and the bf16 tensor-core rate, with its float32-input
 record logged and kept in the full records; zamba2's K6 / K7 records, at
 its serve shape with launches from its prefill, logged by the lm phase and
-kept in the full records as `kernels_zamba2`), the card's name and power
+kept in the full records as `kernels_zamba2`; K1 / K2 / K3 at the pl-1m
+shapes with launches from its fused run, and K1's general form at the
+dense exchange's encode shape with launches from `run_fused`, logged by
+the models phase and kept as `kernels_models`), the card's name and power
 limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -359,6 +391,7 @@ REPLACES = {
     "xor_encode": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_encode_dense": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_encode_plan": "src/repro/kernels/xor_code/xor_code.py:26",
+    "xor_encode_gather": "src/repro/kernels/xor_code/xor_code.py:26",
     "xor_decode": "src/repro/core/fused_shuffle.py:640",
     "xor_decode_direct": "src/repro/core/fused_shuffle.py:700",
     "xor_decode_plan": "src/repro/core/shuffle_plan.py:295",
@@ -372,6 +405,7 @@ SOURCES = {
     "xor_encode": "src/repro_torch/csrc/xor_code.cu",
     "xor_encode_dense": "src/repro_torch/csrc/xor_code.cu",
     "xor_encode_plan": "src/repro_torch/csrc/xor_code.cu",
+    "xor_encode_gather": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode_direct": "src/repro_torch/csrc/xor_code.cu",
     "xor_decode_plan": "src/repro_torch/csrc/xor_code.cu",
@@ -2474,17 +2508,21 @@ def dist_cell(torch, dev, what: str, cell: tuple, group, progs=None,
 
 
 def dist_phase(torch, dev, er: tuple, scale: tuple, two_level: dict,
-               smi: str) -> dict:
+               dense: tuple, smi: str) -> dict:
     """The fused route with `group=` on a one-rank NCCL group (a FileStore
     under build/, so no port is opened) against the virtual route, on the
     er-76k session (K = 4, r = 2) and at scale; then the two-level route
     on the group (`two_level`: the topology phase's er-76k K = 8 plans on
     Topology(4, 2) and (2, 4) and its n ~ 1e6 plan on (4, 2)), pagerank,
     sssp(0) and multi_sssp (B = 4), K1's rack encode and K2's direct form
-    launched on it. NCCL needs one card per rank, so one card runs one
+    launched on it; then the models phase's dense exchange (`dense`) on
+    the group, bitwise the host oracle and the virtual route, K1's general
+    form launched. NCCL needs one card per rank, so one card runs one
     rank of all K servers (whole racks); the group is destroyed at the
     end."""
     from repro_torch.core import algorithms as algo
+    from repro_torch.core.fused_shuffle import fused_exchange
+    from repro_torch.kernels import _build
 
     import torch.distributed as dist
 
@@ -2525,6 +2563,24 @@ def dist_phase(torch, dev, er: tuple, scale: tuple, two_level: dict,
                 f"{'not measured' if nccl is None else f'{nccl * 1e3:.4f}'} "
                 f"ms/iter {c.get('nccl_ranges')}, launches {c['launches']} | "
                 f"{smi}")
+        g, alloc, sched, values, want = dense
+        virtual = fused_exchange(values, *sched, device=dev)
+        _build.LAUNCHES.clear()
+        got = fused_exchange(values, *sched, device=dev, group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        d = info["dense"] = {"launches": dict(_build.LAUNCHES)}
+        need_launches(d["launches"], ("xor_encode_gather",),
+                      "the dense exchange on the group")
+        if not (torch.equal(got.view(torch.int32), virtual.view(torch.int32))
+                and np.array_equal(got.cpu().numpy().view(np.uint32),
+                                   want.view(np.uint32))):
+            raise AssertionError("dense exchange on the group differs from "
+                                 "the virtual route or the oracle")
+        d["exchange_ms"] = time_ms(torch, lambda: fused_exchange(
+            values, *sched, device=dev, group=dist.group.WORLD), reps=5)
+        log(f"dist phase, dense run_fused: NCCL world 1 bitwise the virtual "
+            f"route and the oracle (n {g.n}), {d['exchange_ms']:.4f} ms an "
+            f"exchange, launches {d['launches']} | {smi}")
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
@@ -2934,7 +2990,7 @@ def topology_scale(torch, dev, smi: str) -> tuple[dict, dict, dict]:
 
 
 def topology_phase(torch, dev, smi: str) -> tuple[dict, dict, dict, dict]:
-    """The two-level cells (module docstring, phase 10). Returns K2's
+    """The two-level cells (module docstring, phase 11). Returns K2's
     direct-form records at er-76k and at scale, the info, and the cells
     the dist phase runs on a group."""
     rec_er, info_er, cells = topology_er76k(torch, dev)
@@ -2943,6 +2999,284 @@ def topology_phase(torch, dev, smi: str) -> tuple[dict, dict, dict, dict]:
     log(f"topology phase, scale ok: {json.dumps(info_scale)}")
     return rec_er, rec_scale, {"er76k": info_er, "scale": info_scale}, \
         {**cells, **scale_cell}
+
+
+# ---------------------------------------------------------------------------
+# models phase: the paper's power-law, SBM and bipartite models at n ~ 1e6,
+# and the dense validation exchange
+# ---------------------------------------------------------------------------
+
+
+MODELS_K, MODELS_R = 6, 2
+MODELS_N = 1_000_000      # about 8M CSR entries at mean degree 8
+MODELS_SEED = 7
+PL_GAMMA, PL_DMIN = 2.5, 8.0 / 3.0   # mean expected degree d_min (g-1)/(g-2) = 8
+PL_TOL = 0.55             # tests/test_theorem1.py's power-law tolerance
+DENSE_FUSED_N, DENSE_FUSED_P = 2_040, 0.05   # run_fused: [n, n] float32, 16.6 MB
+
+
+def model_cells() -> tuple:
+    """(name, sampler, allocation) of the models phase's three graphs at
+    K = 6, r = 2 and n ~ 1e6: power-law with mean expected degree 8, SBM
+    with intra degree 6 and cross degree 2 and RB with degree 8 on two
+    equal clusters."""
+    from repro_torch import graphs
+    from repro_torch.core.allocation import (bipartite_allocation, divisible_n,
+                                             er_allocation)
+
+    K, r, seed = MODELS_K, MODELS_R, MODELS_SEED
+    n = divisible_n(MODELS_N, K, r)
+    h = n // 2
+    return (
+        ("pl-1m", lambda: graphs.power_law(n, PL_GAMMA, seed=seed,
+                                           d_min=PL_DMIN),
+         lambda: er_allocation(n, K, r, interleave=True)),
+        ("sbm-1m", lambda: graphs.stochastic_block(h, h, 6.0 / h, 2.0 / h,
+                                                   seed=seed),
+         lambda: er_allocation(n, K, r, interleave=True)),
+        ("rb-1m", lambda: graphs.random_bipartite(h, h, 8.0 / h, seed=seed),
+         lambda: bipartite_allocation(h, h, K, r)))
+
+
+def check_model_loads(name: str, g, alloc, plan) -> dict:
+    """The measured loads of `plan` against the paper's theory, with the
+    inequalities the reference's tests assert (tests/test_loads.py's RB and
+    SBM checks, tests/test_theorem1.py's power-law tolerance). Coded load
+    is the plan's coded columns, as the reference's `coded_load` counts it;
+    `gain_r` = (coded + leftover bits) r / uncoded bits."""
+    from repro_torch.core import loads
+
+    K, r = alloc.K, alloc.r
+    lu, lc = plan.uncoded_load(), plan.coded_load()
+    gain_r = (plan.coded_bits + plan.leftover_bits) * r / plan.uncoded_bits
+    out = {"uncoded": lu, "coded": lc, "gain": lu / lc, "gain_r": gain_r}
+    if name.startswith("pl"):
+        # achievable_pl bounds n L for expected degrees >= 1; the degrees
+        # here are d_min times those, and so is the bound.
+        bound = PL_DMIN * loads.achievable_pl(PL_GAMMA, r, K)
+        out.update(theory_nL=bound, measured_nL=g.n * lc,
+                   ratio=g.n * lc / bound)
+        ok = (1.0 - 1e-12 <= gain_r <= 1.0 + PL_TOL
+              and out["ratio"] <= 1.0 + PL_TOL)
+    elif name.startswith("sbm"):
+        h, p, q = g.params["n1"], g.params["p"], g.params["q"]
+        ach = loads.achievable_sbm(h, g.params["n2"], p, q, r, K)
+        lb = loads.lower_bound_sbm(q, r, K)
+        out.update(achievable=ach, lower_bound=lb, ratio=lc / ach)
+        ok = lb <= ach and abs(lc / ach - 1.0) <= 0.25 and lu / lc > 0.8 * r
+    else:
+        q = g.params["q"]
+        lo, hi = loads.bounds_rb(q, r, K)
+        out.update(lower=lo, upper=hi, coded_over_q=lc / q,
+                   ratio=lc / q / hi)
+        ok = lc <= lu and lc / q >= 0.9 * lo
+    if not ok:
+        raise AssertionError(f"{name}: loads off the theory: {json.dumps(out)}")
+    return out
+
+
+def models_cell(torch, dev, name: str, sample, allocate, smi: str,
+                records: bool) -> tuple[list, dict]:
+    """One graph of the models phase: host sample, compile and loads; then
+    on backend "fused" (K1 / K2 / K3) and "numpy" (the plan kernels and
+    K3): one exchange's words bitwise `execute_coded_sparse`, pagerank,
+    sssp(0) and connected_components for 10 iterations against the sparse
+    NumPy oracle (run once, shared by the backends; pagerank rtol 1e-5,
+    the others bitwise) with exact bits, each backend's kernels launched
+    on that run (counts reset just before it), steady time, device busy
+    and idle share, peak memory. With `records`, K1 / K2 / K3's records at
+    this graph's shapes, launches from the fused run."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import engine
+    from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+    from repro_torch.kernels import _build
+
+    t_cell = t0 = time.perf_counter()
+    g, alloc = sample(), allocate()
+    info = {"graph_s": time.perf_counter() - t0}
+    deg = np.diff(g.csr.indptr)
+    t0 = time.perf_counter()
+    plan = compile_plan_csr(g.csr, alloc)
+    info.update(n=g.n, nnz=g.csr.nnz, max_degree=int(deg.max()),
+                mean_degree=float(deg.mean()), empty_rows=int((deg == 0).sum()),
+                compile_s=time.perf_counter() - t0, M=int(plan.all_k.size),
+                C=int(plan.col_sender.size), leftovers=int(plan.left_k.size),
+                bits=plan.coded_bits + plan.leftover_bits)
+    info["loads"] = check_model_loads(name, g, alloc, plan)
+    progs = {"pagerank": algo.pagerank(), "sssp": algo.sssp(0),
+             "cc": algo.connected_components()}
+    t0 = time.perf_counter()
+    oracle = {k: algo.reference_run(p, g, 10, path="sparse")
+              for k, p in progs.items()}
+    info["oracle_s"] = time.perf_counter() - t0
+    pr = progs["pagerank"]
+    ev_np = pr.map_edge_values(g, pr.init(g)).astype(np.float32)
+    kernels = {"fused": FUSED_KERNELS, "numpy": PLAN_KERNELS + ("segment_reduce",)}
+    want, recs = None, []
+    for backend in ("fused", "numpy"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = engine.compile(pr, g, alloc, "coded", path="sparse",
+                             backend=backend, plan=plan, device=dev)
+        m = info[backend] = {"session_s": time.perf_counter() - t0}
+        if want is None:
+            t0 = time.perf_counter()
+            want = floats_to_words(plan.execute_coded_sparse(
+                ev_np, eng.tables).values)
+            info["executor_s"] = time.perf_counter() - t0
+        ev = torch.from_numpy(ev_np).to(dev)
+        got = (eng.fused.exchange(ev) if backend == "fused"
+               else eng.dplan.words(ev, "coded"))
+        if not np.array_equal(t_words_to_np(got), want):
+            raise AssertionError(f"{name} {backend}: delivered words differ "
+                                 "from execute_coded_sparse")
+        del ev, got
+        eng.run(1)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        runs = {k: eng.with_program(p).run(10) for k, p in progs.items()}
+        torch.cuda.synchronize()
+        m["run_s"] = time.perf_counter() - t0
+        launches = m["launches"] = dict(_build.LAUNCHES)
+        need_launches(launches, kernels[backend], f"the {name} {backend} path")
+        for k, res in runs.items():
+            err = check_state(res.state.cpu().numpy(), oracle[k], k,
+                              f"{name} {backend} {k}")
+            if err is not None:
+                m[f"{k}_max_rel_err"] = err
+            if res.shuffle_bits != info["bits"] * 10:
+                raise AssertionError(f"{name} {backend} {k}: shuffle bits "
+                                     "are not exact")
+        del runs
+        m.update(iteration_profile(torch, eng))
+        m["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        if records and backend == "fused":
+            t0 = time.perf_counter()
+            recs = kernel_records(torch, eng)
+            info["records_s"] = time.perf_counter() - t0
+            record_launches(recs, launches, f"the {name} fused path")
+        log(f"models phase, {name} {backend}: steady "
+            f"{m['steady_s_per_iter'] * 1e3:.4f} ms/iter, device busy "
+            f"{busy_ms(m)} ms/iter, idle {m['device_idle_share']}, peak "
+            f"{m['peak_mem_bytes']} B, session {m['session_s']:.4f} s, "
+            f"launches {launches} | {smi}")
+        del eng
+    info["cell_s"] = time.perf_counter() - t_cell
+    log(f"models phase, {name}: n {info['n']}, nnz {info['nnz']}, max degree "
+        f"{info['max_degree']}, sample {info['graph_s']:.2f} s, compile "
+        f"{info['compile_s']:.2f} s, oracle {info['oracle_s']:.2f} s, cell "
+        f"{info['cell_s']:.2f} s, loads {json.dumps(info['loads'])}")
+    return recs, info
+
+
+def dense_gather_record(torch, words, slots) -> dict:
+    """K1's general form at the dense exchange's encode shape (`slots`
+    [X, r] int32 on the card: one row per buffer column, flat word
+    indices, n * n the zero word; whole words, no shift or mask tables, as
+    the exchange runs it), bitwise its plain version; its bytes: the slot
+    table, each distinct word a slot reads, the buffer written once."""
+    from repro_torch.kernels.xor_code import xor_code as xc
+
+    args = (words, None, slots.contiguous()[None], None, None)
+    got = xc.xor_encode_gather(*args, swap=False)
+    plain = xc.ref.xor_encode_gather(*args, swap=False)
+    if not torch.equal(got, plain):
+        raise AssertionError("K1's general form differs from its plain "
+                             "version at the dense exchange's shape")
+    live = torch.unique(slots[slots < words.numel()]).numel()
+    nbytes = 4 * slots.numel() + 4 * live + 4 * (slots.shape[0] + 1)
+    rec = kernel_record(torch, "xor_encode_gather",
+                        lambda: xc.xor_encode_gather(*args, swap=False),
+                        lambda: xc.ref.xor_encode_gather(*args, swap=False),
+                        None, word_err(torch, got, plain), nbytes, 0)
+    rec["shape"] = list(slots.shape)
+    return rec
+
+
+def models_dense(torch, dev) -> tuple[dict, dict, tuple]:
+    """`run_fused` on ER n = 2,040, p = 0.05 (seed 5), K = 6, r = 2 on the
+    virtual route: bitwise the host oracle (values[i, j] at every
+    `missing_pairs` entry, 0 elsewhere) and `run_fused_sparse`'s delivered
+    words; K1's general form launched on it (encode and strip) and held
+    against its plain version at its encode shape. Returns the record, the
+    info and the cell the dist phase runs on its group."""
+    from repro_torch.core import algorithms as algo
+    from repro_torch.core import graph_models as gm
+    from repro_torch.core.allocation import divisible_n, er_allocation
+    from repro_torch.core.fused_shuffle import (_flat_index, build_schedule,
+                                                fused_exchange, run_fused,
+                                                run_fused_sparse)
+    from repro_torch.core.uncoded_shuffle import missing_pairs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.xor_code.ops import floats_as_words
+
+    K, r = MODELS_K, MODELS_R
+    n = divisible_n(DENSE_FUSED_N, K, r)
+    g = gm.erdos_renyi(n, DENSE_FUSED_P, seed=5)
+    alloc = er_allocation(n, K, r)
+    prog = algo.pagerank()
+    values = np.where(g.adj, prog.map_values(g, prog.init(g)),
+                      0.0).astype(np.float32)
+    want = np.zeros_like(values)
+    for k in range(K):
+        mp = missing_pairs(g.adj, alloc, k)
+        want[mp[:, 0], mp[:, 1]] = values[mp[:, 0], mp[:, 1]]
+    info = {"n": n, "pairs": int((want != 0).sum())}
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = run_fused(g, values, alloc, device=dev)
+    torch.cuda.synchronize()
+    info["run_fused_s"] = time.perf_counter() - t0
+    info["launches"] = dict(_build.LAUNCHES)
+    need_launches(info["launches"], ("xor_encode_gather",), "run_fused")
+    if not np.array_equal(got.cpu().numpy().view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("run_fused differs from the missing_pairs oracle")
+    res = run_fused_sparse(g, values[g.csr.rows, g.csr.indices], alloc,
+                           device=dev)
+    if not np.array_equal(got.cpu().numpy()[res.i, res.j].view(np.uint32),
+                          np.asarray(res.values, np.float32).view(np.uint32)):
+        raise AssertionError("run_fused differs from run_fused_sparse's "
+                             "delivered words")
+    t0 = time.perf_counter()
+    sched = build_schedule(g, alloc)
+    info["schedule_s"] = time.perf_counter() - t0
+    # From host arrays (the schedule and values uploaded in the call), and
+    # from the same already on the card, bitwise the same.
+    info["exchange_upload_ms"] = time_ms(
+        torch, lambda: fused_exchange(values, *sched, device=dev), reps=5)
+    sched_t = tuple(torch.from_numpy(a).to(dev) for a in sched)
+    values_t = torch.from_numpy(values).to(dev)
+    again = fused_exchange(values_t, *sched_t, device=dev)
+    if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+        raise AssertionError("fused_exchange on a schedule on the card "
+                             "differs from run_fused")
+    info["exchange_ms"] = time_ms(
+        torch, lambda: fused_exchange(values_t, *sched_t, device=dev), reps=5)
+    words = floats_as_words(values_t).reshape(-1)
+    slots = _flat_index(sched_t[0], n).reshape(-1, r)
+    rec = dense_gather_record(torch, words, slots)
+    rec["launches"] = info["launches"].get("xor_encode_gather", 0)
+    log(f"models phase, dense run_fused ok: {json.dumps(info)}")
+    return rec, info, (g, alloc, sched_t, values_t, want)
+
+
+def models_phase(torch, dev, smi: str) -> tuple[list, dict, tuple]:
+    """The paper's other three models through the main path, and the dense
+    exchange (module docstring, phase 5). Returns K1 / K2 / K3's records
+    at the pl-1m shapes and K1's general form's at the dense shape, the
+    info, and the dense cell for the dist phase."""
+    info, recs = {}, []
+    for name, sample, allocate in model_cells():
+        r, info[name] = models_cell(torch, dev, name, sample, allocate, smi,
+                                    records=name == "pl-1m")
+        recs += r
+    rec, info["dense"], dense = models_dense(torch, dev)
+    log(f"models phase ok: {json.dumps(info)}")
+    return recs + [rec], info, dense
 
 
 # ---------------------------------------------------------------------------
@@ -3180,7 +3514,7 @@ def lockstep(params, cfg, x, other) -> list[tuple[float, float]]:
 
 def serve_phase(torch, dev, smi: str) -> tuple[dict, dict, dict]:
     """K6 / K7 checks, then mamba2-370m served at full width (module
-    docstring, phase 6). Returns K6's and K7's records (launches from the
+    docstring, phase 12). Returns K6's and K7's records (launches from the
     bf16 prefill) and the phase's info.
 
     With the reference's random init, 48 layers amplify rounding a few
@@ -3950,7 +4284,7 @@ def lm_moe(torch, dev, smi: str) -> dict:
 def lm_phase(torch, dev, smi: str) -> tuple[list[dict], dict]:
     """gemma2-27b, zamba2-1.2b, the other attention configs, then
     deepseek-v2-236b and llama4-maverick-400b-a17b (module docstring,
-    phase 12). Returns zamba2's K6 / K7 records (launches from
+    phase 13). Returns zamba2's K6 / K7 records (launches from
     its bf16 prefill) and the phase's info."""
     torch.cuda.empty_cache()
     info = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
@@ -4163,7 +4497,7 @@ def restart_check(torch, dev, cfg, shape, accum: int) -> dict:
 
 def train_model(torch, dev, smi: str, arch: str, S: int, B: int, accum: int,
                 steps: int) -> dict:
-    """One model of the train phase (module docstring, phase 13)."""
+    """One model of the train phase (module docstring, phase 14)."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, batch_for_step
@@ -4270,7 +4604,7 @@ def train_cuts(S: int, B: int, steps: int) -> dict:
 
 def train_phase(torch, dev, smi: str) -> dict:
     """mamba2-370m and zamba2-1.2b trained at full width (module
-    docstring, phase 13)."""
+    docstring, phase 14)."""
     torch.cuda.empty_cache()
     info = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev)}
     for arch, S, B, accum, steps in TRAIN_RUNS:
@@ -4496,6 +4830,8 @@ def main() -> int:
                                          SLICE_N)
     scale_records, result["scale"], scale = timed("scale", scale_phase, torch,
                                                   dev, SCALE_N)
+    models_records, result["models"], dense = timed("models", models_phase,
+                                                    torch, dev, smi)
     k5_er, k5_scale, result["spmv"] = timed("spmv", spmv_phase, torch, dev,
                                             er, scale)
     plan_er, plan_scale, result["modes"] = timed(
@@ -4506,8 +4842,8 @@ def main() -> int:
     k2d_er, k2d_scale, result["topology"], two_level = timed(
         "topology", topology_phase, torch, dev, smi)
     result["dist"] = timed("dist", dist_phase, torch, dev, er, scale,
-                           two_level, smi)
-    del er, scale, two_level
+                           two_level, dense, smi)
+    del er, scale, two_level, dense
     k4, result["dense"] = timed("dense", dense_phase, torch, dev)
     k6, k7, result["serve"] = timed("serve", serve_phase, torch, dev, smi)
     result["kernels_zamba2"], result["lm"] = timed("lm", lm_phase, torch, dev,
@@ -4519,6 +4855,9 @@ def main() -> int:
     scale_records += [k5_scale] + plan_scale + [k2d_scale]
     result["kernels_scale"] = scale_records
     log("kernels at the scale shapes: " + json.dumps(scale_records))
+    result["kernels_models"] = models_records
+    log("kernels at the pl-1m and dense exchange shapes: "
+        + json.dumps(models_records))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     result["kernels"] = records

@@ -69,6 +69,13 @@ buffer, as in the reference), gathers every rack's buffer over the
 per-level bits), decodes its servers' deliveries with K2's direct form
 from X and the R buffers, and gathers the words as the flat route does.
 
+The reference's dense validation exchange runs here too (`build_schedule`,
+`fused_exchange`, `run_fused`): a schedule of (i, j) index pairs over an
+[n, n] Map output, whole float32 words coded without segments. K1's
+general form encodes the servers' buffers from the flat word view and
+strips each receiver's known slots; on a group, one all_gather of the
+buffers and one int32 all_reduce as the union, the reference's psum.
+
 Nothing returns to the host between Map and Reduce. Delivered words are
 bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
 axis B rides the same tables (column b is bitwise the unbatched exchange
@@ -84,16 +91,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.xor_code.xor_code import xor_decode_packed, xor_encode_packed
+from ..kernels.xor_code.ops import floats_as_words, words_as_floats
+from ..kernels.xor_code.xor_code import (xor_decode_packed, xor_encode_gather,
+                                         xor_encode_packed)
 from ..launch.dist import rack_share, server_shard
 from ..launch.mesh import Topology
 from ..obs import get_registry, get_tracer
 from .allocation import Allocation
 from .bitcodec import (floats_to_words, np_words_to_t, segment_words,
                        t_words_to_np, words_to_floats)
-from .graph_models import CSR
+from .graph_models import CSR, Graph
 from .shuffle_plan import (HierarchicalPlan, PlanShuffleResult, ShufflePlan,
-                           _rack_first_mapper, _run_ranks)
+                           _rack_first_mapper, _run_ranks, compile_plan_csr)
 
 FULL_MASK = np.uint32(0xFFFFFFFF)
 
@@ -928,3 +937,175 @@ class FusedSparseShuffle:
         return PlanShuffleResult(plan.all_k, plan.all_i, plan.all_j,
                                  words_to_floats(words), plan.ptr,
                                  self.schedule_bits * B, plan.n)
+
+
+def run_fused_sparse(g: Graph, edge_vals, alloc: Allocation, *,
+                     device: str | torch.device | None = "cuda",
+                     group=None) -> PlanShuffleResult:
+    """Convenience one-shot: compile + partition + one sparse exchange."""
+    plan = compile_plan_csr(g.csr, alloc, validate=False)
+    return FusedSparseShuffle(plan, g.csr, alloc, device=device,
+                              group=group).execute(edge_vals)
+
+
+# ---------------------------------------------------------------------------
+# Dense small-n validation reference
+# ---------------------------------------------------------------------------
+
+# The dense exchange indexes the [n * n] words with int32 (n * n is the
+# empty slot), so n * n must stay below 2**31: n <= 46,340.
+DENSE_MAX_N = 46_340
+
+
+def build_schedule(g: Graph, alloc: Allocation,
+                   plan: ShufflePlan | None = None):
+    """Static (graph-dependent, data-independent) dense-reference schedule.
+
+    Compiles the ShufflePlan once - adjacency-free via `compile_plan_csr`,
+    so a CSR-native graph beyond `dense_limit` never materializes [n, n] -
+    and lays its columns out per sender, padded to a common buffer length
+    so the all_gather is dense. Returns numpy index tensors consumed by the
+    dense exchange (covered pairs only; leftovers are a sparse-path
+    concern - see `partition_plan`). Arrays equal to the reference's.
+    """
+    K, r = alloc.K, alloc.r
+    if plan is None:
+        plan = compile_plan_csr(g.csr, alloc, validate=False)
+    # Per-sender column order comes from the one shared layout rule
+    # (`_sender_layout`), so the dense reference and the sparse partition
+    # can never disagree on buffer positions.
+    colpos, ncols = _sender_layout(plan)
+    per_s: list[list[int]] = [[0] * int(ncols[s]) for s in range(K)]
+    for c in range(plan.col_sender.size):
+        per_s[int(plan.col_sender[c])][int(colpos[c])] = c
+    width = int(ncols.max()) if ncols.size else 0
+
+    P_pairs = plan.pair_k.size
+    # Encode tensors: for slot t of server s, the XOR of values v[i,j] over
+    # receivers. We express it as up-to-r (i, j) index pairs (-1 padded).
+    enc_idx = np.full((K, width, r, 2), -1, dtype=np.int32)
+    for s in range(K):
+        for t, c in enumerate(per_s[s]):
+            for sl in range(r):
+                p = int(plan.slot_pair[c, sl])
+                if p == P_pairs:          # sentinel: empty slot
+                    continue
+                enc_idx[s, t, sl] = (plan.pair_i[p], plan.pair_j[p])
+    # Decode map: receiver k strips every other member's value from the slot.
+    # For each (sender s, slot t) useful to k: target (i, j) plus the strip
+    # list; represent as target idx and r-1 strip idx pairs.
+    dec: dict[int, list] = {k: [] for k in range(K)}
+    for s in range(K):
+        for t, c in enumerate(per_s[s]):
+            occupied = [sl for sl in range(r)
+                        if int(plan.slot_pair[c, sl]) != P_pairs]
+            for sl in occupied:
+                p = int(plan.slot_pair[c, sl])
+                k = int(plan.pair_k[p])
+                strips = [(int(plan.pair_i[int(plan.slot_pair[c, sl2])]),
+                           int(plan.pair_j[int(plan.slot_pair[c, sl2])]))
+                          for sl2 in occupied if sl2 != sl]
+                tgt = (int(plan.pair_i[p]), int(plan.pair_j[p]))
+                dec[k].append((s, t, tgt, strips))
+    dwidth = max((len(d) for d in dec.values()), default=0)
+    dec_src = np.zeros((K, dwidth, 2), dtype=np.int32)       # (sender, slot)
+    dec_tgt = np.full((K, dwidth, 2), -1, dtype=np.int32)    # (i, j)
+    dec_strip = np.full((K, dwidth, r - 1, 2), -1, dtype=np.int32) \
+        if r > 1 else np.zeros((K, dwidth, 0, 2), np.int32)
+    for k, items in dec.items():
+        for t, (s, slot_t, (i, j), strips) in enumerate(items):
+            dec_src[k, t] = (s, slot_t)
+            dec_tgt[k, t] = (i, j)
+            for ri, (i2, j2) in enumerate(strips):
+                dec_strip[k, t, ri] = (i2, j2)
+    return enc_idx, dec_src, dec_tgt, dec_strip
+
+
+def _flat_index(pairs: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., 2] int32 (i, j) pairs, -1 padded -> int32 flat word indices
+    i n + j into the [n * n] words (n * n < 2**31), n * n for a padded
+    pair: K1's zero word, and the slot the scatter drops."""
+    i, j = pairs[..., 0], pairs[..., 1]
+    return torch.where(i >= 0, i * n + j, n * n)
+
+
+def _xor_slots(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """The XOR of words[slots[x, :]] for each row x of `slots` [X, s]
+    (int32 flat indices on the words' device, n * n = a zero word): one
+    launch of K1's general form, its X rows one server's buffer, whole
+    words (no shift or mask tables), no byteswap. [X] int32."""
+    X, s = slots.shape
+    if s == 0:
+        return words.new_zeros(X)
+    return xor_encode_gather(words, None, slots.contiguous()[None], None, None,
+                             swap=False)[0, :-1]
+
+
+def fused_exchange(values, enc_idx, dec_src, dec_tgt, dec_strip, *,
+                   device: str | torch.device | None = "cuda",
+                   group=None) -> torch.Tensor:
+    """One coded Shuffle of whole float32 words on the dense schedule.
+
+    values [n, n] float32 (the replicated Map output; each server reads
+    only its own columns through the schedule) -> [n, n] float32 on the
+    device: the recovered word at every delivered pair, 0 elsewhere,
+    bitwise the reference's `fused_exchange`. Validation reference only:
+    the production path is `FusedSparseShuffle`. The four schedule arrays
+    are `build_schedule`'s, as numpy arrays or as int32 tensors already
+    on the device (uploaded once, nothing is copied per call).
+
+    The K servers are virtual: K1's general form encodes every server's
+    buffer from the flat word view (no loc_e, whole words),
+    and strips each receiver's known slots in a second launch over its
+    r - 1 strip slots; the gather of the coded words, the XOR and the
+    scatter are plain PyTorch, on the device, padded rows included (they
+    read zero words and land in a slot past the n * n words, dropped).
+    With `group=` (P ranks, P dividing K) each rank encodes its
+    contiguous share of the servers, the K buffers are gathered with one
+    `all_gather_into_tensor`, each rank decodes its own receivers, and
+    one `all_reduce(SUM)` of the int32 words unites them: receivers'
+    targets are disjoint, so the sum is the union bitwise.
+    """
+    dev = resolve_device(device)
+    n = int(values.shape[0])
+    if n > DENSE_MAX_N:
+        raise ValueError(f"the dense exchange indexes n * n words with int32: "
+                         f"n = {n} > {DENSE_MAX_N}")
+    if tuple(values.shape) != (n, n):
+        raise ValueError(f"values must be [n, n], got {tuple(values.shape)}")
+    K, W, r = tuple(enc_idx.shape)[:3]
+    mine = slice(None)
+    shard = None
+    if group is not None:
+        shard = server_shard(group, K, dev)
+        mine = slice(shard.servers.start, shard.servers.stop)
+
+    def up(a) -> torch.Tensor:              # this rank's rows, on the device
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)[mine]
+
+    words = floats_as_words(torch.as_tensor(values, device=dev)).reshape(-1)
+    enc = _flat_index(up(enc_idx), n)                        # [Kp, W, r]
+    buf = _xor_slots(words, enc.reshape(-1, r))              # [Kp W]
+    if shard is not None:
+        buf = _all_gather(buf.reshape(enc.shape[:2]), shard.group).reshape(-1)
+    src = up(dec_src).long()                                 # [Kp, D, 2]
+    strip = _flat_index(up(dec_strip), n)                    # [Kp, D, r - 1]
+    tgt = _flat_index(up(dec_tgt), n).reshape(-1).long()     # [Kp D]
+    out = words.new_zeros(n * n + 1)
+    if tgt.numel():
+        out[tgt] = (buf[(src[..., 0] * W + src[..., 1]).reshape(-1)]
+                    ^ _xor_slots(words, strip.reshape(tgt.numel(), r - 1)))
+    out = out[:-1]
+    if shard is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=shard.group)
+    return words_as_floats(out).reshape(n, n)
+
+
+def run_fused(g: Graph, values, alloc: Allocation, *,
+              device: str | torch.device | None = "cuda",
+              group=None) -> torch.Tensor:
+    """Convenience wrapper: schedule + dense exchange; returns [n, n]."""
+    return fused_exchange(values, *build_schedule(g, alloc), device=device,
+                          group=group)

@@ -435,11 +435,76 @@ class Graph:
                      dense_limit=self.dense_limit)
 
 
+def _symmetrize(upper: np.ndarray) -> np.ndarray:
+    upper = np.triu(upper, 1)
+    return upper | upper.T
+
+
 def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
     """ER(n, p) drawn densely, every edge present independently w.p. p:
     the reference's dense sampler (`core.graph_models.erdos_renyi`), draw
     for draw, so a seed gives both packages the same graph. The O(edges)
     streaming sampler of `repro_torch.graphs` draws another graph."""
     rng = np.random.default_rng(seed)
-    upper = np.triu(rng.random((n, n)) < p, 1)
-    return Graph(upper | upper.T, "er", {"n": n, "p": p, "seed": seed})
+    return Graph(_symmetrize(rng.random((n, n)) < p), "er",
+                 {"n": n, "p": p, "seed": seed})
+
+
+# The paper's three other models, drawn densely as the reference draws them
+# (`core.graph_models`): the same `default_rng` draws in the same order, so
+# a seed gives both packages byte-for-byte the same adjacency. The O(edges)
+# samplers of `repro_torch.graphs` draw other graphs.
+
+
+def random_bipartite(n1: int, n2: int, q: float, seed: int = 0) -> Graph:
+    """RB(n1, n2, q): only cross-cluster edges, each present w.p. q.
+
+    Vertices [0, n1) form cluster 1 and [n1, n1+n2) cluster 2.
+    """
+    rng = np.random.default_rng(seed)
+    n = n1 + n2
+    adj = np.zeros((n, n), dtype=bool)
+    cross = rng.random((n1, n2)) < q
+    adj[:n1, n1:] = cross
+    adj[n1:, :n1] = cross.T
+    return Graph(adj, "rb", {"n1": n1, "n2": n2, "q": q, "seed": seed})
+
+
+def stochastic_block(n1: int, n2: int, p: float, q: float,
+                     seed: int = 0) -> Graph:
+    """SBM(n1, n2, p, q): intra-cluster w.p. p, cross-cluster w.p. q (q < p)."""
+    rng = np.random.default_rng(seed)
+    n = n1 + n2
+    probs = np.full((n, n), q)
+    probs[:n1, :n1] = p
+    probs[n1:, n1:] = p
+    adj = _symmetrize(rng.random((n, n)) < probs)
+    return Graph(adj, "sbm", {"n1": n1, "n2": n2, "p": p, "q": q, "seed": seed})
+
+
+def power_law(n: int, gamma: float, rho: float | None = None, seed: int = 0,
+              d_min: float = 1.0) -> Graph:
+    """PL(n, gamma, rho): expected degrees are iid power-law(gamma) samples and
+    P[(i,j) in E] = min(1, rho * d_i * d_j) (Chung-Lu style, paper Appendix E).
+
+    If rho is None it is set to 1 / vol so that expected degrees are honored.
+    """
+    rng = np.random.default_rng(seed)
+    # Inverse-CDF sampling of a Pareto-like pmf P[d] ~ d^-gamma, d >= d_min.
+    u = rng.random(n)
+    degrees = d_min * (1.0 - u) ** (-1.0 / (gamma - 1.0))
+    if rho is None:
+        rho = 1.0 / degrees.sum()
+    probs = np.minimum(1.0, rho * np.outer(degrees, degrees))
+    adj = _symmetrize(rng.random((n, n)) < probs)
+    return Graph(adj, "pl", {"n": n, "gamma": gamma, "rho": rho, "seed": seed})
+
+
+def sample(model: str, seed: int = 0, **kw) -> Graph:
+    """The dense sampler of `model` ("er", "rb", "sbm" or "pl")."""
+    return {
+        "er": erdos_renyi,
+        "rb": random_bipartite,
+        "sbm": stochastic_block,
+        "pl": power_law,
+    }[model](seed=seed, **kw)

@@ -79,7 +79,8 @@
 // same code.
 //
 // K1's general form `xor_encode_gather` (any shift and mask words per slot,
-// local indices through an optional Map slice `loc_e`) stays behind
+// or none: null shift and mask tables read whole words; local indices
+// through an optional Map slice `loc_e`) stays behind
 // `ops.xor_encode_slots`; `xor_encode_dense` is the Pallas kernel's own dense
 // form (masked XOR over r rows), so the port can be held against
 // `xor_encode_pallas` directly; it serves the plan executors' "xor-kernel"
@@ -145,7 +146,7 @@ __global__ void xor_encode_gather_kernel(
     const long long base = (k * W + w) * r;
     for (int t = 0; t < r; ++t) {
       const uint32_t v = local_word(src, n_src, loc_e, Lmax, k, enc_l[base + t], b, B, swap);
-      acc ^= (v << enc_shift[base + t]) & enc_mask[base + t];
+      acc ^= enc_shift ? (v << enc_shift[base + t]) & enc_mask[base + t] : v;
     }
   }
   out[idx] = acc;

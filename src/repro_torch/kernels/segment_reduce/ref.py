@@ -64,17 +64,19 @@ def csr_reduce_seq(vals: torch.Tensor, indptr: torch.Tensor, op: str,
     if n == 0 or vals.shape[0] == 0:
         return out
     order = torch.argsort(deg, descending=True, stable=True)
-    # counts[k]: the rows with a position k, a prefix of `order`.
-    counts = deg.numel() - torch.cumsum(torch.bincount(deg), 0)
-    longest = int(deg.max())
-    rows = order[:int(counts[0])]
-    out[rows] = vals[start[rows]].to(torch.float32)
-    for k in range(1, longest):
-        rows = order[:int(counts[k])]
-        v = vals[start[rows] + k]
-        acc = out[rows]
-        out[rows] = (acc + v if op == "sum" else
-                     torch.where((acc <= v) | torch.isnan(acc), acc, v))
+    # counts[k]: the rows with a position k, a prefix of `order`; read to
+    # the host once, so the steps below never wait on the device.
+    counts = (deg.numel() - torch.cumsum(torch.bincount(deg), 0)).tolist()
+    rows = order[:counts[0]]
+    pos = start[rows]
+    acc = vals[pos].to(torch.float32)          # [rows, B] in `order`
+    for k in range(1, len(counts) - 1):
+        a, v = acc[:counts[k]], vals[pos[:counts[k]] + k]
+        if op == "sum":
+            a += v
+        else:
+            a.copy_(torch.where((a <= v) | torch.isnan(a), a, v))
+    out[rows] = acc
     return out
 
 

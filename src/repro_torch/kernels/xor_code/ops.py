@@ -20,7 +20,7 @@ from .xor_code import (MAX_R, xor_decode_plan, xor_encode_dense,
 
 __all__ = ["xor_encode", "xor_decode", "xor_encode_columns",
            "xor_strip_columns", "xor_encode_slots", "xor_encode_plan",
-           "xor_decode_plan"]
+           "xor_decode_plan", "floats_as_words", "words_as_floats"]
 
 
 def xor_encode(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -94,3 +94,18 @@ def xor_encode_slots(loc: torch.Tensor, idx: torch.Tensor, shift: torch.Tensor,
                             shift.contiguous()[None], mask.contiguous()[None],
                             swap=False)
     return buf[0, :-1]
+
+
+def floats_as_words(x: torch.Tensor) -> torch.Tensor:
+    """Bit-preserving float32 -> word view: int32 holding the uint32 bits,
+    no byteswap (unlike the codec's `bitcodec.floats_to_words_t`). Other
+    float dtypes are cast to float32 first, as the reference does."""
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def words_as_floats(w: torch.Tensor) -> torch.Tensor:
+    """Word -> float32 view, the inverse of `floats_as_words` (int32 or
+    uint32 bits in)."""
+    if w.dtype not in (torch.int32, torch.uint32):
+        raise ValueError(f"words must be int32 or uint32 bits, got {w.dtype}")
+    return w.contiguous().view(torch.float32)

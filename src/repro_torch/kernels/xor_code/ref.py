@@ -65,11 +65,13 @@ def xor_encode_gather(src, loc_e, enc_l, enc_shift, enc_mask, *,
     """Per-server coded buffers [K, W + 1(, B)] with a zero column W.
 
     src [n_src(, B)] int32 value bits (codec words if not `swap`); loc_e
-    [K, Lmax] (None: local index = src index, K = 1); enc_* [K, W, r].
+    [K, Lmax] (None: local index = src index, K = 1); enc_* [K, W, r]
+    (enc_shift = enc_mask = None: whole words).
     """
     local = _local_words(src, loc_e, swap)
     v = _take(local, enc_l)                                     # [K, W, r, B]
-    seg = (v << words_to_u64(enc_shift)[..., None]) & words_to_u64(enc_mask)[..., None]
+    seg = v if enc_shift is None else (
+        (v << words_to_u64(enc_shift)[..., None]) & words_to_u64(enc_mask)[..., None])
     acc = torch.zeros_like(seg[:, :, 0])
     for t in range(seg.shape[2]):
         acc ^= seg[:, :, t]

@@ -10,8 +10,9 @@ two-level Shuffle runs K1 with the racks as senders (counted as
 "xor_encode") and K2 with its direct words (`direct_e`, counted as
 "xor_decode_direct");
 `xor_encode_gather` is K1's general form,
-any shift and mask words per slot, behind `ops.xor_encode_slots` (counted
-as "xor_encode_gather"). Each wrapper checks device, dtype, shape and
+any shift and mask words per slot (or whole words), behind
+`ops.xor_encode_slots` and the dense exchange (counted as
+"xor_encode_gather"). Each wrapper checks device, dtype, shape and
 contiguity, allocates its output with `torch.empty`, launches on PyTorch's
 current stream without synchronising, raises on a launch error, and adds
 one to `_build.LAUNCHES[<kernel>]`. A CPU tensor runs the plain PyTorch
@@ -90,16 +91,20 @@ def xor_encode_dense(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
-                      enc_l: torch.Tensor, enc_shift: torch.Tensor,
-                      enc_mask: torch.Tensor, *, swap: bool = True) -> torch.Tensor:
+                      enc_l: torch.Tensor, enc_shift: torch.Tensor | None,
+                      enc_mask: torch.Tensor | None, *,
+                      swap: bool = True) -> torch.Tensor:
     """K1's general form: every server's coded buffer, [K, W + 1(, B)]
     int32, column W zero, from any shift and mask words per slot.
 
     src [n_src(, B)] int32 value bits (float32 bits when `swap`, codec-order
     words otherwise); loc_e [K, Lmax] int32 CSR entry of each local value
     (n_src = zero pad; None = the identity with K = 1); enc_l [K, W, r]
-    int32 local index (Lmax = zero); enc_shift/enc_mask [K, W, r] int32.
+    int32 local index (Lmax = zero); enc_shift/enc_mask [K, W, r] int32,
+    or both None: whole words (shift 0, mask 0xFFFFFFFF), no table read.
     """
+    if (enc_shift is None) != (enc_mask is None):
+        raise ValueError("enc_shift and enc_mask are both tables or both None")
     if not _build.on_cuda(src, loc_e, enc_l, enc_shift, enc_mask):
         return ref.xor_encode_gather(src, loc_e, enc_l, enc_shift, enc_mask,
                                      swap=swap)
@@ -109,7 +114,8 @@ def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
     _build.check_tensor(src, "src", torch.int32)
     for name, t in (("enc_l", enc_l), ("enc_shift", enc_shift),
                     ("enc_mask", enc_mask)):
-        _build.check_tensor(t, name, torch.int32, (K, W, r))
+        if t is not None:
+            _build.check_tensor(t, name, torch.int32, (K, W, r))
     if loc_e is not None:
         _build.check_tensor(loc_e, "loc_e", torch.int32)
         if loc_e.dim() != 2 or loc_e.shape[0] != K:
@@ -125,7 +131,9 @@ def xor_encode_gather(src: torch.Tensor, loc_e: torch.Tensor | None,
     with torch.cuda.device(src.device):
         code = lib.xor_encode_gather(
             src.data_ptr(), n_src, None if loc_e is None else loc_e.data_ptr(),
-            Lmax, enc_l.data_ptr(), enc_shift.data_ptr(), enc_mask.data_ptr(),
+            Lmax, enc_l.data_ptr(),
+            None if enc_shift is None else enc_shift.data_ptr(),
+            None if enc_mask is None else enc_mask.data_ptr(),
             out.data_ptr(), K, W, r, B, int(swap), _build.stream_of(src))
     _build.check(lib, "xor_encode_gather", code)
     _build.LAUNCHES["xor_encode_gather"] += 1

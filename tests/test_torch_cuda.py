@@ -44,7 +44,11 @@ deepseek-v2 and llama4 served with MLA's caches written in place,
 `moe_ffn_ep` on a one-rank NCCL group (and with a one-rank `model_group`,
 forward and the rows' gradient against `moe_local`), the two-level
 exchange on a one-rank NCCL group against the virtual two-level route on
-Topology(4, 2) and (2, 4), and training: a float32
+Topology(4, 2) and (2, 4), the dense validation exchange (`run_fused`
+at r = 1, 2, 3 against the host oracle, the CPU route and
+`run_fused_sparse`, K1's general form at its encode shape, and on a
+one-rank NCCL group), a power-law graph at K = 6 (n about 20,000,
+d_min 8/3) through backend "fused" and "numpy", and training: a float32
 `train_step` of the reduced mamba2-370m and zamba2-1.2b on the card
 against the CPU, `launch.train.train` on its default device with a
 restart, a checkpoint round trip from the card, K6 / K7 refusing an
@@ -1350,6 +1354,128 @@ def test_packed_kernels_on_each_ranks_rows(cuda, monkeypatch, K, r, P, B):
         got.append(xc.xor_decode_packed(*dec, total=rk.M_local))
         assert torch.equal(got[-1], xref.xor_decode_packed(*dec))
     assert torch.equal(torch.cat(got), words)
+
+
+
+def _dense_case(n=300, K=6, r=2):
+    """An ER graph drawn densely, its allocation, a pagerank Map output on
+    the edges and the host oracle of the dense exchange: values[i, j] at
+    every `missing_pairs(adj, alloc, k)` entry, 0 elsewhere."""
+    from repro_torch.core import graph_models as gm
+    from repro_torch.core.uncoded_shuffle import missing_pairs
+
+    n = divisible_n(n, K, r)
+    g = gm.erdos_renyi(n, 0.1, seed=5)
+    alloc = er_allocation(n, K, r)
+    pr = algo.pagerank()
+    values = np.where(g.adj, pr.map_values(g, pr.init(g)), 0.0).astype(np.float32)
+    want = np.zeros_like(values)
+    for k in range(K):
+        mp = missing_pairs(g.adj, alloc, k)
+        want[mp[:, 0], mp[:, 1]] = values[mp[:, 0], mp[:, 1]]
+    return g, alloc, values, want
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_dense_exchange_on_the_card(cuda, r):
+    """`run_fused` on the card: bitwise the host oracle, the CPU's plain
+    route and `run_fused_sparse`'s delivered words; K1's general form
+    launched for the encode and, for r > 1, the strip, and bitwise its
+    plain version at the encode shape, without shift and mask tables (as
+    the exchange runs it) and with shift 0 and the full mask."""
+    from repro_torch.core.fused_shuffle import (_flat_index, build_schedule,
+                                                run_fused, run_fused_sparse)
+    from repro_torch.kernels.xor_code.ops import floats_as_words
+
+    g, alloc, values, want = _dense_case(r=r)
+    _build.LAUNCHES.clear()
+    got = run_fused(g, values, alloc)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert _build.LAUNCHES["xor_encode_gather"] == (1 if r == 1 else 2)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    cpu = run_fused(g, values, alloc, device="cpu")
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    res = run_fused_sparse(g, values[g.csr.rows, g.csr.indices], alloc)
+    np.testing.assert_array_equal(
+        got.cpu().numpy()[res.i, res.j].view(np.uint32),
+        np.asarray(res.values, np.float32).view(np.uint32))
+    words = floats_as_words(torch.from_numpy(values).to(cuda)).reshape(-1)
+    idx = _flat_index(torch.from_numpy(build_schedule(g, alloc)[0]).to(cuda),
+                      g.n).reshape(1, -1, r)
+    for args in ((words, None, idx, None, None),
+                 (words, None, idx, torch.zeros_like(idx),
+                  torch.full_like(idx, -1))):
+        assert torch.equal(xc.xor_encode_gather(*args, swap=False),
+                           xref.xor_encode_gather(*args, swap=False))
+
+
+def test_dense_exchange_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """The dense exchange on a one-rank NCCL group (FileStore, no port):
+    bitwise the virtual route and the host oracle."""
+    import torch.distributed as dist
+
+    from repro_torch.core.fused_shuffle import build_schedule, fused_exchange
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        g, alloc, values, want = _dense_case()
+        sched = build_schedule(g, alloc)
+        got = fused_exchange(values, *sched, group=dist.group.WORLD)
+        assert torch.equal(got.view(torch.int32), fused_exchange(
+            values, *sched).view(torch.int32))
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      want.view(np.uint32))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend", ["fused", "numpy"])
+def test_power_law_at_k6_on_both_backends(cuda, backend):
+    """The models phase's power-law cell at n about 20,000 (gamma 2.5,
+    d_min 8/3, K = 6, r = 2, interleaved allocation): one exchange's words
+    bitwise `execute_coded_sparse`; pagerank within rtol 1e-5, sssp(0) and
+    connected_components bitwise the sparse NumPy oracle, exact bits; the
+    backend's kernels launched 30 times each."""
+    from repro_torch.core.bitcodec import floats_to_words, t_words_to_np
+    from repro_torch.core.shuffle_plan import compile_plan_csr
+
+    n = divisible_n(20_000, 6, 2)
+    g = graphs.power_law(n, 2.5, seed=7, d_min=8.0 / 3.0)
+    assert int(np.diff(g.csr.indptr).max()) > csr_tiles.tile_entries(g.csr.nnz)
+    alloc = er_allocation(n, 6, 2, interleave=True)
+    plan = compile_plan_csr(g.csr, alloc)
+    pr = algo.pagerank()
+    eng = engine.compile(pr, g, alloc, "coded", path="sparse",
+                         backend=backend, plan=plan, device=cuda)
+    ev_np = pr.map_edge_values(g, pr.init(g)).astype(np.float32)
+    ev = torch.from_numpy(ev_np).to(cuda)
+    got = (eng.fused.exchange(ev) if backend == "fused"
+           else eng.dplan.words(ev, "coded"))
+    want = floats_to_words(plan.execute_coded_sparse(ev_np, eng.tables).values)
+    np.testing.assert_array_equal(t_words_to_np(got), want)
+    progs = {"pagerank": pr, "sssp": algo.sssp(0),
+             "cc": algo.connected_components()}
+    _build.LAUNCHES.clear()
+    runs = {k: eng.with_program(p).run(10) for k, p in progs.items()}
+    torch.cuda.synchronize()
+    names = (("xor_encode", "xor_decode") if backend == "fused"
+             else ("xor_encode_plan", "xor_decode_plan")) + ("segment_reduce",)
+    for name in names:
+        assert _build.LAUNCHES[name] == 30, name
+    for k, res in runs.items():
+        want = algo.reference_run(progs[k], g, 10, path="sparse")
+        got = res.state.cpu().numpy()
+        if k == "pagerank":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+        assert res.shuffle_bits == (plan.coded_bits + plan.leftover_bits) * 10
 
 
 # ---------------- training (the plain chunked SSD under autograd) ----------------

@@ -227,6 +227,21 @@ def test_gather_encode_decode_plain_versions(r, B, swap):
     np.testing.assert_array_equal(t_words_to_np(out).reshape(want.shape), want)
 
 
+@pytest.mark.parametrize("r,B", [(1, 1), (2, 1), (3, 2), (33, 1)])
+def test_gather_encode_whole_words_is_shift_0_full_mask(r, B):
+    """K1's general form without shift and mask tables (the dense
+    exchange's form) is the same form with shift 0 and the full mask; a
+    single missing table is refused."""
+    src, loc_e, t = _random_tables(r, B)
+    s, loc, l = np_words_to_t(src), torch.from_numpy(loc_e), _to_t(t["enc_l"])
+    got = t_xc.xor_encode_gather(s, loc, l, None, None, swap=False)
+    want = t_xc.xor_encode_gather(s, loc, l, torch.zeros_like(l),
+                                  torch.full_like(l, -1), swap=False)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="both"):
+        t_xc.xor_encode_gather(s, loc, l, torch.zeros_like(l), None)
+
+
 def test_packed_kernels_refuse_r_past_64_on_every_device():
     """The packed K1/K2 take 1 <= r <= 64 (a book of r + 2 <= 66 codes);
     the limit is checked before the device branch, so the CPU refuses
