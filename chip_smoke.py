@@ -1207,8 +1207,8 @@ def iteration_profile(torch, eng, iters: int = 10) -> dict:
     PROFILE_TRIES incomplete windows both are None with
     profile_incomplete True), idle = 1 - busy / (last kernel end - first
     kernel start); profile_tries counts the windows taken.
-    phase_s_per_iter: the tracer's synchronised spans (each phase ends
-    with a synchronize, so these add up to more than the steady time).
+    phase_s_per_iter: the tracer's spans, which synchronise nothing, so
+    each times the host's issue of its phase, not the device's work.
     """
     from repro_torch.obs import Tracer, set_tracer
 

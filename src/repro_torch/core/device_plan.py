@@ -42,8 +42,8 @@ the rack words (at `inter_pos`) in the flat delivery stream.
 
 Words are int32 tensors holding the uint32 bits. Delivered words are
 bitwise those of the host executors, and the bits on the wire are the same
-schedule constants. While the tracer is enabled each phase synchronises
-the card at the end of its span.
+schedule constants. No span synchronises the card: a phase's span times
+the host's issue of its kernels.
 """
 from __future__ import annotations
 
@@ -160,10 +160,6 @@ class DevicePlan:
                 if tables is not None:
                     self._sparse_layout()
 
-    def _sync(self, tr) -> None:
-        if tr.enabled and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # ---- the engine's form: codec words, no host round trip ----
 
     def words(self, src: torch.Tensor, mode: str, *, dense: bool = False,
@@ -188,7 +184,7 @@ class DevicePlan:
         B = 1 if out.dim() == 1 else int(out.shape[1])
         with tr.span("phase.exchange", bits=self.bits[mode] * B, B=B,
                      values=self.M):
-            self._sync(tr)
+            pass                  # one device holds every server's values
         return out
 
     def coded_source(self, src: torch.Tensor, *, dense: bool = False
@@ -289,10 +285,9 @@ class DevicePlan:
                 slotw = xor_ref.plan_slot_words(*enc)
                 coded = xor_ops.xor_encode_columns(slotw)
                 strip = xor_ops.xor_strip_columns(slotw)
-            self._sync(tr)
         with tr.span("phase.exchange", bits=self.bits["coded"] * B, B=B,
                      words=C):
-            self._sync(tr)
+            pass                  # one device holds every server's buffers
         dec = (t.dec_pos, t.dec_code, t.strip_e, t.strip_code, self.book)
         with tr.span("phase.decode", B=B, pairs=int(self.plan.pos_covered.size)):
             if backend == "numpy":
@@ -302,7 +297,6 @@ class DevicePlan:
             else:
                 out = xor_ref.decode_plan(coded, strip, t.slot_code, self.book,
                                           t.dec_cs)
-            self._sync(tr)
         return out
 
     # ---- peers of the host executors (PlanShuffleResult out) ----
@@ -368,6 +362,5 @@ class HierarchicalDevicePlan:
                      inter_rack_bits=inter, intra_rack_bits=intra):
             direct = floats_to_words_t(src[self._intra_e])
             out = torch.cat([xw, direct])[self._src]
-            self.inter._sync(tr)
         _count_rack_bits(inter, intra)
         return out

@@ -507,10 +507,6 @@ class CompiledEngine:
                 log.remapped_vertices = cur.recovery.remapped_vertices
         return cur, crashed
 
-    def _sync(self, tr) -> None:
-        if tr.enabled and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _step(self, state: torch.Tensor) -> tuple[torch.Tensor, int]:
         """One Map -> Shuffle -> Reduce round on the device; returns
         (state', bits sent)."""
@@ -523,16 +519,13 @@ class CompiledEngine:
             # sums its full CSR slice; the Shuffle only adds its bits.
             with tr.span("phase.map", n=self.g.n):
                 c = program.map_source_t(self._dg, state).contiguous()
-                self._sync(tr)
             with tr.span("phase.reduce", nnz=self.g.csr.nnz):
                 acc = spmv_csr(self._indptr, self._indices, c, bm=self.bm,
                                tiles=self._tiles)
                 state = program.finalize_t(acc, state, self._dg)
-                self._sync(tr)
             return state, self._bits * B
         with tr.span("phase.map", nnz=self.g.csr.nnz):
             edge_vals = program.map_edge_values_t(self._dg, state).contiguous()
-            self._sync(tr)
         # The exchange emits phase.encode / .exchange / .decode spans.
         if self.backend == "fused":
             words = self.fused.exchange(edge_vals)
@@ -546,7 +539,6 @@ class CompiledEngine:
                                  program.reduce_op, program.identity,
                                  tiles=self._tiles)
             state = program.finalize_t(acc, state, self._dg)
-            self._sync(tr)
         return state, self._bits * B
 
     def _step_dense(self, state: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -556,11 +548,9 @@ class CompiledEngine:
         program, dd, tr = self.program, self._dd, get_tracer()
         with tr.span("phase.map"):
             values = program.map_values_t(dd, state)
-            self._sync(tr)
         if not self.distributed:
             with tr.span("phase.reduce"):
                 state = program.reduce_t(values, dd.adj, state, dd)
-                self._sync(tr)
             return state, 0
         if self.mode in PLAN_MODES:
             res = self.dplan.execute(values, self.mode)
@@ -583,7 +573,6 @@ class CompiledEngine:
                 vk = torch.where(cols, values[rows], program.identity)
                 vk.view(-1)[idx] = vals
                 new[rows] = program.reduce_t(vk, dd.adj[rows], state[rows], dd)
-            self._sync(tr)
         return new, bits
 
     def _land_delivered(self, delivered: dict) -> list:
@@ -634,10 +623,6 @@ class CompiledEngine:
         back, stragglers re-price the Shuffle per the hand-over rule
         (values are unaffected). The result's `.faults` is the `FaultLog`.
         """
-        if state is None:
-            state = self.program.init(self.g)
-        state = torch.as_tensor(state, dtype=torch.float32,
-                                device=self.device).contiguous()
         total_bits = start_bits
         cur, log = self, None
         failed: set[int] = set()
@@ -647,9 +632,15 @@ class CompiledEngine:
             from .faults import FaultLog
             log = FaultLog()
         tr = get_tracer()
-        B0 = 1 if state.dim() == 1 else int(state.shape[1])
         with tr.span("engine.run", mode=self.mode, backend=self.backend,
-                     iters=iters, B=B0) as run_sp:
+                     iters=iters) as run_sp:
+            # The job's start: the program's init and the state's upload.
+            with tr.span("engine.start"):
+                if state is None:
+                    state = self.program.init(self.g)
+                state = torch.as_tensor(state, dtype=torch.float32,
+                                        device=self.device).contiguous()
+            run_sp.set(B=1 if state.dim() == 1 else int(state.shape[1]))
             for it in range(start_iter, start_iter + iters):
                 with tr.span("engine.iteration", iteration=it) as it_sp:
                     if fault_schedule is not None:

@@ -79,9 +79,8 @@ buffers and one int32 all_reduce as the union, the reference's psum.
 Nothing returns to the host between Map and Reduce. Delivered words are
 bitwise equal to `ShufflePlan.execute_coded_sparse`; a trailing payload
 axis B rides the same tables (column b is bitwise the unbatched exchange
-of column b). While the tracer is enabled each phase synchronises the card
-at the end of its span, so spans time device work; disabled, nothing
-synchronises.
+of column b). No span synchronises the card: a phase's span times the
+host's issue of its kernels (their device time is the profiler's).
 """
 from __future__ import annotations
 
@@ -842,10 +841,6 @@ class FusedSparseShuffle:
             self.packed = pack_schedule(self.sched, csr.nnz)
             self.schedule_bits = plan.coded_bits + plan.leftover_bits
 
-    def _sync(self, tr) -> None:
-        if tr.enabled and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def exchange(self, edge_vals: torch.Tensor) -> torch.Tensor:
         """One coded Shuffle on the device.
 
@@ -883,7 +878,6 @@ class FusedSparseShuffle:
                 src = self._rack_words(src)
             buf = xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"],
                                     swap=swap)
-            self._sync(tr)
         attrs = dict(backend="fused", bits=self.schedule_bits * B, B=B,
                      K=self.sched.K, **ranks)
         if self.hplan is not None:
@@ -894,7 +888,6 @@ class FusedSparseShuffle:
                 buf = _all_gather(buf, racks.racks_group)
             elif sh is not None:
                 buf = _all_gather(buf, sh.group)
-            self._sync(tr)
         if self.hplan is not None:
             _count_rack_bits(inter, intra)
         with tr.span("phase.decode", backend="fused", B=B, deliveries=self.M):
@@ -903,7 +896,6 @@ class FusedSparseShuffle:
                 t["strip_code"], t["book"], t["ptr"], swap=swap,
                 total=self.M if sh is None else self.M_local,
                 direct_e=t.get("direct_e"))
-            self._sync(tr)
         if sh is None:
             return words
         with tr.span("phase.gather", B=B, deliveries=self.M, ranks=sh.world):
@@ -914,7 +906,6 @@ class FusedSparseShuffle:
             words = _all_gather(words, sh.group)
             if self._trim is not None:
                 words = words.index_select(0, self._trim)
-            self._sync(tr)
         return words
 
     def exchange_words(self, edge_words: np.ndarray) -> np.ndarray:

@@ -4,13 +4,13 @@
   Chrome-trace/perfetto export, deterministic span trees.
 * :mod:`repro_torch.obs.metrics` - counters / gauges / fixed-bucket
   histograms with a Prometheus-text exporter.
-* :mod:`repro_torch.obs.bench` - warmup + repetition timing helpers
-  (`measure`, `timeit`, `stopwatch`).
 
 Enable tracing either with ``REPRO_TRACE=1`` in the environment or
-``obs.get_tracer().enable()`` at runtime. While the tracer is enabled the
-fused exchange synchronises the card inside its span, so the span times
-the device work; while it is disabled nothing synchronises.
+``obs.get_tracer().enable()`` at runtime. No span synchronises the device:
+a span around device work times the host's issue of it. Run the traced
+code under ``torch.profiler`` as well and every span is also a profiler
+host record (``record_function``), on the same clock as the kernels it
+launched, so ``export_chrome_trace`` gives one timeline of both.
 """
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_latency_buckets, get_registry, set_registry)

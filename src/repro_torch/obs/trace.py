@@ -6,9 +6,18 @@ Reduce phases that Theorem 1 reasons about — not just count bits.  This
 module provides the span layer every hot path threads through:
 
 * ``Tracer.span(name, **attrs)`` opens a nestable span recording
-  monotonic ``perf_counter_ns`` enter/exit stamps plus wall-clock, with
-  arbitrary attributes (bits, words, nnz, B, iteration) attached at open
-  or later via ``Span.set``.
+  monotonic ``perf_counter_ns`` enter/exit stamps, with arbitrary
+  attributes (bits, words, nnz, B, iteration) attached at open or later
+  via ``Span.set``. A span never synchronises the device: around device
+  work it times the host's issue of that work.
+* While ``torch.profiler`` records, an enabled span also enters
+  ``torch.profiler.record_function(name)``, so it appears among the
+  profiler's host records, on the profiler's clock, next to the kernels
+  launched inside it (on every thread the profiler records).
+* ``Tracer.record(name, t0_ns, t1_ns, **attrs)`` keeps a span whose two
+  ends were stamped with ``Tracer.now_ns()``, possibly on different
+  threads (a query submitted on one and resolved on another). Such a span
+  is a root and is not handed to the profiler.
 * A disabled tracer is a hard no-op: ``span()`` returns a shared
   ``_NullSpan`` singleton (no allocation, no locking, no timestamps), so
   instrumented hot loops pay one attribute check + one method call —
@@ -21,12 +30,14 @@ module provides the span layer every hot path threads through:
   returns a deterministic ``(name, children)`` nesting for pinned tests.
 
 Stdlib-only on purpose: ``obs`` must stay importable without anything at
-all, so the host layer imports it freely.
+all, so the host layer imports it freely; torch is reached only through
+``sys.modules``, once something else has imported it.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 
@@ -51,12 +62,23 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _recording_profiler():
+    """torch's profiler module while torch.profiler records in this
+    process, else None. Read from the module's process-wide flag: under
+    ``profile_all_threads`` the C++ check ``_profiler_enabled()`` reads
+    False even on the thread that started the profiler."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
+
+
 class Span:
     """One timed region. Context manager; nests via the tracer's stack."""
 
     __slots__ = (
-        "name", "attrs", "children", "t0_ns", "t1_ns", "wall_t0",
-        "thread", "instant", "_tracer",
+        "name", "attrs", "children", "t0_ns", "t1_ns", "thread",
+        "instant", "_tracer", "_rf",
     )
 
     def __init__(self, tracer, name, attrs, *, instant=False):
@@ -66,18 +88,24 @@ class Span:
         self.children = []
         self.t0_ns = 0
         self.t1_ns = 0
-        self.wall_t0 = 0.0
         self.thread = threading.current_thread().name
         self.instant = instant
+        self._rf = None
 
     def __enter__(self):
-        self.wall_t0 = time.time()
+        prof = _recording_profiler()
+        if prof is not None:
+            self._rf = prof.record_function(self.name)
+            self._rf.__enter__()
         self.t0_ns = time.perf_counter_ns() - self._tracer._origin_ns
         self._tracer._push(self)
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self.t1_ns = time.perf_counter_ns() - self._tracer._origin_ns
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
+            self._rf = None
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
         self._tracer._pop(self)
@@ -139,13 +167,26 @@ class Tracer:
             return _NULL_SPAN
         return Span(self, name, attrs)
 
+    def now_ns(self) -> int:
+        """The tracer's clock: ns since its origin, as spans stamp it."""
+        return time.perf_counter_ns() - self._origin_ns
+
+    def record(self, name: str, t0_ns: int, t1_ns: int, **attrs) -> None:
+        """Keep a finished span stamped by `now_ns` (its ends may come from
+        different threads), as a root; it is not handed to the profiler."""
+        if not self.enabled:
+            return
+        sp = Span(self, name, attrs)
+        sp.t0_ns, sp.t1_ns = int(t0_ns), int(t1_ns)
+        with self._lock:
+            self._roots.append(sp)
+
     def event(self, name: str, **attrs) -> None:
         """Instant marker at the current nesting position."""
         if not self.enabled:
             return
         now = time.perf_counter_ns() - self._origin_ns
         sp = Span(self, name, attrs, instant=True)
-        sp.wall_t0 = time.time()
         sp.t0_ns = sp.t1_ns = now
         self._attach(sp)
 
@@ -241,6 +282,8 @@ def _json_safe(v):
         return v
     if isinstance(v, (int, float)):
         return v
+    if isinstance(v, (list, tuple)):
+        return [_json_safe(x) for x in v]
     try:  # numpy scalars and friends
         return v.item()
     except AttributeError:

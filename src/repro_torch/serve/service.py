@@ -48,7 +48,20 @@ Hardening (failure semantics, as the reference's):
     from the mutated base.
 
 `ServeStats` counts all of it (failures, expiries, retries, crashes,
-recoveries) next to the throughput counters.
+recoveries) next to the throughput counters, and each admitted query's
+wait in the queue (`serve_queue_wait_seconds`).
+
+Spans, while the tracer is enabled (`repro_torch.obs`): `submit` numbers
+each query, and two spans carry its number as `query=`: `serve.queue`,
+from submit to its admission into a batch (with the batch's `batch_no`),
+and `serve.query`, from submit to its future's resolution; both are
+stamped on two threads and kept with `Tracer.record`. On the worker,
+`serve.idle` covers the wait with nothing queued, `serve.admit` the
+admission window held open, and `serve.batch` (with `queries=`, the
+numbers it ran) holds `serve.prepare` (the preferences stacked, the
+batched program built and bound), the run's `engine.run` and
+`serve.resolve` (the stream synchronised, the columns fanned out, the
+stats counted).
 """
 from __future__ import annotations
 
@@ -57,6 +70,7 @@ import contextlib
 import threading
 import time
 from concurrent.futures import Future
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,6 +84,19 @@ from ..obs import MetricsRegistry, get_tracer
 QUERY_KINDS = ("sssp", "ppr")
 
 
+class _Query(NamedTuple):
+    """One queued query: its argument and future, its deadline and submit
+    time (`time.monotonic`), its number and its submit stamp on the
+    tracer's clock (`Tracer.now_ns`)."""
+
+    arg: object
+    fut: Future
+    deadline: float | None
+    ts: float
+    qid: int
+    t0_ns: int
+
+
 class ServeStats:
     """Service-lifetime counters, backed by an `obs.MetricsRegistry`.
 
@@ -77,7 +104,8 @@ class ServeStats:
     ...) but every counter lives in the registry under a `serve_*` metric
     name, so `stats.to_prometheus_text()` exposes the whole set - plus the
     per-query latency histogram (submit -> future resolution) behind
-    `latency_p50` / `latency_p95` / `latency_p99`.
+    `latency_p50` / `latency_p95` / `latency_p99`, and the queue-wait
+    histogram (submit -> admission into a batch) behind `queue_wait`.
 
     All mutation goes through the `record_*` methods so each fact is
     counted in exactly one place - in particular `record_success` is the
@@ -112,6 +140,9 @@ class ServeStats:
         self._latency = r.histogram(
             "serve_query_latency_seconds",
             "submit-to-resolution latency of successful queries")
+        self._queue_wait = r.histogram(
+            "serve_queue_wait_seconds",
+            "submit-to-admission wait of each query admitted into a batch")
 
     # -- mutation (one method per fact) ---------------------------------
     def record_success(self, queries: int, shuffle_bits: int,
@@ -122,6 +153,10 @@ class ServeStats:
         self._bits.inc(shuffle_bits)
         for s in latencies_s:
             self._latency.observe(s)
+
+    def record_admitted(self, wait_s: float) -> None:
+        """One query admitted into a batch after `wait_s` in the queue."""
+        self._queue_wait.observe(wait_s)
 
     def record_failed(self) -> None:
         self._failed.inc()
@@ -202,6 +237,12 @@ class ServeStats:
     def latency_percentiles(self) -> dict:
         return self._latency.percentiles((50, 95, 99))
 
+    @property
+    def queue_wait(self):
+        """The `serve_queue_wait_seconds` histogram: its `sum` and `count`
+        give the mean wait over any interval between two reads."""
+        return self._queue_wait
+
     def to_prometheus_text(self) -> str:
         return self.registry.to_prometheus_text()
 
@@ -261,6 +302,7 @@ class GraphService:
             collections.deque)
         self._mutations: collections.deque = collections.deque()
         self._inflight: list[Future] = []
+        self._next_qid = 0
         self._cv = threading.Condition()
         self._closed = False
         self._worker = threading.Thread(
@@ -291,13 +333,15 @@ class GraphService:
         else:
             raise ValueError(
                 f"unknown query kind {kind!r}; accepted: {QUERY_KINDS}")
-        now = time.monotonic()
+        now, t0_ns = time.monotonic(), get_tracer().now_ns()
         deadline = None if deadline_s is None else now + float(deadline_s)
         fut: Future = Future()
         with self._cv:
             if self._closed:
                 raise RuntimeError("service is closed")
-            self._lanes[(kind, int(iters))].append((arg, fut, deadline, now))
+            self._next_qid += 1
+            self._lanes[(kind, int(iters))].append(
+                _Query(arg, fut, deadline, now, self._next_qid, t0_ns))
             self._cv.notify_all()
         return fut
 
@@ -341,7 +385,7 @@ class GraphService:
             return
         with self._cv:
             self._closed = True
-            pending = [f for q in self._lanes.values() for _, f, _, _ in q]
+            pending = [e.fut for q in self._lanes.values() for e in q]
             pending += [f for _, f in self._mutations]
             self._lanes.clear()
             self._mutations.clear()
@@ -369,7 +413,7 @@ class GraphService:
             # to the admitted-but-unresolved batch as well as the queues.
             with self._cv:
                 self._closed = True
-                pending = [f for q in self._lanes.values() for _, f, _, _ in q]
+                pending = [e.fut for q in self._lanes.values() for e in q]
                 pending += [f for _, f in self._mutations]
                 pending += self._inflight
                 self._lanes.clear()
@@ -381,12 +425,17 @@ class GraphService:
                     f.set_exception(e)
             raise
 
+    def _idle(self) -> bool:
+        return (not self._closed and not any(self._lanes.values())
+                and not self._mutations)
+
     def _loop_inner(self) -> None:
         while True:
             with self._cv:
-                while (not self._closed and not any(self._lanes.values())
-                       and not self._mutations):
-                    self._cv.wait()
+                if self._idle():
+                    with get_tracer().span("serve.idle"):
+                        while self._idle():
+                            self._cv.wait()
                 muts = list(self._mutations)
                 self._mutations.clear()
             if muts:                          # batch boundary: swap session
@@ -399,13 +448,10 @@ class GraphService:
                 lane = max(self._lanes, key=lambda k: len(self._lanes[k]))
                 # Admission window: hold the batch open until it is full,
                 # the timeout lapses, or the service is draining.
-                deadline = time.monotonic() + self.max_wait_s
-                while (not self._closed
-                       and len(self._lanes[lane]) < self.max_batch):
-                    left = deadline - time.monotonic()
-                    if left <= 0:
-                        break
-                    self._cv.wait(timeout=left)
+                if (not self._closed
+                        and len(self._lanes[lane]) < self.max_batch):
+                    with get_tracer().span("serve.admit", kind=lane[0]):
+                        self._admit(lane)
                 q = self._lanes.get(lane)
                 if q is None:                 # close(wait=False) raced us
                     continue
@@ -413,11 +459,22 @@ class GraphService:
                          for _ in range(min(self.max_batch, len(q)))]
                 if not q:
                     del self._lanes[lane]
-                self._inflight = [f for _, f, _, _ in batch]
+                self._inflight = [e.fut for e in batch]
             if batch:
                 self._run_batch(lane, batch)
             with self._cv:
                 self._inflight = []
+
+    def _admit(self, lane: tuple) -> None:
+        """Wait, holding the lock, until `lane` holds a full batch,
+        `max_wait_s` has passed, or the service is draining."""
+        deadline = time.monotonic() + self.max_wait_s
+        while (not self._closed
+               and len(self._lanes[lane]) < self.max_batch):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            self._cv.wait(timeout=left)
 
     def _apply_mutations(self, muts: list) -> None:
         """Apply queued deltas in arrival order, between batches.
@@ -476,24 +533,32 @@ class GraphService:
                             else self.session.fail(tuple(sorted(self._failed))))
 
     def _run_batch(self, lane: tuple, batch: list) -> None:
+        """Run one admitted batch; called as soon as it leaves the queue,
+        so its start is each query's admission."""
         kind, iters = lane
-        now = time.monotonic()
+        tr = get_tracer()
+        now, now_ns = time.monotonic(), tr.now_ns()
         live = []
-        for arg, fut, dl, ts in batch:
-            if fut.cancelled():
+        for e in batch:
+            if e.fut.cancelled():
                 continue
-            if dl is not None and now > dl:
+            if e.deadline is not None and now > e.deadline:
                 self.stats.record_expired()
-                fut.set_exception(TimeoutError(
+                e.fut.set_exception(TimeoutError(
                     f"{kind} query expired after waiting past its deadline"))
             else:
-                live.append((arg, fut, dl, ts))
+                live.append(e)
         if not live:
             return
         self._apply_faults()
         self._batch_no += 1
-        with get_tracer().span("serve.batch", kind=kind, iters=iters,
-                               B=len(live), batch_no=self._batch_no):
+        for e in live:
+            self.stats.record_admitted(now - e.ts)
+            tr.record("serve.queue", e.t0_ns, now_ns, query=e.qid,
+                      batch_no=self._batch_no)
+        with tr.span("serve.batch", kind=kind, iters=iters, B=len(live),
+                     batch_no=self._batch_no,
+                     queries=tuple(e.qid for e in live)):
             self._execute_split(kind, live, iters)
 
     def _execute_split(self, kind: str, entries: list, iters: int) -> None:
@@ -508,14 +573,17 @@ class GraphService:
         consistent with `queries`/`retries` no matter how deep the
         bisection goes.
         """
-        futs = [f for _, f, _, _ in entries]
+        tr = get_tracer()
         try:
-            res = self._execute(kind, [a for a, _, _, _ in entries], iters)
-        except Exception as e:
+            res = self._execute(kind, [e.arg for e in entries], iters)
+        except Exception as exc:
             if len(entries) == 1:
                 self.stats.record_failed()
-                if not futs[0].cancelled():
-                    futs[0].set_exception(e)
+                (e,) = entries
+                tr.record("serve.query", e.t0_ns, tr.now_ns(), query=e.qid,
+                          error=type(exc).__name__)
+                if not e.fut.cancelled():
+                    e.fut.set_exception(exc)
                 return
             mid = len(entries) // 2
             self.stats.record_retries(2)
@@ -524,27 +592,30 @@ class GraphService:
                 self._execute_split(kind, entries[:mid], iters)
                 self._execute_split(kind, entries[mid:], iters)
             return
-        if res.state.device.type == "cuda":
-            torch.cuda.current_stream(res.state.device).synchronize()
-        done = time.monotonic()
-        self.stats.record_success(
-            len(entries), res.shuffle_bits,
-            [done - ts for _, _, _, ts in entries])
-        for b, f in enumerate(futs):
-            if not f.cancelled():
-                f.set_result(res.state[:, b])
+        with tr.span("serve.resolve", B=len(entries)):
+            if res.state.device.type == "cuda":
+                torch.cuda.current_stream(res.state.device).synchronize()
+            done = time.monotonic()
+            self.stats.record_success(
+                len(entries), res.shuffle_bits,
+                [done - e.ts for e in entries])
+            for b, e in enumerate(entries):
+                tr.record("serve.query", e.t0_ns, tr.now_ns(), query=e.qid)
+                if not e.fut.cancelled():
+                    e.fut.set_result(res.state[:, b])
 
     def _execute(self, kind: str, args: list, iters: int):
         """Build the batched program and run it on the current (possibly
         degraded) session. The seam fault tests monkeypatch."""
-        if kind == "sssp":
-            prog = algorithms.multi_sssp(list(args))
-        else:
-            prog = algorithms.personalized_pagerank(np.stack(args, axis=1))
-        sched = None
-        if self._straggling:
-            from ..core.faults import FaultSchedule
-            sched = FaultSchedule(
-                [(0, "straggle", tuple(sorted(self._straggling)))])
-        return self._active.with_program(prog).run(iters,
-                                                   fault_schedule=sched)
+        with get_tracer().span("serve.prepare", kind=kind, B=len(args)):
+            if kind == "sssp":
+                prog = algorithms.multi_sssp(list(args))
+            else:
+                prog = algorithms.personalized_pagerank(np.stack(args, axis=1))
+            sched = None
+            if self._straggling:
+                from ..core.faults import FaultSchedule
+                sched = FaultSchedule(
+                    [(0, "straggle", tuple(sorted(self._straggling)))])
+            session = self._active.with_program(prog)
+        return session.run(iters, fault_schedule=sched)

@@ -26,8 +26,8 @@ defaults vs the reference package, on the CPU.
 * `loads.empirical_loads` (with and without a topology) and the paper's
   closed forms against the reference's, on the cases of
   `tests/test_loads.py` and `tests/test_theorem1.py`.
-* `launch/roofline` and `obs/bench` against the reference's arithmetic,
-  given the same constants; an unknown card raises.
+* `launch/roofline` against the reference's arithmetic, given the same
+  constants; an unknown card raises.
 * K2's plain version with `direct_e` against the composition it replaces.
 """
 import dataclasses
@@ -49,7 +49,6 @@ from repro.core.shuffle_plan import compile_hierarchical as r_compile_h
 from repro.core.shuffle_plan import compile_plan_csr as r_compile
 from repro.launch import mesh as r_mesh
 from repro.launch import roofline as r_roof
-from repro.obs import bench as r_bench
 from repro_torch.core import algorithms as t_algo
 from repro_torch.core import convert
 from repro_torch.core import engine as t_engine
@@ -63,7 +62,6 @@ from repro_torch.kernels.xor_code import ref as xref
 from repro_torch.kernels.xor_code import xor_code as xc
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import roofline as t_roof
-from repro_torch.obs import bench as t_bench
 
 SUM_TOL = dict(rtol=1e-5, atol=0)
 SHAPES = {"er": ((4, 2), (2, 4)), "pl": ((4, 2), (2, 4)),
@@ -474,7 +472,7 @@ def test_theorem1_loads_match_reference(model):
             assert got[k] == v or (math.isnan(v) and math.isnan(got[k])), k
 
 
-# ---- roofline and bench ----
+# ---- roofline ----
 
 def test_roofline_arithmetic_matches_reference():
     fig = t_mesh.card_figures("NVIDIA H100 80GB HBM3")
@@ -515,37 +513,6 @@ def test_unknown_card_and_the_cpu_raise():
         t_roof.card_of("cpu")
     with pytest.raises(ValueError, match="not a card"):
         t_roof.phase_roofline("map", 1.0, 1.0, device="cpu")
-
-
-def test_bench_measures_as_the_reference():
-    def clock(mod):
-        ticks = iter(np.arange(0.0, 100.0, 0.5) ** 2)
-        calls = []
-        orig = mod.time.perf_counter
-        mod.time.perf_counter = lambda: float(next(ticks))
-        try:
-            m = mod.measure(lambda: calls.append(1) or len(calls), reps=4,
-                            warmup=2, sync=lambda out: calls.append(-out))
-        finally:
-            mod.time.perf_counter = orig
-        return m, calls
-
-    (got, gcalls), (want, wcalls) = clock(t_bench), clock(r_bench)
-    assert got.times_s == want.times_s and gcalls == wcalls
-    assert got.result == want.result
-    for red in ("mean", "max", "min"):
-        assert got.reduced_s(red) == want.reduced_s(red)
-    assert (got.mean_us, got.worst_us) == (want.mean_us, want.worst_us)
-    with pytest.raises(ValueError, match="reduce must be"):
-        got.reduced_s("median")
-    with pytest.raises(ValueError, match="reps must be"):
-        t_bench.measure(lambda: None, reps=0)
-    m = t_bench.measure(lambda: bytearray(1 << 20), reps=2, trace_memory=True)
-    assert m.peak_bytes >= 1 << 20
-    assert t_bench.timeit(lambda: None, reps=2) >= 0.0
-    with t_bench.stopwatch() as sw:
-        sum(range(1000))
-    assert sw.s >= 0.0 and sw.us == sw.s * 1e6
 
 
 # ---- K2's plain version with direct words ----
