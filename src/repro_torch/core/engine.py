@@ -102,11 +102,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.csr_tiles import tile_rows
+from ..kernels.csr_tiles import tiles_on
 from ..kernels.segment_reduce.ops import segment_reduce
 from ..kernels.spmv.spmv import check_bm, spmv_csr
 from ..launch.mesh import Topology
-from ..obs import get_tracer
+from ..obs import get_registry, get_tracer
 from .algorithms import VertexProgram
 from .allocation import Allocation
 from .bitcodec import T_BITS
@@ -310,7 +310,12 @@ class CompiledEngine:
             return
         self._indptr = _i32(g.csr.indptr, self.device)
         # K3's and K5's tile table: built once, for any sparse route.
-        self._tiles = _i32(tile_rows(g.csr.indptr), self.device)
+        self._tiles = tiles_on(g.csr.indptr, self.device)
+        reg = get_registry()
+        reg.gauge("reduce_long_rows", "rows on K3 / K5's long-tile path"
+                  ).set(self._tiles.long_rows)
+        reg.gauge("reduce_long_entries", "CSR entries in the long-tile rows"
+                  ).set(self._tiles.long_entries)
         self._dg = g.device_view(self.device)
         if backend == "spmv":
             self.bm = check_bm(opts.get("bm", 128))

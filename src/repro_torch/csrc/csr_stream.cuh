@@ -6,9 +6,18 @@
 // with value(e, b) read from a table at the entry's index idx[e] (K5: c, K3:
 // the concatenation of the Map output and the delivered words). The source
 // of the value is the template parameter `Src`; the reduce is a sum or
-// NumPy's minimum. An empty row gets the identity; every other row starts
-// from its first value and combines the rest in CSR order, so a sum rounds
-// exactly as a sequential loop does (`segment_reduce/ref.csr_reduce_seq`).
+// NumPy's minimum. An empty row gets the identity. The order is fixed
+// (`segment_reduce/ref.csr_reduce_seq` is the same order in PyTorch):
+//  - a row of at most E entries starts from its first value and combines
+//    the rest in CSR order, each add rounded on its own, as a sequential
+//    loop does;
+//  - a longer row is cut into chunks of S entries from its first (the last
+//    may be short); each chunk is reduced so, and the chunk results are
+//    combined so, left to right from chunk 0's. A fixed order, so the bits
+//    repeat; its rounding error bound is below a sequential loop's. `min`
+//    gives the same bits in either order.
+// E is `csr_tiles.tile_entries(nnz)` and S `csr_tiles.LONG_CHUNK`, both
+// passed by the wrappers.
 //
 // Bound: bytes. Each entry costs one index read and one read of the table;
 // where the table reads are random (K5's c), each pulls a whole 32-byte
@@ -28,10 +37,22 @@
 //    shared memory in CSR order (vector loads, V independent chains) and
 //    writes them with one vector store; the bounds of its first row are
 //    read while phase 1 runs.
-//  - A long tile is gathered part by part (E entries each, all threads),
-//    and one thread carries the reduction across the parts, in CSR order,
-//    which keeps the sequential bits.
-// No atomics: two runs give the same bits.
+//  - A long tile (`long_tile`) is staged a part of Q whole chunks at a
+//    time, with a pad slot after each chunk so that threads reducing
+//    chunks side by side read distinct banks. Thread c reduces chunk c of
+//    the part while a thread of the last warp folds the previous part's
+//    chunk results into the row's: no thread carries a chain longer than
+//    S adds, nor the fold more than Q a part. The parts pass through a
+//    ring of kStages in shared memory: the values of the next kStages - 1
+//    parts are in flight as cp.async copies, which hold no registers, so
+//    the kernel keeps the registers, and the occupancy, of its multi-row
+//    path; the row's indices are prefetched into L2 first. A launch whose
+//    rows include long ones (`ring`, known on the host) gives every block
+//    at least kLongFloats of shared memory for the ring; others keep the
+//    multi-row path's (E + 4) V, and with it the L1 cache the rest of the
+//    SM's 256 KB leaves: 32 KB a block took er-1m's K3, in a session on an
+//    H100, from 0.042 to 0.051 ms.
+// No atomics and no global scratch: two runs give the same bits.
 #pragma once
 
 #include "common.cuh"
@@ -41,6 +62,11 @@ namespace csr {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;    // entries per thread per pass: reads in flight
+// A long tile: the parts in its ring, the one being reduced included, and
+// the least shared memory (floats) a block gets for the ring where the
+// launch has long rows, 32 KB.
+constexpr int kStages = 3;
+constexpr int kLongFloats = 8192;
 
 // V consecutive floats from a 4V-byte aligned address. KEEP: through the
 // read-only path with an L2 evict-last policy; else streaming (evict-first).
@@ -72,9 +98,15 @@ __device__ __forceinline__ void load_vals(const float* p, float (&v)[V]) {
 }
 
 // K5's source: c[idx, b0 .. b0 + V), kept in L2 (read once per entry).
+// Both sources also give a long tile the address of an entry's V values
+// (`row`) and whether they are codec words (`codec`), for its copies.
 struct Gather {
   const float* c;
   int B;
+  __device__ __forceinline__ const float* row(int i, int b0) const {
+    return c + static_cast<long long>(i) * B + b0;
+  }
+  __device__ __forceinline__ bool codec(int) const { return false; }
   template <int V>
   __device__ __forceinline__ void load(int i, int b0, float (&v)[V]) const {
     load_vals<V, true>(c + static_cast<long long>(i) * B + b0, v);
@@ -89,6 +121,14 @@ struct Concat {
   const float* delivered;
   unsigned nnz;
   int B;
+  __device__ __forceinline__ const float* row(int s, int b0) const {
+    const unsigned u = static_cast<unsigned>(s);
+    return u < nnz ? edge_vals + static_cast<long long>(u) * B + b0
+                   : delivered + static_cast<long long>(u - nnz) * B + b0;
+  }
+  __device__ __forceinline__ bool codec(int s) const {
+    return static_cast<unsigned>(s) >= nnz;
+  }
   template <int V>
   __device__ __forceinline__ void load(int s, int b0, float (&v)[V]) const {
     const unsigned u = static_cast<unsigned>(s);
@@ -210,13 +250,151 @@ __device__ __forceinline__ void reduce_rows(float (&acc)[V], const float* vals,
   }
 }
 
-// One block per tile (blockIdx.x) and per chunk of V payload columns
-// (blockIdx.y); dynamic shared memory of (E + 4) * V floats.
+// V floats from global to shared memory, asynchronously (cp.async; the
+// copy holds no register while in flight).
+template <int V>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(4 * V) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's latest groups of copies are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A long tile's part: thread t's entries are k = t + kThreads i of the
+// part, i < kItems (a warp reads 32 consecutive entries), k < len.
+__device__ __forceinline__ void long_indices(int (&ix)[kItems],
+                                             const int32_t* __restrict__ idx,
+                                             int p0, int len) {
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int k = threadIdx.x + kThreads * i;
+    ix[i] = k < len ? __ldcs(idx + p0 + k) : 0;
+  }
+}
+
+// Copies this thread's entries of a part into slots k + k / S (a pad slot
+// after each chunk, so that threads reducing chunks side by side read
+// distinct banks); returns a bit for each entry that is a codec word.
+template <int V, typename Src>
+__device__ __forceinline__ unsigned long_copy(float* slots,
+                                              const int (&ix)[kItems],
+                                              const Src& src, int b0, int len,
+                                              int log2_s) {
+  unsigned codec = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int k = threadIdx.x + kThreads * i;
+    if (k < len) {
+      copy_async<V>(slots + V * (k + (k >> log2_s)), src.row(ix[i], b0));
+      if (src.codec(ix[i])) codec |= 1u << i;
+    }
+  }
+  return codec;
+}
+
+// The row of entries [e0, e1), e1 - e0 > E, in chunks of S (a power of
+// two) into out, through a ring of kStages parts in `floats` of shared
+// memory. A part holds Q chunks, P = Q S entries (at most kItems a
+// thread); a stage is its P slots and one pad slot a chunk; two buffers of
+// Q chunk results follow the ring. Each iteration reduces part j (thread c
+// chunk c) while part j + kStages - 1 is copied in and kFolder, in the
+// last warp, folds part j - 1's chunk results into the row's (acc).
 template <int V, bool MIN, typename Src>
-__global__ void __launch_bounds__(kThreads) csr_stream_kernel(
+__device__ __forceinline__ void long_tile(float* smem,
+                                          const int32_t* __restrict__ idx,
+                                          const Src& src, int b0, int e0,
+                                          int e1, int floats, int S,
+                                          float* out) {
+  constexpr int kFolder = kThreads - 32;
+  const int log2_s = __ffs(S) - 1;
+  const int Q = min(floats / V / (kStages * (S + 1) + 2),
+                    kItems * kThreads / S);
+  const int P = Q * S, stage = V * (P + Q);
+  const int parts = (e1 - e0 + P - 1) / P;
+  float* results = smem + kStages * stage;
+  // The row's indices into L2 ahead of their loads, a 128-byte line each.
+  for (int e = (e0 & ~31) + 32 * threadIdx.x; e < e1; e += 32 * kThreads)
+    asm volatile("prefetch.global.L2 [%0];\n" :: "l"(idx + e));
+  int ix[kItems];
+  unsigned codec = 0;    // 8 bits a part in flight, the oldest highest
+  // Part q into stage q % kStages from the indices in ix, then part
+  // q + 1's indices into ix; one group of copies a call.
+  auto issue = [&](int q) {
+    codec <<= 8;
+    if (q < parts) {
+      codec |= long_copy<V>(smem + (q % kStages) * stage, ix, src, b0,
+                            min(P, e1 - e0 - q * P), log2_s);
+      if (q + 1 < parts)
+        long_indices(ix, idx, e0 + (q + 1) * P, min(P, e1 - e0 - (q + 1) * P));
+    }
+    copy_commit();
+  };
+  float acc[V];
+  // The row's result (op)= part j's `chunks` chunk results, by kFolder.
+  auto fold = [&](int j, int chunks) {
+    const float* res = results + V * Q * (j & 1);
+    if (j == 0) load_row<V>(res, acc);
+    reduce_rows<V, MIN>(acc, res, j == 0 ? 1 : 0, chunks);
+  };
+  long_indices(ix, idx, e0, min(P, e1 - e0));
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int j = 0; j < parts; ++j) {
+    const int len = min(P, e1 - e0 - j * P);
+    float* part = smem + (j % kStages) * stage;
+    copy_wait<kStages - 2>();
+    // This thread's codec words of part j, byteswapped in place.
+    const unsigned bits = codec >> (8 * (kStages - 2));
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (bits >> i & 1) {
+        const int k = threadIdx.x + kThreads * i;
+        float* p = part + V * (k + (k >> log2_s));
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          p[c] = __uint_as_float(bswap32(__float_as_uint(p[c])));
+      }
+    }
+    __syncthreads();
+    issue(j + kStages - 1);    // into the stage part j - 1 left
+    float* res = results + V * Q * (j & 1);
+    const int chunks = (len + S - 1) >> log2_s;
+    for (int c = threadIdx.x; c < chunks; c += kThreads) {
+      const float* run = part + V * c * (S + 1);
+      float a[V];
+      load_row<V>(run, a);
+      reduce_rows<V, MIN>(a, run, 1, min(S, len - c * S));
+      store_row<V>(res + V * c, a);
+    }
+    // Every part but the last holds Q chunks. A buffer of results is
+    // written again two parts later, after the barrier below.
+    if (threadIdx.x == kFolder && j > 0) fold(j - 1, Q);
+    __syncthreads();
+  }
+  if (threadIdx.x == kFolder) {
+    fold(parts - 1, (e1 - e0 - (parts - 1) * P + S - 1) >> log2_s);
+    store_row<V>(out, acc);
+  }
+}
+
+// One block per tile (blockIdx.x) and per chunk of V payload columns
+// (blockIdx.y); dynamic shared memory of `floats`, at least (E + 4) V.
+// The least blocks an SM holds at V = 1, 2, 4: the registers of the
+// multi-row path, which the long tile's must not raise.
+template <int V, bool MIN, typename Src>
+__global__ void __launch_bounds__(kThreads, V == 4 ? 4 : V == 2 ? 5 : 6)
+csr_stream_kernel(
     const int32_t* __restrict__ tile_row, const int32_t* __restrict__ indptr,
     const int32_t* __restrict__ idx, int n_idx, Src src,
-    float* __restrict__ out, int B, int E, float identity) {
+    float* __restrict__ out, int B, int E, int S, int floats, float identity) {
   extern __shared__ float4 smem4[];
   float* vals = reinterpret_cast<float*>(smem4);
   const int b0 = blockIdx.y * V;
@@ -232,21 +410,8 @@ __global__ void __launch_bounds__(kThreads) csr_stream_kernel(
         store_row<V>(out + static_cast<long long>(r0 + i) * B + b0, acc);
       return;
     }
-    // A long tile: one row, gathered E entries at a time; thread 0 carries
-    // its reduction across the parts in CSR order.
-    for (int p0 = e0; p0 < e1; p0 += E) {
-      const int p1 = min(e1, p0 + E);
-      gather_part<V>(vals, idx, n_idx, src, b0, p0, p1);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        const int a0 = p0 & ~3;
-        int k = p0 - a0;
-        if (p0 == e0) load_row<V>(vals + V * k++, acc);
-        reduce_rows<V, MIN>(acc, vals, k, p1 - a0);
-      }
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) store_row<V>(out + static_cast<long long>(r0) * B + b0, acc);
+    long_tile<V, MIN>(vals, idx, src, b0, e0, e1, floats, S,
+                      out + static_cast<long long>(r0) * B + b0);
     return;
   }
 
@@ -288,8 +453,10 @@ inline int columns_per_block(int B, uintptr_t align) {
 template <int V, bool MIN, typename Src>
 cudaError_t launch(const int32_t* tile_row, int T, const int32_t* indptr,
                    const int32_t* idx, int n_idx, const Src& src, float* out,
-                   int B, int E, float identity, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(E + 4) * V * sizeof(float);
+                   int B, int E, int S, bool ring, float identity,
+                   cudaStream_t stream) {
+  const int floats = ring ? max((E + 4) * V, kLongFloats) : (E + 4) * V;
+  const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         csr_stream_kernel<V, MIN, Src>,
@@ -298,26 +465,30 @@ cudaError_t launch(const int32_t* tile_row, int T, const int32_t* indptr,
   }
   const dim3 grid(static_cast<unsigned>(T), static_cast<unsigned>(B / V));
   csr_stream_kernel<V, MIN, Src><<<grid, kThreads, bytes, stream>>>(
-      tile_row, indptr, idx, n_idx, src, out, B, E, identity);
+      tile_row, indptr, idx, n_idx, src, out, B, E, S, floats, identity);
   return cudaGetLastError();
 }
 
 // Dispatch on V (from B and the alignment of the tables) and the reduce.
+// S must be a power of two of at most 64 (a long tile's part holds a chunk
+// at least, ring or not).
 template <typename Src>
 cudaError_t reduce(const int32_t* tile_row, int T, const int32_t* indptr,
                    const int32_t* idx, int n_idx, const Src& src, uintptr_t align,
-                   float* out, int B, int E, bool op_min, float identity,
+                   float* out, int B, int E, int S, bool ring, bool op_min,
+                   float identity,
                    cudaStream_t stream) {
+  if (S < 1 || S > 64 || (S & (S - 1))) return cudaErrorInvalidValue;
   if (T <= 0 || B <= 0) return cudaSuccess;
   const int V = columns_per_block(B, align);
   if (op_min) {
-    if (V == 4) return launch<4, true>(tile_row, T, indptr, idx, n_idx, src, out, B, E, identity, stream);
-    if (V == 2) return launch<2, true>(tile_row, T, indptr, idx, n_idx, src, out, B, E, identity, stream);
-    return launch<1, true>(tile_row, T, indptr, idx, n_idx, src, out, B, E, identity, stream);
+    if (V == 4) return launch<4, true>(tile_row, T, indptr, idx, n_idx, src, out, B, E, S, ring, identity, stream);
+    if (V == 2) return launch<2, true>(tile_row, T, indptr, idx, n_idx, src, out, B, E, S, ring, identity, stream);
+    return launch<1, true>(tile_row, T, indptr, idx, n_idx, src, out, B, E, S, ring, identity, stream);
   }
-  if (V == 4) return launch<4, false>(tile_row, T, indptr, idx, n_idx, src, out, B, E, identity, stream);
-  if (V == 2) return launch<2, false>(tile_row, T, indptr, idx, n_idx, src, out, B, E, identity, stream);
-  return launch<1, false>(tile_row, T, indptr, idx, n_idx, src, out, B, E, identity, stream);
+  if (V == 4) return launch<4, false>(tile_row, T, indptr, idx, n_idx, src, out, B, E, S, ring, identity, stream);
+  if (V == 2) return launch<2, false>(tile_row, T, indptr, idx, n_idx, src, out, B, E, S, ring, identity, stream);
+  return launch<1, false>(tile_row, T, indptr, idx, n_idx, src, out, B, E, S, ring, identity, stream);
 }
 
 }  // namespace csr

@@ -10,9 +10,12 @@
 // An empty row gets the identity; otherwise the reduction starts from the
 // row's first value, as reduceat does. `min` keeps NumPy's minimum rule
 // ((acc <= v || acc is NaN) ? acc : v), so min programs are bitwise the
-// oracle's; `sum` adds sequentially in CSR order (NumPy's reduceat unrolls),
-// hence a tolerance against the oracle and bitwise equality with the
-// sequential plain version. Built with -fmad=false; there is no multiply.
+// oracle's; `sum` adds in a fixed order (NumPy's reduceat unrolls), hence
+// a tolerance against the oracle and bitwise equality with the sequential
+// plain version `ref.csr_reduce_seq`: a row of at most E entries in CSR
+// order; a longer row in chunks of S entries, each in CSR order, the chunk
+// results then in chunk order. Built with -fmad=false; there is no
+// multiply.
 //
 // Design and bound: the CSR-streaming body of csr_stream.cuh, shared with
 // K5 (a block per tile of whole rows from the session's tile table, the
@@ -20,18 +23,21 @@
 // (the gather runs in order through the Map output and through the
 // delivered words), every read in flight before the first use, B = 2 or 4
 // columns of an entry in one vector load, one thread per row reducing from
-// shared memory; long rows in parts). Bound by bytes: gather, indptr, the
+// shared memory; a long row staged in parts, its chunks reduced side by
+// side while the next part loads). Bound by bytes: gather, indptr, the
 // gathered values and the output.
 #include "common.cuh"
 #include "csr_stream.cuh"
 
 // out[n, B] float32 = per-row `op` over the gathered values, a block per
-// tile of tile_row [T + 1]; gather 16-byte aligned, nnz its length.
+// tile of tile_row [T + 1]; gather 16-byte aligned, nnz its length; rows
+// longer than E entries in chunks of S, through the ring of shared memory
+// where `ring` (the rows include such rows).
 extern "C" int segment_reduce(const void* edge_vals, long long nnz,
                               const void* delivered, const void* gather,
                               const void* indptr, const void* tile_row, int T,
                               void* out, int B, int op_min, float identity,
-                              int E, void* stream) {
+                              int E, int S, int ring, void* stream) {
   const repro::csr::Concat src{static_cast<const float*>(edge_vals),
                                static_cast<const float*>(delivered),
                                static_cast<unsigned>(nnz), B};
@@ -40,7 +46,7 @@ extern "C" int segment_reduce(const void* edge_vals, long long nnz,
   const cudaError_t err = repro::csr::reduce(
       static_cast<const int32_t*>(tile_row), T,
       static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(gather),
-      static_cast<int>(nnz), src, align, static_cast<float*>(out), B, E, op_min != 0, identity,
+      static_cast<int>(nnz), src, align, static_cast<float*>(out), B, E, S, ring != 0, op_min != 0, identity,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

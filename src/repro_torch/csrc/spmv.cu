@@ -23,8 +23,9 @@
 // tile table), the tile's indices streamed with coalesced loads, every
 // random read of c issued before any is used and kept in L2 (evict-last),
 // all payload columns of an entry in one vector load where B is 2 or 4,
-// and one thread per row summing from shared memory in CSR order:
-// sequential sums, so the bits do not depend on the reference's `bm`
+// and one thread per row summing from shared memory in CSR order (a row
+// longer than E in chunks of S, the chunk sums then in chunk order): a
+// fixed order, so the bits do not depend on the reference's `bm`
 // (validated, unused) and two runs give the same bits (no atomics).
 //
 // Bounds, on this card: both are bound by bytes. K4 moves m*n*elt(A) +
@@ -164,15 +165,16 @@ extern "C" int spmv_dense(const void* A, int a_half, const void* x, int x_half,
 
 // out[n, B] float32: per-row sums of c[indices[e], b] in CSR order, a
 // block per tile of tile_row [T + 1] (rows of at most E entries, or one
-// longer row); indices 16-byte aligned, n_idx = nnz.
+// longer row, summed in chunks of S, through the ring of shared memory
+// where `ring`); indices 16-byte aligned, n_idx = nnz.
 extern "C" int spmv_csr(const void* indptr, const void* indices, int n_idx,
                         const void* c, void* out, const void* tile_row, int T,
-                        int B, int E, void* stream) {
+                        int B, int E, int S, int ring, void* stream) {
   const repro::csr::Gather src{static_cast<const float*>(c), B};
   const cudaError_t err = repro::csr::reduce(
       static_cast<const int32_t*>(tile_row), T,
       static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
       n_idx, src, reinterpret_cast<uintptr_t>(c), static_cast<float*>(out), B, E,
-      false, 0.0f, static_cast<cudaStream_t>(stream));
+      S, ring != 0, false, 0.0f, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

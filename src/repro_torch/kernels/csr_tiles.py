@@ -5,14 +5,20 @@ A block of either kernel takes one tile: whole consecutive rows holding at
 most E CSR entries (and at most as many rows), or a single row longer
 than that, a long tile, which the block walks in parts. E is
 `tile_entries(nnz)`: 2048, or less where a small graph would leave the
-card short of blocks. The
+card short of blocks. A long tile's row is summed in chunks of
+`LONG_CHUNK` entries from its first (`segment_reduce/ref.csr_reduce_seq`
+gives the order); the wrappers pass E and `LONG_CHUNK` to the kernels, so
+Python and CUDA agree on both. The
 table is `tile_row` [T + 1] int32, tile t being rows tile_row[t] ..
 tile_row[t + 1] - 1. It depends on `indptr` only, not on the payload
 width B, so a session builds it once for every route
-(`core/engine.CompiledEngine`); the op-level wrappers build it from
-`indptr` when the caller passes none.
+(`core/engine.CompiledEngine`), as a `Tiles` that also counts the long
+rows; the op-level wrappers build it from `indptr` when the caller passes
+none.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -20,6 +26,7 @@ import torch
 TILE_ENTRIES = 2048       # E: entries a block stages in shared memory at once
 MIN_TILE_ENTRIES = 256
 TARGET_TILES = 512        # about 4 blocks for each of the H100's 132 SMs
+LONG_CHUNK = 32           # S: entries of a long row reduced in order as one chunk
 
 
 def tile_entries(nnz: int) -> int:
@@ -59,13 +66,49 @@ def tile_rows(indptr, entries: int | None = None) -> np.ndarray:
     return np.asarray(bounds, dtype=np.int32)
 
 
-def tiles_for(indptr: torch.Tensor, tiles: torch.Tensor | None) -> torch.Tensor:
-    """The tile table on indptr's device: `tiles` as given (checked), or
-    built from `indptr` (a copy to the host and back)."""
+def long_rows(indptr) -> tuple[int, int]:
+    """(rows, entries) on the kernels' long-tile path: the rows of more than
+    `tile_entries(nnz)` entries, and the entries they hold."""
+    ip = np.asarray(indptr, dtype=np.int64)
+    deg = np.diff(ip)
+    long = deg > tile_entries(int(ip[-1]))
+    return int(long.sum()), int(deg[long].sum())
+
+
+class Tiles(NamedTuple):
+    """The tile table on a device, with the long-tile rows counted beside
+    it when it is built: all that a launch reads of `indptr`, so a call
+    copies nothing back to the host."""
+    table: torch.Tensor     # tile_row [T + 1] int32
+    long_rows: int          # rows of more than tile_entries(nnz) entries
+    long_entries: int       # the entries they hold
+
+    @property
+    def ring(self) -> int:
+        """1 where the launch gives every block the long tiles' ring of
+        shared memory, else 0. Correct either way: the ring speeds up long
+        rows, and without it a launch keeps the multi-row path's L1."""
+        return int(self.long_rows > 0)
+
+
+def tiles_on(indptr, device, entries: int | None = None) -> Tiles:
+    """`Tiles` for a host CSR row pointer [n + 1], the table on `device`
+    (`entries` as in `tile_rows`)."""
+    ip = np.asarray(indptr)
+    return Tiles(torch.from_numpy(tile_rows(ip, entries)).to(device),
+                 *long_rows(ip))
+
+
+def tiles_for(indptr: torch.Tensor, tiles: Tiles | None) -> Tiles:
+    """`tiles` as given (checked), or built from `indptr` on its device (a
+    copy to the host and back)."""
     if tiles is None:
-        tiles = torch.from_numpy(tile_rows(indptr.cpu().numpy())).to(
-            indptr.device)
-    if tiles.dtype != torch.int32 or tiles.dim() != 1 or tiles.numel() < 1:
-        raise ValueError(f"tiles must be int32 [T + 1], got {tiles.dtype} "
-                         f"{tuple(tiles.shape)}")
-    return tiles.contiguous()
+        return tiles_on(indptr.cpu().numpy(), indptr.device)
+    if not isinstance(tiles, Tiles):
+        raise ValueError(f"tiles must be csr_tiles.Tiles, got {type(tiles)}")
+    t = tiles.table
+    if (t.dtype != torch.int32 or t.dim() != 1 or t.numel() < 1
+            or not t.is_contiguous()):
+        raise ValueError(f"tiles.table must be contiguous int32 [T + 1], got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    return tiles

@@ -16,7 +16,8 @@ from . import ref
 _SIGS = {
     "segment_reduce": (_build.P, _build.I64, _build.P, _build.P, _build.P,
                        _build.P, _build.I32, _build.P, _build.I32, _build.I32,
-                       _build.F32, _build.I32, _build.P),
+                       _build.F32, _build.I32, _build.I32, _build.I32,
+                       _build.P),
 }
 OPS = ("sum", "min")
 MAX_B = 65535                                   # grid.y walks the columns
@@ -25,15 +26,16 @@ MAX_B = 65535                                   # grid.y walks the columns
 def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
                    gather: torch.Tensor, indptr: torch.Tensor, op: str,
                    identity: float,
-                   tiles: torch.Tensor | None = None) -> torch.Tensor:
+                   tiles: csr_tiles.Tiles | None = None) -> torch.Tensor:
     """Per-row `op` ("sum" | "min") over concat(edge_vals,
-    floats(delivered))[gather], in canonical CSR entry order.
+    floats(delivered))[gather], in the order of `ref.csr_reduce_seq` (CSR
+    entry order; a long row in chunks).
 
     edge_vals [nnz(, B)] float32 Map output; delivered [M(, B)] int32 codec
     words from the decode; gather [nnz] int32 into the concatenation;
     indptr [n + 1] int32 -> [n(, B)] float32 (identity for empty rows).
-    `tiles` is the kernel's tile table (`csr_tiles.tile_rows(indptr)` on
-    the card; built here when None); the CPU does not need it.
+    `tiles` is the kernel's tile table (`csr_tiles.tiles_on(indptr, dev)`;
+    built here when None); the CPU does not need it.
     """
     if op not in OPS:
         raise ValueError(f"unknown reduce op {op!r}; expected one of {OPS}")
@@ -59,9 +61,10 @@ def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
     with torch.cuda.device(edge_vals.device):
         code = lib.segment_reduce(
             edge_vals.data_ptr(), nnz, delivered.data_ptr(), gather.data_ptr(),
-            indptr.data_ptr(), tiles.data_ptr(), tiles.numel() - 1,
+            indptr.data_ptr(), tiles.table.data_ptr(), tiles.table.numel() - 1,
             out.data_ptr(), B, int(op == "min"), float(identity),
-            csr_tiles.tile_entries(nnz), _build.stream_of(edge_vals))
+            csr_tiles.tile_entries(nnz), csr_tiles.LONG_CHUNK,
+            tiles.ring, _build.stream_of(edge_vals))
     _build.check(lib, "segment_reduce", code)
     _build.LAUNCHES["segment_reduce"] += 1
     return out

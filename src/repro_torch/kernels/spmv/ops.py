@@ -64,7 +64,7 @@ def spmv_csr_rows(indptr, indices, c, n: int, *, rows=None,
     [n] or [n, B] float32. `bm` is the reference's rows per tile (a power
     of two, 1..256, validated; K5's result does not depend on it); `rows`,
     the reference's cached per-entry row array, is accepted and not
-    needed. `tiles` is K5's tile table (`csr_tiles.tile_rows(indptr)`),
+    needed. `tiles` is K5's tile table (`csr_tiles.tiles_on(indptr, dev)`),
     built from `indptr` when None.
     """
     del rows
@@ -75,7 +75,5 @@ def spmv_csr_rows(indptr, indices, c, n: int, *, rows=None,
         raise ValueError(
             f"n={n} needs indptr [n + 1] and c [n(, B)]; got indptr "
             f"{tuple(indptr.shape)}, c {tuple(c.shape)}")
-    if tiles is not None:
-        tiles = _tensor(tiles, torch.int32)
     return spmv_csr(indptr.contiguous(), indices.contiguous(),
                     c.contiguous(), bm=bm, tiles=tiles)

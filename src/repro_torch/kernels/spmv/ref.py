@@ -42,8 +42,10 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor,
 def spmv_csr_seq(indptr: torch.Tensor, indices: torch.Tensor,
                  c: torch.Tensor) -> torch.Tensor:
     """K5's sequential plain version: `spmv_csr` with every row summed in
-    CSR order from its first value (`segment_reduce.ref.csr_reduce_seq`),
-    the order K5 sums in, so K5 is held bitwise against it."""
+    the order K5 sums in (`segment_reduce.ref.csr_reduce_seq`: CSR order
+    from the first value, a row longer than `csr_tiles.tile_entries(nnz)`
+    in chunks of `csr_tiles.LONG_CHUNK`), so K5 is held bitwise against
+    it."""
     return csr_reduce_seq(c[indices.long()], indptr, "sum", 0.0)
 
 

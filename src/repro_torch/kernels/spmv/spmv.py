@@ -18,7 +18,8 @@ _SIGS = {
     "spmv_dense": (_build.P, _build.I32, _build.P, _build.I32, _build.P,
                    _build.I64, _build.I64, _build.P),
     "spmv_csr": (_build.P, _build.P, _build.I32, _build.P, _build.P,
-                 _build.P, _build.I32, _build.I32, _build.I32, _build.P),
+                 _build.P, _build.I32, _build.I32, _build.I32, _build.I32,
+                 _build.I32, _build.P),
 }
 DENSE_DTYPES = (torch.float32, torch.float16)
 ROW_TILES = tuple(2 ** k for k in range(9))     # bm: 1, 2, 4, ..., 256
@@ -64,13 +65,14 @@ def spmv_dense(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, c: torch.Tensor,
-             bm: int = 128, tiles: torch.Tensor | None = None) -> torch.Tensor:
-    """K5: acc[i(, b)] = sum of c[indices[e](, b)] over e in row i, in CSR
-    order.
+             bm: int = 128,
+             tiles: csr_tiles.Tiles | None = None) -> torch.Tensor:
+    """K5: acc[i(, b)] = sum of c[indices[e](, b)] over e in row i, in the
+    order of `ref.spmv_csr_seq` (CSR order; a long row in chunks).
 
     indptr [n + 1] int32, indices [nnz] int32, c [n] or [n, B] float32 ->
     [n] or [n, B] float32 (0 for empty rows). `bm` is validated only;
-    `tiles` is the kernel's tile table (`csr_tiles.tile_rows(indptr)`,
+    `tiles` is the kernel's tile table (`csr_tiles.tiles_on(indptr, dev)`,
     built here when None).
     """
     check_bm(bm)
@@ -95,8 +97,10 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, c: torch.Tensor,
     with torch.cuda.device(c.device):
         code = lib.spmv_csr(indptr.data_ptr(), indices.data_ptr(),
                             indices.numel(), c.data_ptr(), out.data_ptr(),
-                            tiles.data_ptr(), tiles.numel() - 1, B,
-                            csr_tiles.tile_entries(indices.numel()), _build.stream_of(c))
+                            tiles.table.data_ptr(), tiles.table.numel() - 1, B,
+                            csr_tiles.tile_entries(indices.numel()),
+                            csr_tiles.LONG_CHUNK, tiles.ring,
+                            _build.stream_of(c))
     _build.check(lib, "spmv_csr", code)
     _build.LAUNCHES["spmv_csr"] += 1
     return out

@@ -5,13 +5,17 @@ row in exactly one tile, in order; no tile of several rows holds more than
 E entries or E rows; a row of more than E entries is a tile of its own (a
 long tile); empty rows, n = 1 and n = 0 are covered. The engine builds the
 table once per session, for either route, and the wrappers build it from
-`indptr` when none is passed.
+`indptr` when none is passed. A session also sets the gauges
+`reduce_long_rows` / `reduce_long_entries` (`csr_tiles.long_rows`): the
+rows of more than `tile_entries(nnz)` entries and the entries they hold,
+which the `csr_tiles.Tiles` it builds carries to every launch (whether
+there are any sizes the kernels' shared memory: `Tiles.ring`).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import graphs
+from repro_torch import graphs, obs
 from repro_torch.core import algorithms as algo
 from repro_torch.core import engine
 from repro_torch.core.allocation import divisible_n, er_allocation
@@ -68,9 +72,13 @@ def test_tiles_reject_bad_sizes_and_tables():
     with pytest.raises(ValueError, match="multiple of 4"):
         csr_tiles.tile_rows(np.zeros(3), 6)
     ip = torch.tensor([0, 2, 5], dtype=torch.int32)
-    assert csr_tiles.tiles_for(ip, None).tolist() == [0, 2]
+    built = csr_tiles.tiles_for(ip, None)
+    assert built.table.tolist() == [0, 2] and built.ring == 0
+    assert csr_tiles.tiles_for(ip, built) is built
     with pytest.raises(ValueError, match="int32"):
-        csr_tiles.tiles_for(ip, torch.tensor([0, 2]))
+        csr_tiles.tiles_for(ip, csr_tiles.Tiles(torch.tensor([0, 2]), 0, 0))
+    with pytest.raises(ValueError, match="Tiles"):
+        csr_tiles.tiles_for(ip, built.table)
 
 
 @pytest.mark.parametrize("backend", ["fused", "spmv"])
@@ -79,6 +87,40 @@ def test_engine_builds_the_table_once_for_either_route(backend):
     g = graphs.erdos_renyi(n, 0.05, seed=3)
     eng = engine.compile(algo.pagerank(), g, er_allocation(n, 4, 2),
                          path="sparse", backend=backend, device="cpu")
-    np.testing.assert_array_equal(eng._tiles.numpy(),
+    np.testing.assert_array_equal(eng._tiles.table.numpy(),
                                   csr_tiles.tile_rows(g.csr.indptr))
     assert eng.with_program(algo.degree_count())._tiles is eng._tiles
+
+
+@pytest.mark.parametrize("deg,want", [
+    ([5, 300, 0, 256, 257], (2, 557)),      # E = 256 at this nnz
+    ([0, 0], (0, 0)), ([], (0, 0)), ([3000] * 200, (200, 600_000)),
+    ([1024] * 600 + [1025], (1, 1025))])    # E = 1024 at 615,425 entries
+def test_long_rows_counts_rows_past_the_kernels_threshold(deg, want):
+    assert csr_tiles.long_rows(np.concatenate([[0], np.cumsum(deg)])) == want
+
+
+@pytest.mark.parametrize("model", ["power_law", "er"])
+def test_session_sets_the_long_row_gauges(model):
+    n = divisible_n(3000, 4, 2)
+    g = (graphs.power_law(n, 2.1, seed=3) if model == "power_law"
+         else graphs.erdos_renyi(n, 0.004, seed=3))
+    prev = obs.set_registry(obs.MetricsRegistry())
+    try:
+        eng = engine.compile(algo.pagerank(), g, er_allocation(n, 4, 2),
+                             path="sparse", backend="fused", device="cpu")
+        reg = obs.get_registry()
+        got = (reg.get("reduce_long_rows").value,
+               reg.get("reduce_long_entries").value)
+    finally:
+        obs.set_registry(prev)
+    deg = np.diff(g.csr.indptr)
+    long = deg > csr_tiles.tile_entries(g.csr.nnz)
+    assert got == (long.sum(), deg[long].sum()) == csr_tiles.long_rows(
+        g.csr.indptr)
+    assert got == eng._tiles[1:]
+    # The launch's ring of shared memory: as the session's table carries
+    # it, and the same where a wrapper builds the table from indptr.
+    indptr = torch.from_numpy(g.csr.indptr.astype(np.int32))
+    assert eng._tiles.ring == int(model == "power_law")
+    assert csr_tiles.tiles_for(indptr, None).ring == eng._tiles.ring

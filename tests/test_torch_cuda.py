@@ -705,14 +705,20 @@ def _random_csr(rng, n, B, dev):
             for a in (indptr, indices, c.astype(np.float32))]
 
 
-def _stream_case(rng, n, B, dev):
+def _stream_case(rng, n, B, dev, hubs=True):
     """A CSR of `n` rows with 30% empty rows, degrees 0..40 (ragged tiles)
-    and one row of 5,000 entries (a long tile of three parts), gather and
-    values for K3 (standard normal, so sums cancel: only a sequential order
-    is bitwise) and values for K5."""
+    and, with `hubs`, long tiles: a row of 5,000 entries, a hub row of
+    37,838 (pl-1m's largest) and rows of E + 1 and E + S - 1 entries (E =
+    `tile_entries(nnz)`, S = `LONG_CHUNK`); gather and values for K3
+    (standard normal, so sums cancel: only the kernels' own order is
+    bitwise) and values for K5."""
     deg = rng.integers(0, 41, size=n)
     deg[rng.random(n) < 0.3] = 0
-    deg[n // 3] = 5000
+    if hubs:
+        deg[n // 3], deg[n // 2] = 5000, 37_838
+        E = csr_tiles.tile_entries(int(deg.sum()) + 300)
+        deg[n // 5], deg[n - 2] = E + 1, E + csr_tiles.LONG_CHUNK - 1
+        assert csr_tiles.tile_entries(int(deg.sum())) == E
     indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
     nnz, M = int(indptr[-1]), 3000
     gather = rng.permutation(nnz + M)[:nnz].astype(np.int32)
@@ -732,31 +738,73 @@ def _bits(t):
 
 @pytest.mark.parametrize("B", [1, 2, 4, 5])
 def test_csr_stream_kernels_are_bitwise_the_sequential_version(cuda, B):
-    """K3 (sum and min) and K5 on the CSR-streaming body: bitwise the
-    sequential plain version, K3-min also bitwise the scatter plain
-    version, two runs bitwise equal, K5 the same bits for every `bm`, with
-    the table built by the wrappers or passed in."""
+    """K3 (sum and min) and K5 on the CSR-streaming body, with long tiles
+    of E + 1, E + S - 1, 5,000 and 37,838 entries: bitwise the sequential
+    plain version (long rows in chunks of S), K3-min also bitwise the
+    scatter plain version, two runs bitwise equal, K5 the same bits for
+    every `bm`, with the table built by the wrappers or passed in, and
+    with the long tiles' ring of shared memory or without it (the flag the
+    table carries, overridden here: the kernels are correct either way)."""
     indptr, gather, ev, words, indices, c = _stream_case(
         np.random.default_rng(B), 7001, B, cuda)
-    assert int((indptr[1:] - indptr[:-1]).max()) > csr_tiles.TILE_ENTRIES
-    tiles = torch.from_numpy(csr_tiles.tile_rows(indptr.cpu().numpy())).to(cuda)
+    deg = indptr[1:] - indptr[:-1]
+    E = csr_tiles.tile_entries(int(indptr[-1]))
+    assert int(deg.max()) == 37_838 and int((deg > E).sum()) == 4
+    tiles = csr_tiles.tiles_on(indptr.cpu().numpy(), cuda)
+    assert tiles.ring == 1
+    no_ring = tiles._replace(long_rows=0)
     red = (ev, words, gather, indptr)
     for op, ident in (("sum", 0.0), ("min", float("inf"))):
         want = sr_ref.segment_reduce_seq(*red, op, ident)
-        for t in (None, tiles):
+        for t in (None, no_ring, tiles):
             got = sr.segment_reduce(*red, op, ident, tiles=t)
-            assert torch.equal(_bits(got), _bits(want)), (op, t is None)
+            assert torch.equal(_bits(got), _bits(want)), (op, t)
         if op == "min":
             assert torch.equal(_bits(got), _bits(sr_ref.segment_reduce(*red, op, ident)))
         assert torch.equal(_bits(sr.segment_reduce(*red, op, ident, tiles=tiles)),
                            _bits(got))
     want = spmv_ref.spmv_csr_seq(indptr, indices, c)
     for bm in (1, 8, 128, 256):
-        got = spmv_k.spmv_csr(indptr, indices, c, bm=bm, tiles=tiles)
+        got = spmv_k.spmv_csr(indptr, indices, c, bm=bm,
+                              tiles=no_ring if bm == 8 else tiles)
         assert torch.equal(_bits(got), _bits(want)), bm
     assert torch.equal(_bits(spmv_k.spmv_csr(indptr, indices, c)), _bits(want))
     got = spmv_ops.spmv_csr_rows(indptr, indices, c, indptr.numel() - 1)
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_csr_stream_kernels_without_long_rows_keep_csr_order(cuda, B):
+    """A CSR whose rows all fit a tile (degrees 0..40, as er-1m's at most
+    25): K3-sum and K5 are bitwise a plain loop adding each row's values in
+    CSR order from its first, written here apart from `csr_reduce_seq`, so
+    the long rows' chunked order cannot move such a graph's sums."""
+    indptr, gather, ev, words, indices, c = _stream_case(
+        np.random.default_rng(10 + B), 20_001, B, cuda, hubs=False)
+    deg = (indptr[1:] - indptr[:-1]).long()
+    assert int(deg.max()) <= csr_tiles.tile_entries(int(indptr[-1]))
+
+    def csr_order(vals):
+        out = torch.zeros((deg.numel(),) + tuple(vals.shape[1:]),
+                          dtype=torch.float32, device=cuda)
+        start = indptr[:-1].long()
+        has = deg > 0
+        out[has] = vals[start[has]]
+        for k in range(1, int(deg.max())):
+            rows = deg > k
+            out[rows] = out[rows] + vals[start[rows] + k]
+        return out
+
+    floats = torch.from_numpy(words.cpu().numpy().view(np.uint32).byteswap()
+                              .view(np.float32)).to(cuda)
+    vals = torch.cat([ev, floats])[gather.long()]
+    tiles = csr_tiles.tiles_on(indptr.cpu().numpy(), cuda)
+    assert tiles.ring == 0
+    for t in (tiles, tiles._replace(long_rows=1)):
+        got = sr.segment_reduce(ev, words, gather, indptr, "sum", 0.0, tiles=t)
+        assert torch.equal(_bits(got), _bits(csr_order(vals)))
+        got = spmv_k.spmv_csr(indptr, indices, c, tiles=t)
+        assert torch.equal(_bits(got), _bits(csr_order(c[indices.long()])))
 
 
 @pytest.mark.parametrize("backend", ["fused", "spmv"])

@@ -116,10 +116,48 @@ def test_spmv_csr_sequential_plain_version_matches_reference(n, B):
         want = r_ops.spmv_csr_rows(indptr, indices, col, n, rows=g.csr.rows)
         np.testing.assert_allclose(got.numpy() if B == 1 else got[:, b].numpy(),
                                    want, rtol=1e-5, atol=0)
-    tiles = csr_tiles.tile_rows(indptr, 16)
+    tiles = csr_tiles.tiles_on(indptr, "cpu", 16)
     np.testing.assert_allclose(
         ops.spmv_csr_rows(indptr, indices, c, n, tiles=tiles).numpy(),
         got.numpy(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_spmv_csr_sequential_plain_version_sums_long_rows_in_chunks(B):
+    """A row of 3E + 5 entries (E = tile_entries(nnz)) among short rows:
+    `spmv_csr_seq` sums it in chunks of LONG_CHUNK from its first entry,
+    then the chunk sums in turn (bitwise a float32 loop in that order),
+    the short rows in CSR order, all within rtol 1e-5 of float64."""
+    rng = np.random.default_rng(40 + B)
+    E, S = csr_tiles.MIN_TILE_ENTRIES, csr_tiles.LONG_CHUNK
+    deg = rng.integers(0, 15, size=200)
+    deg[77] = 3 * E + 5
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    assert csr_tiles.tile_entries(int(indptr[-1])) == E
+    indices = rng.integers(0, 200, size=indptr[-1]).astype(np.int32)
+    c = (rng.random((200, B) if B > 1 else 200) + 0.01).astype(np.float32)
+    got = ref.spmv_csr_seq(torch.from_numpy(indptr), torch.from_numpy(indices),
+                           torch.from_numpy(c)).numpy()
+    vals = c[indices]
+
+    def run(row):
+        acc = row[0].copy()
+        for v in row[1:]:
+            acc = (acc + v).astype(np.float32)
+        return acc
+
+    want = np.zeros_like(got)
+    for i in range(200):
+        row = vals[indptr[i]:indptr[i + 1]]
+        if deg[i] > E:
+            want[i] = run(np.stack([run(row[k:k + S])
+                                    for k in range(0, deg[i], S)]))
+        elif deg[i]:
+            want[i] = run(row)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    exact = np.add.reduceat(vals.astype(np.float64), indptr[:-1])
+    exact[deg == 0] = 0
+    np.testing.assert_allclose(got, exact, rtol=1e-5, atol=0)
 
 
 def test_spmv_csr_empty_rows_and_one_long_row():
