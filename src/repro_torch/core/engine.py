@@ -32,10 +32,21 @@ virtual server and uploads packed tables (`FusedSparseShuffle`); every
 iteration encodes every server's coded buffer with K1's packed form,
 decodes every receiver's deliveries with K2, and Reduces with K3 as above.
 Its option `group` (a `torch.distributed` process group whose size P
-divides K, the counterpart of the reference's `mesh`) runs the flat
-exchange across P processes, each encoding and decoding its own K / P
-servers and gathering the rest (`launch/dist.py`); the Map and the Reduce
-run on every rank, whose states are bitwise one another's.
+divides K, the counterpart of the reference's `mesh`) runs the session
+across P processes, each doing its own K / P servers' share
+(`launch/dist.own_share`): it Maps the CSR entries whose source vertex
+its servers Mapped, encodes and decodes their buffers, all-gathering the
+K coded buffers (the only Shuffle traffic between ranks), Reduces its
+servers' rows with K3 from its Map share and its own deliveries, and
+all-gathers the reduced rows (`FusedSparseShuffle.gather_rows`), which
+every rank then finalizes into the whole [n] state. Each rank's state is
+bitwise the single-process session's: the Map is elementwise and K3 sums
+each row in CSR order with the whole graph's tile size. On a card that
+iteration is one CUDA graph, its all-gathers inside, captured at the
+first iteration of each state shape and replayed after it (`_StepGraph`),
+so a rank's host issues one launch an iteration and the ranks meet on
+the device; while the tracer records, the iteration runs op by op, so
+its phases keep their spans.
 
 topology=Topology(R, S) (mode "coded", sparse path, backend "numpy" or
 "fused"): the two-level coded Shuffle of a `HierarchicalPlan`, coded
@@ -96,17 +107,20 @@ What the reference rejects raises its `ValueError`, in its order.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.csr_tiles import tiles_on
+from ..kernels._build import LAUNCHES
+from ..kernels.csr_tiles import tile_entries, tiles_on
 from ..kernels.segment_reduce.ops import segment_reduce
 from ..kernels.spmv.spmv import check_bm, spmv_csr
 from ..launch.mesh import Topology
-from ..obs import get_registry, get_tracer
+from ..obs import (Counter, MetricsRegistry, get_registry, get_tracer,
+                   set_registry)
 from .algorithms import VertexProgram
 from .allocation import Allocation
 from .bitcodec import T_BITS
@@ -278,6 +292,7 @@ class CompiledEngine:
         self.backend_opts = opts
         self.distributed = mode != "single" and alloc is not None
         self.recovery = None                  # faults.RepairStats after fail()
+        self._graphs = None                   # state shape -> _StepGraph
         self.delta_stats = None               # shuffle_plan.DeltaStats after update()
         planned = self.distributed and mode in PLAN_MODES
         if planned and plan is None:
@@ -308,31 +323,49 @@ class CompiledEngine:
         if not self.sparse:
             self._dense_session(planned)
             return
-        self._indptr = _i32(g.csr.indptr, self.device)
-        # K3's and K5's tile table: built once, for any sparse route.
-        self._tiles = tiles_on(g.csr.indptr, self.device)
+        if backend == "fused":
+            self.fused = fused or FusedSparseShuffle(
+                self.hplan or plan, g.csr, alloc, device=self.device,
+                group=opts.get("group"))
+        # On a flat group the rank Maps and Reduces its servers' share.
+        share = self.fused.share if backend == "fused" else None
+        self._own = share is not None
+        if self._own and self.device.type == "cuda":
+            self._graphs = {}
+        indptr, gather = g.csr.indptr, None
+        if self._own:
+            lo = self.fused.shard.servers.start
+            indptr, gather = _own_rows(g.csr, share, self.tables.gather,
+                                       int(plan.ptr[lo]), self.fused.M_local)
+        self._indptr = _i32(indptr, self.device)
+        # K3's and K5's tile table: built once, for any sparse route, with
+        # the whole graph's tile size, so a rank's rows sum as the graph's.
+        self._tiles = tiles_on(indptr, self.device, tile_entries(g.csr.nnz))
         reg = get_registry()
         reg.gauge("reduce_long_rows", "rows on K3 / K5's long-tile path"
                   ).set(self._tiles.long_rows)
         reg.gauge("reduce_long_entries", "CSR entries in the long-tile rows"
                   ).set(self._tiles.long_entries)
-        self._dg = g.device_view(self.device)
+        reg.gauge("reduce_rows", "rows K3 / K5 reduce in this process"
+                  ).set(len(indptr) - 1)
+        reg.gauge("reduce_entries", "CSR entries K3 / K5 read in this process"
+                  ).set(int(indptr[-1]))
+        self._dg = g.device_view(self.device,
+                                 share.map_e if self._own else None)
         if backend == "spmv":
             self.bm = check_bm(opts.get("bm", 128))
             self._indices = _i32(g.csr.indices, self.device)
             return
-        if backend == "fused":
-            self.fused = fused or FusedSparseShuffle(
-                self.hplan or plan, g.csr, alloc, device=self.device,
-                group=opts.get("group"))
-        elif self.hplan is not None:
+        if backend == "numpy" and self.hplan is not None:
             self.dplan = HierarchicalDevicePlan(
                 self.hplan, self.device, self.hplan.edge_tables(g.csr, alloc))
-        elif planned:
+        elif backend == "numpy" and planned:
             self.dplan = DevicePlan(plan, self.device, tables=self.tables,
                                     coded=mode == "coded")
-        self._gather = _i32(self.tables.gather if planned
-                            else np.arange(g.csr.nnz), self.device)
+        if gather is None:
+            gather = (self.tables.gather if planned
+                      else np.arange(g.csr.nnz))
+        self._gather = _i32(gather, self.device)
 
     def _dense_session(self, planned: bool) -> None:
         """The dense path's uploads: the [n, n] device graph, the plan's
@@ -376,6 +409,8 @@ class CompiledEngine:
         eng = object.__new__(CompiledEngine)
         eng.__dict__.update(self.__dict__)
         eng.program = program
+        if self._graphs is not None:         # captured with this program
+            eng._graphs = {}
         return eng
 
     def _derived(self, g: Graph, alloc: Allocation, plan,
@@ -529,22 +564,36 @@ class CompiledEngine:
                                tiles=self._tiles)
                 state = program.finalize_t(acc, state, self._dg)
             return state, self._bits * B
-        with tr.span("phase.map", nnz=self.g.csr.nnz):
+        if self._graphs is not None and not tr.enabled:
+            key = tuple(state.shape)
+            if key not in self._graphs:
+                self._graphs[key] = _StepGraph(self._sparse_step, state)
+            return self._graphs[key](state), self._bits * B
+        return self._sparse_step(state), self._bits * B
+
+    def _sparse_step(self, state: torch.Tensor) -> torch.Tensor:
+        """The fused and numpy routes' round: Map, Shuffle, Reduce and
+        finalize -> state'."""
+        program, tr = self.program, get_tracer()
+        with tr.span("phase.map", nnz=self._dg.indices.numel()):
             edge_vals = program.map_edge_values_t(self._dg, state).contiguous()
         # The exchange emits phase.encode / .exchange / .decode spans.
-        if self.backend == "fused":
+        if self._own:
+            words = self.fused.exchange_own(edge_vals)
+        elif self.backend == "fused":
             words = self.fused.exchange(edge_vals)
         elif self.distributed:
             words = self.dplan.words(edge_vals, self.mode)
         else:
             words = torch.zeros((0,) + tuple(edge_vals.shape[1:]),
                                 dtype=torch.int32, device=self.device)
-        with tr.span("phase.reduce", nnz=self.g.csr.nnz):
+        with tr.span("phase.reduce", nnz=self._gather.numel()):
             acc = segment_reduce(edge_vals, words, self._gather, self._indptr,
                                  program.reduce_op, program.identity,
                                  tiles=self._tiles)
-            state = program.finalize_t(acc, state, self._dg)
-        return state, self._bits * B
+            if self._own:
+                acc = self.fused.gather_rows(acc)   # every rank's rows
+            return program.finalize_t(acc, state, self._dg)
 
     def _step_dense(self, state: torch.Tensor) -> tuple[torch.Tensor, int]:
         """The paper-literal [n, n] round: Map every value, move the plan's
@@ -678,6 +727,8 @@ class CompiledEngine:
                             == 0 or it == start_iter + iters - 1):
                         checkpoint.save(it + 1, state, total_bits, cur.alloc)
             run_sp.set(shuffle_bits=total_bits - start_bits)
+            if cur._graphs:             # not the replayed graph's buffer
+                state = state.clone()
         return EngineResult(state, start_iter + iters, total_bits, self.mode,
                             faults=log)
 
@@ -777,6 +828,87 @@ def restore(directory, program: VertexProgram, g: Graph, *,
     eng = compile(program, g, alloc, mode, path=path, backend=backend,
                   backend_opts=backend_opts, topology=topology, device=device)
     return eng, ckpt
+
+
+class _StepGraph:
+    """One round of a session captured as a CUDA graph and replayed.
+
+    Built at a round's first call on a state of its shape: one round runs
+    op by op on a side stream (the kernels load, the group's communicator
+    starts; its result is dropped), then one is captured, its all-gathers
+    inside, reading and overwriting a static copy of the state. A call
+    copies a state it did not return into that copy, replays, and returns
+    the copy (the caller clones what it keeps past the next call). The
+    registry's counters and the kernels' launch counters
+    (`kernels._build.LAUNCHES`) grow on each replay by what the captured
+    round added; the two rounds above count in a registry of their own and
+    leave the launch counters as they found them, so no round is counted
+    that did not run as one of the caller's.
+    """
+
+    def __init__(self, step, state: torch.Tensor):
+        reg = MetricsRegistry()
+        prev = set_registry(reg)
+        found = collections.Counter(LAUNCHES)
+        try:
+            self.state = state.clone()
+            main = torch.cuda.current_stream(state.device)
+            side = torch.cuda.Stream(state.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                step(self.state)
+            main.wait_stream(side)
+            before = {c: reg.get(c).value for c in reg.names()}
+            warm = collections.Counter(LAUNCHES)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.state.copy_(step(self.state))
+            self.launches = collections.Counter(LAUNCHES)
+            self.launches.subtract(warm)
+        finally:
+            set_registry(prev)
+            LAUNCHES.clear()
+            LAUNCHES.update(found)
+        self.grown = [(m.name, m.help, m.value - before.get(m.name, 0.0))
+                      for m in map(reg.get, reg.names())
+                      if isinstance(m, Counter)]
+
+    def __call__(self, state: torch.Tensor) -> torch.Tensor:
+        if state is not self.state:
+            self.state.copy_(state)
+        self.graph.replay()
+        LAUNCHES.update(self.launches)
+        reg = get_registry()
+        for name, help, amount in self.grown:
+            reg.counter(name, help).inc(amount)
+        return self.state
+
+
+def _own_rows(csr, share, gather: np.ndarray, first: int,
+              count: int) -> tuple[np.ndarray, np.ndarray]:
+    """The Reduce of a rank's own rows (`share.rows`) as a CSR of their
+    own: its row offsets [R_p + 1] and, per entry in CSR order, the
+    position of its value in concat(the rank's share of the Map output,
+    its servers' `count` deliveries, the plan's ``[first, first +
+    count)``), from the whole graph's `gather` table."""
+    deg = np.diff(csr.indptr)[share.rows]
+    indptr = np.zeros(deg.size + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    entry = (np.repeat(csr.indptr[share.rows] - indptr[:-1], deg)
+             + np.arange(indptr[-1]))
+    g = gather[entry]
+    mapped = g < csr.nnz
+    pos = np.full(csr.nnz + 1, -1, dtype=np.int64)
+    pos[share.map_e] = np.arange(share.map_e.size)
+    out = np.where(mapped, pos[np.where(mapped, g, csr.nnz)],
+                   share.map_e.size + g - csr.nnz - first)
+    if (out[mapped] < 0).any() or ((out[~mapped] < share.map_e.size)
+                                   | (out[~mapped] >= share.map_e.size + count)
+                                   ).any():
+        raise RuntimeError("a rank's row reads a value neither its servers "
+                           "Mapped nor were delivered")
+    return indptr, out
 
 
 def _unicast_leftovers(g: Graph, alloc: Allocation, values: np.ndarray,

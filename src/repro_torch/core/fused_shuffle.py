@@ -42,18 +42,27 @@ server's deliveries from them, ORing in the intra-rack words through its
 
 With `group=` (a `torch.distributed` process group of P ranks, P dividing
 K; `launch/dist.py`) the flat exchange runs across processes, the
-counterpart of the reference's one all_gather on its servers mesh. Every
-rank Maps and Reduces the whole graph (replicated, as the reference's
-single controller does); rank p owns the servers ``[p K / P, (p + 1) K /
-P)`` and holds only their rows of the packed tables. Each iteration it
-encodes its servers' buffers with K1, gathers all K buffers [K, W + 1(,
-B)] with one `all_gather_into_tensor` (span `phase.exchange`; the zero
-column W travels with them, so the decode reads the gathered tensor as
-it is), decodes its own receivers' deliveries with K2, and gathers every
-rank's delivered words, padded to the largest rank's count and trimmed
-back, so that every rank holds the [M(, B)] words in the plan's (k, i, j)
-order (span `phase.gather`; like the reference's gather of its
-out_specs, not Shuffle bits).
+counterpart of the reference's one all_gather on its servers mesh. Rank p
+owns the servers ``[p K / P, (p + 1) K / P)`` and their share of the Map
+(`launch/dist.own_share`: the CSR entries whose source vertex they
+Mapped); it holds only their rows of the packed tables, whose entries
+index that share, not the whole [nnz] Map output. Each iteration it
+encodes its servers' buffers with K1 from its share, gathers all K
+buffers [K, W + 1(, B)] with one `all_gather_into_tensor` (span
+`phase.exchange`, with the bits the rank received as `wire_bits`; the
+zero column W travels with them, so the decode reads the gathered tensor
+as it is) and decodes its own receivers' deliveries with K2, stripping
+with side values from its share. The session (`core/engine.py`) takes
+those words as they are (`exchange_own`): each rank Reduces only its own
+rows, and `gather_rows` gathers the reduced rows (span `phase.state`).
+`exchange`, for a caller holding the whole Map output, reads the rank's
+share from it and then gathers every rank's delivered words, padded to
+the largest rank's count and trimmed back, so that every rank holds the
+[M(, B)] words in the plan's (k, i, j) order (span `phase.gather`; like
+the reference's gather of its out_specs, not Shuffle bits). The metrics
+registry counts what each rank receives over the group: the Shuffle's
+bits in `exchange_wire_bits` (with `exchange_rounds`, one a Shuffle) and
+the reduced rows' in `state_wire_bits`.
 
 The two-level exchange runs on a group too, the counterpart of the
 reference's ('racks', 'servers') mesh: `launch/dist.rack_share` gives
@@ -93,7 +102,7 @@ from ..device import resolve_device
 from ..kernels.xor_code.ops import floats_as_words, words_as_floats
 from ..kernels.xor_code.xor_code import (xor_decode_packed, xor_encode_gather,
                                          xor_encode_packed)
-from ..launch.dist import rack_share, server_shard
+from ..launch.dist import own_share, rack_share, server_shard
 from ..launch.mesh import Topology
 from ..obs import get_registry, get_tracer
 from .allocation import Allocation
@@ -688,6 +697,25 @@ def _all_gather(part: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+_WIRE_HELP = {
+    "exchange_wire_bits": "coded-Shuffle bits this rank received from the "
+                          "other ranks of its group",
+    "state_wire_bits": "reduced rows' bits this rank received from the "
+                       "other ranks of its group",
+}
+
+
+def _wire_gather(part: torch.Tensor, group,
+                 counter: str) -> tuple[torch.Tensor, int]:
+    """`_all_gather` of `part` and the bits this rank received (every other
+    rank's part, 32 a word), added to the registry's `counter`; counted
+    from the shapes, so the card is not waited for."""
+    out = _all_gather(part, group)
+    bits = 32 * (out.numel() - part.numel())
+    get_registry().counter(counter, _WIRE_HELP[counter]).inc(bits)
+    return out, bits
+
+
 def _i32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload an index/word table as int32 (uint32 bits kept as-is)."""
     a = np.ascontiguousarray(a)
@@ -723,8 +751,11 @@ class FusedSparseShuffle:
 
     `group` (a `torch.distributed` process group whose size divides K)
     runs the exchange across its ranks, each encoding and decoding its
-    own servers' rows (see the module docstring); every rank returns the
-    same words. A two-level plan takes a group whose ranks own whole
+    own servers' rows (see the module docstring); `exchange` returns the
+    same words on every rank, and on a flat group `exchange_own` returns
+    the rank's own deliveries from its share of the Map (`share`, a
+    `launch/dist.OwnShare`) and `gather_rows` gathers the rows the ranks
+    reduced from them. A two-level plan takes a group whose ranks own whole
     racks or split each rack evenly (`launch/dist.rack_share`; another
     layout raises its `ValueError`).
     """
@@ -745,6 +776,7 @@ class FusedSparseShuffle:
         self.M = int(self.plan.all_k.size)
         p, dev, ptr = self.packed, self.device, self.plan.ptr
         rows = slice(None)
+        self.tables = {}
         if self.shard is not None:
             sh = self.shard
             lo, hi = sh.servers.start, sh.servers.stop
@@ -757,10 +789,25 @@ class FusedSparseShuffle:
             keep = (np.arange(self.M_pad)[None, :] < counts[:, None]).ravel()
             self._trim = (None if keep.all() else
                           torch.from_numpy(np.flatnonzero(keep)).to(dev))
-        self.tables = {name: _upload(
-            np.ascontiguousarray(getattr(p, name)[rows]), dev) for name in (
+        cut = {name: getattr(p, name)[rows] for name in (
             "enc_e", "enc_code", "dec_pos", "dec_code", "strip_e",
             "strip_code")}
+        if self.share is not None:
+            # The rank's entries as positions in its share of the Map
+            # (its length, as nnz was, the zero word).
+            local = np.full(self.nnz + 1, -1, dtype=np.int32)
+            local[self.share.map_e] = np.arange(self.share.map_e.size)
+            local[self.nnz] = self.share.map_e.size
+            for name in ("enc_e", "strip_e"):
+                cut[name] = local[cut[name]]
+                if (cut[name] < 0).any():
+                    raise RuntimeError(f"{name} names an entry this rank's "
+                                       "servers did not Map")
+            self.tables["map_e"] = _i32(self.share.map_e, dev)
+            self.tables["order"] = _i32(self.share.order, dev)
+            self._rank_gauges()
+        self.tables.update({name: _upload(np.ascontiguousarray(a), dev)
+                            for name, a in cut.items()})
         self.tables["book"] = _upload(p.book, dev)
         self.tables["ptr"] = _i32(ptr, dev)
         if p.direct_e is not None:
@@ -772,6 +819,22 @@ class FusedSparseShuffle:
             self.tables["loc_e"] = _upload(
                 np.minimum(p.loc_e, max(self.nnz - 1, 0)).astype(np.int32), dev)
             self.tables["loc_pad"] = torch.from_numpy(p.loc_e >= self.nnz).to(dev)
+
+    def _rank_gauges(self) -> None:
+        """The registry's gauges of this rank's share of the Shuffle: the
+        deliveries its servers receive, those of them coded, and the
+        coded bits its servers send; over the ranks they sum to the
+        plan's M, P and coded bits."""
+        own = np.arange(self.shard.servers.start, self.shard.servers.stop)
+        plan, reg = self.plan, get_registry()
+        reg.gauge("shuffle_rank_deliveries", "deliveries this rank's "
+                  "servers receive in a Shuffle").set(self.M_local)
+        reg.gauge("shuffle_rank_coded_deliveries", "of them, those carried "
+                  "by coded multicasts").set(int(np.isin(plan.pair_k,
+                                                         own).sum()))
+        reg.gauge("shuffle_rank_coded_bits", "multicast bits this rank's "
+                  "servers send in a Shuffle").set(
+                      int(plan.col_width[np.isin(plan.col_sender, own)].sum()))
 
     def rebind(self, plan: ShufflePlan | HierarchicalPlan, csr: CSR,
                alloc: Allocation) -> "FusedSparseShuffle":
@@ -817,7 +880,7 @@ class FusedSparseShuffle:
                 "a non-flat Topology needs a HierarchicalPlan "
                 "(core.shuffle_plan.compile_hierarchical), got a flat "
                 "ShufflePlan")
-        self.shard = self.racks = None
+        self.shard = self.racks = self.share = None
         if self.group is not None:
             if isinstance(plan, HierarchicalPlan):
                 self.racks = racks or rack_share(self.group, topology,
@@ -825,6 +888,8 @@ class FusedSparseShuffle:
                 self.shard = self.racks.shard
             else:
                 self.shard = server_shard(self.group, plan.K, self.device)
+                self.share = own_share(self.shard, alloc.map_sets,
+                                       alloc.reduce_owner, csr.indices)
         self.topology = topology
         if isinstance(plan, HierarchicalPlan):
             self.hplan, self.plan = plan, plan.flat
@@ -855,6 +920,44 @@ class FusedSparseShuffle:
         return self._exchange_bits(edge_vals.contiguous().view(torch.int32),
                                    swap=True)
 
+    def exchange_own(self, own_vals: torch.Tensor) -> torch.Tensor:
+        """One coded Shuffle of this rank's share on a flat group.
+
+        own_vals [E_p(, B)] float32, the Map output at the entries
+        `share.map_e` -> this rank's servers' delivered codec-order words
+        [M_local(, B)] int32, in the plan's flat (k, i, j) order (the
+        slice ``[ptr[lo], ptr[hi])`` of what `exchange` returns). No
+        delivered word leaves the rank.
+        """
+        if self.share is None:
+            raise ValueError("exchange_own runs the flat exchange on a group")
+        n_own = self.share.map_e.size
+        if own_vals.dtype != torch.float32 or own_vals.shape[0] != n_own:
+            raise ValueError(
+                f"own_vals must be float32 [{n_own}(, B)], got "
+                f"{own_vals.dtype} {tuple(own_vals.shape)}")
+        return self._exchange_bits(own_vals.contiguous().view(torch.int32),
+                                   swap=True, own=True)
+
+    def gather_rows(self, part: torch.Tensor) -> torch.Tensor:
+        """Every rank's reduced rows, in vertex order, on every rank.
+
+        part [R_p(, B)]: this rank's rows `share.rows` -> [n(, B)], by one
+        `all_gather_into_tensor` of the parts padded to `share.pad` rows
+        and one index (span `phase.state`; the bits received in the
+        registry's `state_wire_bits`).
+        """
+        sh = self.share
+        with get_tracer().span("phase.state", ranks=self.shard.world) as sp:
+            pad = sh.pad - part.shape[0]
+            if pad:
+                part = torch.cat([part, part.new_zeros(
+                    (pad,) + tuple(part.shape[1:]))])
+            rows, bits = _wire_gather(part, self.shard.group,
+                                      "state_wire_bits")
+            sp.set(bits=bits)
+            return rows.index_select(0, self.tables["order"])
+
     def _rack_words(self, src: torch.Tensor) -> torch.Tensor:
         """Phase A of the two-level exchange on a group: this rank's
         racks' Map words X, in `pack_rack_share`'s layout. The rank reads
@@ -867,7 +970,11 @@ class FusedSparseShuffle:
             return mine
         return _all_gather(mine, self.racks.servers_group)
 
-    def _exchange_bits(self, src: torch.Tensor, swap: bool) -> torch.Tensor:
+    def _exchange_bits(self, src: torch.Tensor, swap: bool,
+                       own: bool = False) -> torch.Tensor:
+        """The exchange of `src` (the whole Map output's bits, or with
+        `own` this rank's share of them): the plan's delivered words,
+        or with `own` this rank's."""
         t, tr = self.tables, get_tracer()
         B = 1 if src.dim() == 1 else int(src.shape[1])
         sh, racks = self.shard, self.racks
@@ -876,6 +983,8 @@ class FusedSparseShuffle:
                      **ranks):
             if racks is not None:
                 src = self._rack_words(src)
+            elif sh is not None and not own:
+                src = src.index_select(0, t["map_e"])
             buf = xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"],
                                     swap=swap)
         attrs = dict(backend="fused", bits=self.schedule_bits * B, B=B,
@@ -883,11 +992,14 @@ class FusedSparseShuffle:
         if self.hplan is not None:
             inter, intra = (b * B for b in self.rack_bits)
             attrs.update(inter_rack_bits=inter, intra_rack_bits=intra)
-        with tr.span("phase.exchange", **attrs):
-            if racks is not None:
-                buf = _all_gather(buf, racks.racks_group)
-            elif sh is not None:
-                buf = _all_gather(buf, sh.group)
+        with tr.span("phase.exchange", **attrs) as sp:
+            if sh is not None:
+                buf, wire = _wire_gather(buf, sh.group if racks is None
+                                         else racks.racks_group,
+                                         "exchange_wire_bits")
+                get_registry().counter(
+                    "exchange_rounds", "coded Shuffles run on a group").inc()
+                sp.set(wire_bits=wire)
         if self.hplan is not None:
             _count_rack_bits(inter, intra)
         with tr.span("phase.decode", backend="fused", B=B, deliveries=self.M):
@@ -896,7 +1008,7 @@ class FusedSparseShuffle:
                 t["strip_code"], t["book"], t["ptr"], swap=swap,
                 total=self.M if sh is None else self.M_local,
                 direct_e=t.get("direct_e"))
-        if sh is None:
+        if sh is None or own:
             return words
         with tr.span("phase.gather", B=B, deliveries=self.M, ranks=sh.world):
             pad = self.M_pad - self.M_local

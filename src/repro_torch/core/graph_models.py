@@ -395,21 +395,27 @@ class Graph:
             dd = cache[device] = DenseDeviceGraph(self, device)
         return dd
 
-    def device_view(self, device: torch.device) -> DeviceGraph:
-        """The device Map's tensors on `device`, uploaded once and cached."""
+    def device_view(self, device: torch.device,
+                    entries: np.ndarray | None = None) -> DeviceGraph:
+        """The device Map's tensors on `device`, uploaded once and cached.
+        With `entries` (ascending CSR entries), the tensors of a Map over
+        those entries only, uploaded afresh: a rank's share of the Map on
+        a process group."""
         device = torch.device(device)
         cache = self.__dict__.setdefault("_device_views", {})
-        dg = cache.get(device)
+        dg = cache.get(device) if entries is None else None
         if dg is None:
-            csr = self.csr
+            cut = slice(None) if entries is None else entries
             deg = np.maximum(self.degrees(), 1).astype(np.float32)
             dg = DeviceGraph(
                 n=self._n,
-                indices=torch.from_numpy(csr.indices.astype(np.int64)).to(device),
+                indices=torch.from_numpy(
+                    self.csr.indices[cut].astype(np.int64)).to(device),
                 deg=torch.from_numpy(deg).to(device),
                 edge_weights=torch.from_numpy(
-                    np.ascontiguousarray(self.edge_weights())).to(device))
-            cache[device] = dg
+                    np.ascontiguousarray(self.edge_weights()[cut])).to(device))
+            if entries is None:
+                cache[device] = dg
         return dg
 
     def padded(self, n2: int) -> "Graph":

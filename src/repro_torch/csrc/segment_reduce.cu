@@ -30,11 +30,13 @@
 #include "csr_stream.cuh"
 
 // out[n, B] float32 = per-row `op` over the gathered values, a block per
-// tile of tile_row [T + 1]; gather 16-byte aligned, nnz its length; rows
+// tile of tile_row [T + 1]; edge_vals [nnz, B], gather 16-byte aligned and
+// n_idx long (nnz, or fewer for a Reduce of some rows of the graph); rows
 // longer than E entries in chunks of S, through the ring of shared memory
 // where `ring` (the rows include such rows).
 extern "C" int segment_reduce(const void* edge_vals, long long nnz,
                               const void* delivered, const void* gather,
+                              long long n_idx,
                               const void* indptr, const void* tile_row, int T,
                               void* out, int B, int op_min, float identity,
                               int E, int S, int ring, void* stream) {
@@ -46,7 +48,7 @@ extern "C" int segment_reduce(const void* edge_vals, long long nnz,
   const cudaError_t err = repro::csr::reduce(
       static_cast<const int32_t*>(tile_row), T,
       static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(gather),
-      static_cast<int>(nnz), src, align, static_cast<float*>(out), B, E, S, ring != 0, op_min != 0, identity,
+      static_cast<int>(n_idx), src, align, static_cast<float*>(out), B, E, S, ring != 0, op_min != 0, identity,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -7,14 +7,16 @@ than that, a long tile, which the block walks in parts. E is
 `tile_entries(nnz)`: 2048, or less where a small graph would leave the
 card short of blocks. A long tile's row is summed in chunks of
 `LONG_CHUNK` entries from its first (`segment_reduce/ref.csr_reduce_seq`
-gives the order); the wrappers pass E and `LONG_CHUNK` to the kernels, so
-Python and CUDA agree on both. The
+gives the order); the wrappers pass the table's E and `LONG_CHUNK` to the
+kernels, so Python and CUDA agree on both. The
 table is `tile_row` [T + 1] int32, tile t being rows tile_row[t] ..
 tile_row[t + 1] - 1. It depends on `indptr` only, not on the payload
 width B, so a session builds it once for every route
-(`core/engine.CompiledEngine`), as a `Tiles` that also counts the long
-rows; the op-level wrappers build it from `indptr` when the caller passes
-none.
+(`core/engine.CompiledEngine`), as a `Tiles` that carries the E it was
+built with and counts the long rows at that E; the op-level wrappers
+build it from `indptr` when the caller passes none. A Reduce of some rows
+of a graph (a rank's own rows on a process group) builds its table with
+the graph's E, so its rows are cut, and summed, as the graph's are.
 """
 from __future__ import annotations
 
@@ -66,22 +68,24 @@ def tile_rows(indptr, entries: int | None = None) -> np.ndarray:
     return np.asarray(bounds, dtype=np.int32)
 
 
-def long_rows(indptr) -> tuple[int, int]:
+def long_rows(indptr, entries: int | None = None) -> tuple[int, int]:
     """(rows, entries) on the kernels' long-tile path: the rows of more than
-    `tile_entries(nnz)` entries, and the entries they hold."""
+    `entries` (by default `tile_entries(nnz)`) entries, and the entries
+    they hold."""
     ip = np.asarray(indptr, dtype=np.int64)
     deg = np.diff(ip)
-    long = deg > tile_entries(int(ip[-1]))
+    long = deg > (tile_entries(int(ip[-1])) if entries is None else entries)
     return int(long.sum()), int(deg[long].sum())
 
 
 class Tiles(NamedTuple):
-    """The tile table on a device, with the long-tile rows counted beside
-    it when it is built: all that a launch reads of `indptr`, so a call
-    copies nothing back to the host."""
+    """The tile table on a device, with the E it was built with and the
+    long-tile rows counted at that E beside it: all that a launch reads of
+    `indptr`, so a call copies nothing back to the host."""
     table: torch.Tensor     # tile_row [T + 1] int32
-    long_rows: int          # rows of more than tile_entries(nnz) entries
+    long_rows: int          # rows of more than `entries` entries
     long_entries: int       # the entries they hold
+    entries: int            # E: the kernels' tile size and long-row bound
 
     @property
     def ring(self) -> int:
@@ -92,11 +96,13 @@ class Tiles(NamedTuple):
 
 
 def tiles_on(indptr, device, entries: int | None = None) -> Tiles:
-    """`Tiles` for a host CSR row pointer [n + 1], the table on `device`
-    (`entries` as in `tile_rows`)."""
+    """`Tiles` for a host CSR row pointer [n + 1], the table on `device`:
+    E is `entries`, by default `tile_entries(nnz)`."""
     ip = np.asarray(indptr)
+    if entries is None:
+        entries = tile_entries(int(ip[-1]))
     return Tiles(torch.from_numpy(tile_rows(ip, entries)).to(device),
-                 *long_rows(ip))
+                 *long_rows(ip, entries), entries)
 
 
 def tiles_for(indptr: torch.Tensor, tiles: Tiles | None) -> Tiles:

@@ -14,10 +14,10 @@ from .. import _build, csr_tiles
 from . import ref
 
 _SIGS = {
-    "segment_reduce": (_build.P, _build.I64, _build.P, _build.P, _build.P,
-                       _build.P, _build.I32, _build.P, _build.I32, _build.I32,
-                       _build.F32, _build.I32, _build.I32, _build.I32,
-                       _build.P),
+    "segment_reduce": (_build.P, _build.I64, _build.P, _build.P, _build.I64,
+                       _build.P, _build.P, _build.I32, _build.P, _build.I32,
+                       _build.I32, _build.F32, _build.I32, _build.I32,
+                       _build.I32, _build.P),
 }
 OPS = ("sum", "min")
 MAX_B = 65535                                   # grid.y walks the columns
@@ -32,10 +32,13 @@ def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
     entry order; a long row in chunks).
 
     edge_vals [nnz(, B)] float32 Map output; delivered [M(, B)] int32 codec
-    words from the decode; gather [nnz] int32 into the concatenation;
+    words from the decode; gather [indptr[n]] int32 into the concatenation
+    (nnz entries, or fewer where only some rows of the graph are reduced);
     indptr [n + 1] int32 -> [n(, B)] float32 (identity for empty rows).
     `tiles` is the kernel's tile table (`csr_tiles.tiles_on(indptr, dev)`;
-    built here when None); the CPU does not need it.
+    built here when None), whose E the kernel cuts long rows at: a Reduce
+    of some rows of a graph passes a table built with the graph's E; the
+    CPU does not need it.
     """
     if op not in OPS:
         raise ValueError(f"unknown reduce op {op!r}; expected one of {OPS}")
@@ -50,7 +53,7 @@ def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
     _build.check_tensor(edge_vals, "edge_vals", torch.float32)
     _build.check_tensor(delivered, "delivered", torch.int32,
                         (delivered.shape[0],) + tuple(edge_vals.shape[1:]))
-    _build.check_tensor(gather, "gather", torch.int32, (nnz,))
+    _build.check_tensor(gather, "gather", torch.int32, (gather.shape[0],))
     _build.check_tensor(indptr, "indptr", torch.int32)
     if gather.data_ptr() % 16:
         raise ValueError("gather must start 16-byte aligned")
@@ -61,9 +64,9 @@ def segment_reduce(edge_vals: torch.Tensor, delivered: torch.Tensor,
     with torch.cuda.device(edge_vals.device):
         code = lib.segment_reduce(
             edge_vals.data_ptr(), nnz, delivered.data_ptr(), gather.data_ptr(),
-            indptr.data_ptr(), tiles.table.data_ptr(), tiles.table.numel() - 1,
-            out.data_ptr(), B, int(op == "min"), float(identity),
-            csr_tiles.tile_entries(nnz), csr_tiles.LONG_CHUNK,
+            gather.shape[0], indptr.data_ptr(), tiles.table.data_ptr(),
+            tiles.table.numel() - 1, out.data_ptr(), B, int(op == "min"),
+            float(identity), tiles.entries, csr_tiles.LONG_CHUNK,
             tiles.ring, _build.stream_of(edge_vals))
     _build.check(lib, "segment_reduce", code)
     _build.LAUNCHES["segment_reduce"] += 1

@@ -98,8 +98,7 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, c: torch.Tensor,
         code = lib.spmv_csr(indptr.data_ptr(), indices.data_ptr(),
                             indices.numel(), c.data_ptr(), out.data_ptr(),
                             tiles.table.data_ptr(), tiles.table.numel() - 1, B,
-                            csr_tiles.tile_entries(indices.numel()),
-                            csr_tiles.LONG_CHUNK, tiles.ring,
+                            tiles.entries, csr_tiles.LONG_CHUNK, tiles.ring,
                             _build.stream_of(c))
     _build.check(lib, "spmv_csr", code)
     _build.LAUNCHES["spmv_csr"] += 1

@@ -20,6 +20,12 @@ over which each rank gathers its rack's Map words (phase A), and the
 'racks' subgroup, the ranks at the same place within their racks, over
 which the coded rack buffers are gathered (phase B).
 
+`own_share` gives a rank of a flat session its share of the Map and the
+Reduce: the CSR entries whose source vertex its servers Mapped, the
+vertices its servers Reduce, and where each vertex's row lands when every
+rank's reduced rows are gathered, so that each rank Maps and Reduces only
+what its servers would.
+
 Nothing here creates a group: the caller initialises `torch.distributed`
 (for example ``dist.init_process_group(backend, store=dist.FileStore(path,
 P), rank=p, world_size=P)``, which opens no port) and passes the group,
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 _DEVICE_OF_BACKEND = {"nccl": "cuda", "gloo": "cpu"}
@@ -78,6 +85,38 @@ def server_shard(group, K: int, device: torch.device | None = None) -> ServerSha
         raise ValueError(f"a {backend} group moves {want} tensors; the session "
                          f"runs on {device}")
     return ServerShard(group, world, rank, K)
+
+
+@dataclasses.dataclass(frozen=True)
+class OwnShare:
+    """What one rank Maps and Reduces of a flat session on a group."""
+
+    map_e: np.ndarray             # [E_p] int64 CSR entries its servers Mapped
+    rows: np.ndarray              # [R_p] int64 vertices its servers Reduce
+    pad: int                      # the most rows any rank Reduces
+    order: np.ndarray             # [n] int64 vertex -> row in the [P pad] gather
+
+
+def own_share(shard: ServerShard, map_sets: np.ndarray,
+              reduce_owner: np.ndarray, indices: np.ndarray) -> OwnShare:
+    """This rank's share of a flat session of `shard.K` servers: the CSR
+    entries (`indices`, each entry's source vertex) whose source one of its
+    servers Mapped (`map_sets` [K, n]), and the vertices its servers Reduce
+    (`reduce_owner` [n]), both ascending. Rank q's rows, padded to the most
+    any rank holds, fill rows ``[q pad, (q + 1) pad)`` of a gather over the
+    group; `order` reads vertex order back from it."""
+    own = shard.servers
+    mapped = map_sets[own.start:own.stop].any(axis=0)
+    rank_of = np.asarray(reduce_owner) // shard.per_rank
+    counts = np.bincount(rank_of, minlength=shard.world)
+    pad = int(counts.max(initial=0))
+    by_rank = np.argsort(rank_of, kind="stable")
+    first = np.cumsum(counts) - counts
+    order = np.empty(rank_of.size, dtype=np.int64)
+    order[by_rank] = (np.repeat(np.arange(shard.world) * pad, counts)
+                      + np.arange(rank_of.size) - np.repeat(first, counts))
+    return OwnShare(np.flatnonzero(mapped[indices]),
+                    np.flatnonzero(rank_of == shard.rank), pad, order)
 
 
 @dataclasses.dataclass(frozen=True)

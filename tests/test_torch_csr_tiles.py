@@ -76,7 +76,8 @@ def test_tiles_reject_bad_sizes_and_tables():
     assert built.table.tolist() == [0, 2] and built.ring == 0
     assert csr_tiles.tiles_for(ip, built) is built
     with pytest.raises(ValueError, match="int32"):
-        csr_tiles.tiles_for(ip, csr_tiles.Tiles(torch.tensor([0, 2]), 0, 0))
+        csr_tiles.tiles_for(ip, csr_tiles.Tiles(torch.tensor([0, 2]), 0, 0,
+                                                256))
     with pytest.raises(ValueError, match="Tiles"):
         csr_tiles.tiles_for(ip, built.table)
 
@@ -100,6 +101,23 @@ def test_long_rows_counts_rows_past_the_kernels_threshold(deg, want):
     assert csr_tiles.long_rows(np.concatenate([[0], np.cumsum(deg)])) == want
 
 
+def test_some_rows_of_a_graph_are_counted_at_the_graphs_tile_size():
+    """A rank's own rows (every fourth row of a graph of 1,232,000 entries,
+    E = 2048) hold 308,000 entries, whose own E would be 512: built with
+    the graph's E, their table counts no long row and asks no ring, as
+    the graph's does, and carries that E to the kernels."""
+    deg = np.full(1232, 1000)
+    sub = np.concatenate([[0], np.cumsum(deg[::4])])
+    E = csr_tiles.tile_entries(int(deg.sum()))
+    assert (E, csr_tiles.tile_entries(int(sub[-1]))) == (2048, 512)
+    tiles = csr_tiles.tiles_on(sub, "cpu", E)
+    assert tiles[1:] == (0, 0, E) and tiles.ring == 0
+    np.testing.assert_array_equal(tiles.table.numpy(),
+                                  csr_tiles.tile_rows(sub, E))
+    own = csr_tiles.tiles_on(sub, "cpu")       # the sub-CSR's own E
+    assert own[1:] == (308, 308_000, 512) and own.ring == 1
+
+
 @pytest.mark.parametrize("model", ["power_law", "er"])
 def test_session_sets_the_long_row_gauges(model):
     n = divisible_n(3000, 4, 2)
@@ -118,7 +136,7 @@ def test_session_sets_the_long_row_gauges(model):
     long = deg > csr_tiles.tile_entries(g.csr.nnz)
     assert got == (long.sum(), deg[long].sum()) == csr_tiles.long_rows(
         g.csr.indptr)
-    assert got == eng._tiles[1:]
+    assert got == eng._tiles[1:3]
     # The launch's ring of shared memory: as the session's table carries
     # it, and the same where a wrapper builds the table from indptr.
     indptr = torch.from_numpy(g.csr.indptr.astype(np.int32))

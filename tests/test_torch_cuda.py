@@ -32,7 +32,8 @@ demoted pairs) and the packed K1 / K2 on a rebound session's tables
 (`update`, and with a sender's columns and a receiver's deliveries taken
 out), the packed K1 / K2 on each rank's rows of a P-rank group's tables
 (P = 2 and 4, K = 4 and 8, no process group needed) and the fused route on
-a one-rank NCCL group bitwise the virtual route, the reduced mamba2-370m
+a one-rank NCCL group bitwise the virtual route, also as replayed CUDA
+graph rounds at two state shapes, the reduced mamba2-370m
 and zamba2-1.2b served on the card (the kernel prefill against the plain
 chunked prefill and the decode loop), `launch.serve.main` for gemma2-27b,
 zamba2-1.2b, mamba2-370m, deepseek-v2-236b and llama4-maverick-400b-a17b,
@@ -807,6 +808,40 @@ def test_csr_stream_kernels_without_long_rows_keep_csr_order(cuda, B):
         assert torch.equal(_bits(got), _bits(csr_order(c[indices.long()])))
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_k3_on_some_rows_is_bitwise_the_graphs_reduce(cuda, B):
+    """K3 over every fourth row of a CSR with long tiles (a rank's own rows
+    on a process group), its gather the graph's at those rows and E the
+    graph's: bitwise the graph's Reduce at those rows, with the gather
+    shorter than the Map output, and with the Map output cut shorter than
+    the gather (its tail moved to the front of the delivered words)."""
+    indptr, gather, ev, words, _, _ = _stream_case(
+        np.random.default_rng(20 + B), 7001, B, cuda)
+    E = csr_tiles.tile_entries(int(indptr[-1]))
+    full = sr.segment_reduce(ev, words, gather, indptr, "sum", 0.0)
+    ip = indptr.cpu().numpy().astype(np.int64)
+    rows = np.arange(0, ip.size - 1, 4)
+    rows[-1] = np.flatnonzero(np.diff(ip) == 37_838)[0]   # the hub row too
+    rows = np.unique(rows)
+    deg = np.diff(ip)[rows]
+    sub = np.concatenate([[0], np.cumsum(deg)])
+    entry = np.repeat(ip[rows] - sub[:-1], deg) + np.arange(sub[-1])
+    g_sub = gather[torch.from_numpy(entry).to(cuda)].contiguous()
+    ip_sub = torch.from_numpy(sub.astype(np.int32)).to(cuda)
+    tiles = csr_tiles.tiles_on(sub, cuda, E)
+    want = _bits(full[torch.from_numpy(rows).to(cuda)])
+    cut = int(g_sub.numel()) // 2                  # Map output < gather
+    moved = ev[cut:].contiguous().view(torch.int32).cpu().numpy()
+    moved = torch.from_numpy(moved.view(np.uint32).byteswap().view(np.int32)
+                             ).to(cuda)
+    for vals, delivered in ((ev, words),
+                            (ev[:cut].contiguous(),
+                             torch.cat([moved, words]).contiguous())):
+        got = sr.segment_reduce(vals, delivered, g_sub, ip_sub, "sum", 0.0,
+                                tiles=tiles)
+        assert torch.equal(_bits(got), want), vals.shape[0]
+
+
 @pytest.mark.parametrize("backend", ["fused", "spmv"])
 def test_power_law_session_matches_oracle(cuda, backend):
     """A Chung-Lu power-law graph (gamma 2.1, n about 20,000) with rows of
@@ -1273,6 +1308,60 @@ def test_nccl_world_one_group_is_the_virtual_route(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+def test_own_share_rounds_replay_as_cuda_graphs(cuda, tmp_path):
+    """A session on a one-rank NCCL group runs its rounds as one CUDA
+    graph a state shape (all-gathers inside): jobs from two starts at
+    B = 1 and one at B = 3 bitwise the virtual route's, a job's state
+    untouched by the next job, the registry's `exchange_rounds` and K3's
+    launch counter grown by one a round (a replay counts the captured
+    round's launches; the warm-up and the capture count none), and with
+    the tracer on the rounds run op by op (their phase spans recorded) to
+    the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch import obs
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    prev = obs.set_registry(obs.MetricsRegistry())
+    try:
+        g, virt = _session(cuda)
+        grp = engine.compile(algo.pagerank(), g, virt.alloc, plan=virt.plan,
+                             path="sparse", backend="fused", device=cuda,
+                             group=dist.group.WORLD)
+        rng = np.random.default_rng(7)
+        x = [rng.random(g.n).astype(np.float32) for _ in range(2)]
+        x.append(rng.random((g.n, 3)).astype(np.float32))
+        _build.LAUNCHES.clear()
+        got = [grp.run(6, state=s) for s in x]
+        torch.cuda.synchronize()
+        first = got[0].state.clone()
+        grp.run(6, state=x[1])
+        assert torch.equal(got[0].state, first)
+        assert _build.LAUNCHES["segment_reduce"] == 24
+        assert set(grp._graphs) == {(g.n,), (g.n, 3)}
+        assert obs.get_registry().get("exchange_rounds").value == 24
+        for s, a in zip(x, got):
+            b = virt.run(6, state=s)
+            assert torch.equal(a.state.view(torch.int32),
+                               b.state.view(torch.int32))
+            assert a.shuffle_bits == b.shuffle_bits
+        tracer = obs.set_tracer(obs.Tracer(enabled=True))
+        try:
+            traced = grp.run(6, state=x[0])
+            spans = {sp.name for sp in obs.get_tracer().spans()}
+        finally:
+            obs.set_tracer(tracer)
+        assert {"phase.map", "phase.exchange", "phase.state"} <= spans
+        assert torch.equal(traced.state.view(torch.int32),
+                           first.view(torch.int32))
+    finally:
+        obs.set_registry(prev)
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
 def test_nccl_world_one_two_level_group_is_the_virtual_route(cuda, tmp_path,
                                                               shape):
@@ -1375,29 +1464,32 @@ def _rank_exchanges(monkeypatch, g, eng, P, dev):
 @pytest.mark.parametrize("K,r,P", [(4, 2, 2), (4, 2, 4), (8, 3, 2), (8, 3, 4)])
 def test_packed_kernels_on_each_ranks_rows(cuda, monkeypatch, K, r, P, B):
     """The shapes the group route gives K1 and K2, without a process
-    group: K1 on each rank's K / P server rows, the buffers concatenated
-    in rank order (what the all-gather hands every rank), then K2 for each
-    rank's receivers on the K senders' buffer. Each launch is bitwise its
-    plain version, the buffer bitwise the whole session's K1 and the
-    words, concatenated in rank order, bitwise the virtual route's."""
+    group: K1 on each rank's K / P server rows, reading the rank's share
+    of the Map output (its `map_e` entries), the buffers concatenated in
+    rank order (what the all-gather hands every rank), then K2 for each
+    rank's receivers on the K senders' buffer, stripping from the rank's
+    share. Each launch is bitwise its plain version, the buffer bitwise
+    the whole session's K1 and the words, concatenated in rank order,
+    bitwise the virtual route's."""
     g, eng = _session(cuda, n=2000, K=K, r=r)
     ev, words = _hold_packed(cuda, g, eng, B)
     src, t = ev.view(torch.int32), eng.fused.tables
     whole = xc.xor_encode_packed(src, t["enc_e"], t["enc_code"], t["book"])
     ranks = _rank_exchanges(monkeypatch, g, eng, P, cuda)
-    bufs = []
+    bufs, shares = [], []
     for rk in ranks:
         t = rk.tables
         assert t["enc_e"].shape[0] == K // P
-        enc = (src, t["enc_e"], t["enc_code"], t["book"])
+        shares.append(src.index_select(0, t["map_e"]))
+        enc = (shares[-1], t["enc_e"], t["enc_code"], t["book"])
         bufs.append(xc.xor_encode_packed(*enc))
         assert torch.equal(bufs[-1], xref.xor_encode_packed(*enc))
     buf = torch.cat(bufs)
     assert torch.equal(buf, whole)
     got = []
-    for rk in ranks:
+    for rk, share in zip(ranks, shares):
         t = rk.tables
-        dec = (src, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
+        dec = (share, buf, t["dec_pos"], t["dec_code"], t["strip_e"],
                t["strip_code"], t["book"], t["ptr"])
         got.append(xc.xor_decode_packed(*dec, total=rk.M_local))
         assert torch.equal(got[-1], xref.xor_decode_packed(*dec))

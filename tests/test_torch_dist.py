@@ -13,8 +13,9 @@ per rank. On every rank:
 * `update` by an `EdgeDelta` keeps the group and stays bitwise the
   single-process session's update.
 
-The ranks' words and states are then compared with each other (the Map
-and the Reduce run replicated, so every rank holds the same bits) and with
+The ranks' words and states are then compared with each other (each rank
+Maps and Reduces its own share and gathers the reduced rows, so every
+rank holds the same bits) and with
 the JAX package's on the same graph: the words bitwise its
 `execute_coded_sparse`, sssp and multi_sssp bitwise its `reference_run`,
 pagerank within rtol 1e-5 of it. The world-2 case
